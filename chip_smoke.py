@@ -1,0 +1,375 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port of PF-OLA (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
+holds each against its plain PyTorch version, runs the paper's query loop
+through the port's public entry points on TPC-H lineitem at 234,881,024
+rows (P=8 partitions x C=14,336 chunks x L=2048, about SF 39 — the scale one
+80 GB card holds; the paper's 48e9 rows do not fit), checks the answers
+against a float64 oracle, and times every kernel beside its bound.
+
+Exits non-zero, printing no result, without a CUDA device or outside a
+checkout of the repository.  The last line is the run's JSON summary.
+"""
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SEED = 12
+P, C, L = 8, 14_336, 2048
+ROWS = P * C * L
+ROUNDS = 16
+DEVICE = "cuda"
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+F32_FLOPS_PER_S = 67e12  # H100 SXM float32, no tensor cores
+SUM_RTOL = 1e-5  # f32 sums: the summation order differs from the plain version
+ORACLE_RTOL = 1e-3  # finals against the float64 exact answer
+K1 = "src/repro/kernels/fused_agg.py:363"
+K2 = "src/repro/kernels/fused_agg.py:454"
+SOURCE = "src/repro_torch/kernels/csrc/fused_agg.cu"
+
+
+def fail(msg: str):
+    raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def say(phase: str, **kv) -> None:
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()), flush=True)
+
+
+def main() -> None:
+    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        fail("run from a checkout of the repository (src/repro_torch missing)")
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a GPU")
+
+    import repro_torch as T
+    from repro_torch import randomize, scan
+    from repro_torch.data import tpch
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import fused_agg as FK
+
+    dev = torch.device(DEVICE)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    say("device", name=torch.cuda.get_device_name(0), torch=torch.__version__,
+        cuda=torch.version.cuda, smi=repr(smi))
+
+    # -- 1. build -----------------------------------------------------------
+    t0 = time.perf_counter()
+    secs = _build.build_all()
+    say("build", seconds=f"{time.perf_counter() - t0:.3f}",
+        per_source={k: round(v, 3) for k, v in secs.items()})
+    for line in _build.lib_path("fused_agg").with_suffix(".log").read_text().splitlines():
+        if "Used" in line or "spill" in line:
+            print("  ptxas:", line.strip())
+
+    # -- data: generated, globally randomized and packed on the device ------
+    t0 = time.perf_counter()
+    cols = tpch.generate_lineitem(ROWS, num_suppliers=tpch.Q1_LARGE_SUPPLIERS,
+                                  seed=SEED, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+    parts = randomize.randomize_global(cols, gen, P)
+    del cols
+    shards = randomize.pack_partitions(parts, chunk_len=L)
+    del parts
+    torch.cuda.synchronize()
+    check(tuple(shards["_mask"].shape) == (P, C, L), "unexpected shard shape")
+    gib = sum(v.numel() * v.element_size() for v in shards.values()) / 2**30
+    say("data", rows=ROWS, shape=(P, C, L), resident_gib=f"{gib:.3f}",
+        seconds=f"{time.perf_counter() - t0:.3f}")
+    flat = {k: v.reshape(-1) for k, v in shards.items()}
+
+    d = float(ROWS)
+    q6 = T.make_sum_gla(tpch.q6_func, tpch.q6_cond(tpch.Q6_LOW_WINDOW), d_total=d)
+    q1s = T.make_groupby_gla(tpch.q1_func, tpch.q1_cond, tpch.q1_group_small,
+                             num_groups=4, d_total=d, num_aggs=4)
+    q1l = T.make_groupby_gla(
+        tpch.q1_func, tpch.q1_cond, tpch.q1_group_large,
+        num_groups=tpch.Q1_LARGE_SUPPLIERS,
+        bucket_bits=tpch.Q1_LARGE_BUCKET_BITS, d_total=d, num_aggs=4)
+
+    # -- 2. every kernel against its plain version, at the main path's shapes
+    per = C // ROUNDS
+    sl = {k: v[:, :per] for k, v in shards.items()}  # one round-slice
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 2)
+
+    def compare(name, got, want, exact_idx):
+        """Counters (``exact_idx`` of the outputs) exact; sums within
+        SUM_RTOL, with atol = SUM_RTOL * max|plain|."""
+        err = 0.0
+        for i, (a, b) in enumerate(zip(got, want)):
+            check(torch.isfinite(a).all().item(), f"{name}: non-finite output {i}")
+            diff = (a - b).abs().max().item()
+            err = max(err, diff)
+            if i in exact_idx:
+                check(torch.equal(a, b), f"{name}: counter output {i} differs")
+            else:
+                tol = SUM_RTOL * b.abs().max().item()
+                check(torch.allclose(a, b, rtol=SUM_RTOL, atol=tol),
+                      f"{name}: output {i} off by {diff:.3e}")
+        return err
+
+    def twice(fn):
+        a, b = fn(), fn()
+        torch.cuda.synchronize()
+        a = a if isinstance(a, tuple) else (a,)
+        b = b if isinstance(b, tuple) else (b,)
+        check(all(torch.equal(x, y) for x, y in zip(a, b)),
+              "repeat run is not bitwise-equal")
+        return a
+
+    checks = {}
+    vals6, w6, _ = FK.project(q6.fused, sl)
+    carry = torch.cat([torch.rand((P, 2), generator=g, device=dev) * 1e3,
+                       torch.randint(0, 100, (P, 1), generator=g, device=dev).float()], 1)
+    got = twice(lambda: FK.scalar_round_step(vals6, w6, carry))
+    want = (ref.scalar_round_step(vals6, w6, carry),)
+    A = 1
+    checks["fused_round_step/scalar"] = compare(
+        "K1 scalar", (got[0][:, :2 * A], got[0][:, 2 * A]),
+        (want[0][:, :2 * A], want[0][:, 2 * A]), {1})
+    say("check", kernel="fused_round_step/scalar", shape=tuple(vals6.shape),
+        max_abs_err=checks["fused_round_step/scalar"], repeat="bitwise-equal")
+
+    group_inputs = {}
+    for label, gla in (("G=4", q1s), ("G=8192", q1l)):
+        vals, w, gids = FK.project(gla.fused, sl)
+        G = gla.fused.num_groups
+        cs = torch.rand((P, G, 4), generator=g, device=dev) * 1e3
+        cq = torch.rand((P, G, 4), generator=g, device=dev) * 1e6
+        cm = torch.randint(0, 1000, (P, G), generator=g, device=dev).float()
+        got = twice(lambda: FK.group_round_step(vals, w, gids, cs, cq, cm))
+        want = ref.group_round_step(vals, w, gids, cs, cq, cm)
+        err = compare(f"K1 group {label}", got, want, {2})
+        checks["fused_round_step/group"] = max(checks.get("fused_round_step/group", 0.0), err)
+        group_inputs[label] = (gla, vals, w, gids, cs, cq, cm)
+        say("check", kernel=f"fused_round_step/group[{label}]",
+            shape=tuple(vals.shape), max_abs_err=err, repeat="bitwise-equal")
+
+    valsK2, wK2, _ = FK.project(q6.fused, shards)  # K2 runs on the whole shard
+    got = twice(lambda: FK.scalar_prefix(valsK2, wK2))[0]
+    want = ref.scalar_prefix(valsK2, wK2)
+    checks["fused_prefix_states"] = compare(
+        "K2", (got[..., :2], got[..., 2]), (want[..., :2], want[..., 2]), {1})
+    say("check", kernel="fused_prefix_states", shape=tuple(valsK2.shape),
+        max_abs_err=checks["fused_prefix_states"], repeat="bitwise-equal")
+    del want, got
+
+    # -- 3./4. the main path, through the public entry points ----------------
+    # Each path is run with the launch counts set to 0 just before it and is
+    # held to its own expected counts just after; `launches` sums the paths.
+    e2e = {}
+    launches = dict.fromkeys(FK.LAUNCHES, 0)
+
+    def path_launches(name, expected):
+        """The counts of the path just run; every kernel not in
+        ``expected`` must have launched no time."""
+        got = FK.launch_counts()
+        want = {k: expected.get(k, 0) for k in got}
+        check(got == want, f"{name}: launches {got}, expected {want}")
+        for k, n in got.items():
+            launches[k] += n
+        return got
+
+    def exact_of(fs, **kw):
+        return tpch.exact_answer(flat, fs.func, fs.cond, **kw)
+
+    FK.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = T.run_query(T.QuerySpec(q6, rounds=ROUNDS, emit="kernel"), shards,
+                      device=dev)
+    final = float(res.final)
+    e2e["run_query q6"] = time.perf_counter() - t0
+    got = path_launches("run_query q6", {"fused_prefix_states": 1})
+    exact6 = exact_of(q6.fused)[0]
+    rel6 = abs(final - float(exact6)) / abs(float(exact6))
+    check(rel6 < ORACLE_RTOL, f"Q6 final {final} vs exact {float(exact6)}")
+    est = res.estimates
+    check(torch.isfinite(est.estimate).all().item(), "Q6 estimates not finite")
+    say("run_query", query="q6-low", emit="kernel", final=final,
+        exact=float(exact6), rel_err=f"{rel6:.3e}",
+        last_estimate=float(est.estimate[-1]),
+        seconds=f"{e2e['run_query q6']:.3f}", launches=got)
+
+    def session(name, gla, stop, exact, kernel):
+        """A session to its stopping rule; its last estimate must sit
+        within 3 half-widths (about 6 standard errors) of the truth."""
+        FK.reset_launch_counts()
+        t0 = time.perf_counter()
+        sess = T.Session(T.QuerySpec(gla, rounds=ROUNDS, emit="kernel", stop=stop),
+                         shards, device=dev)
+        r = sess.run()
+        torch.cuda.synchronize()
+        e2e[f"session {name}"] = time.perf_counter() - t0
+        got = path_launches(f"session {name}", {kernel: sess.steps_taken})
+        e = r.estimates
+        last = e.estimate[-1].double()
+        lo, hi = e.lower[-1].double(), e.upper[-1].double()
+        check(torch.isfinite(last).all().item(), f"{name}: estimate not finite")
+        check(bool((lo <= last).all() and (last <= hi).all()), f"{name}: bounds")
+        ex = exact.to(last.device).reshape(last.shape)
+        check(bool(((last - ex).abs()
+                    <= 3 * (hi - lo) / 2 + ORACLE_RTOL * ex.abs()).all()),
+              f"{name}: estimate far from the exact answer")
+        say("session", query=name, stop="rel_width(0.01)",
+            steps_taken=sess.steps_taken, rounds_total=sess.rounds_total,
+            converged=sess.converged,
+            last_estimate=[round(x, 4) for x in last.reshape(-1)[:8].tolist()],
+            half_width=[round(x, 4) for x in ((hi - lo) / 2).reshape(-1)[:8].tolist()],
+            seconds=f"{e2e[f'session {name}']:.3f}", launches=got)
+
+    def full_scan(name, gla, exact):
+        """A session over all 16 rounds (the engine's group path: one K1
+        launch per round-slice); its final within ORACLE_RTOL of the truth."""
+        FK.reset_launch_counts()
+        t0 = time.perf_counter()
+        sess = T.Session(T.QuerySpec(gla, rounds=ROUNDS, emit="kernel"), shards,
+                         device=dev)
+        r = sess.run()
+        torch.cuda.synchronize()
+        e2e[f"session {name}"] = time.perf_counter() - t0
+        got = path_launches(f"session {name}", {"fused_round_step/group": ROUNDS})
+        check(sess.steps_taken == ROUNDS, f"{name}: {sess.steps_taken} rounds")
+        fin = r.final.double()
+        check(fin.shape == exact.shape, f"{name}: final shape")
+        check(torch.isfinite(r.estimates.estimate).all().item(), f"{name}: estimates")
+        relerr = ((fin - exact).abs() / exact.abs().clamp(min=1e-300)).max().item()
+        check(bool(((fin - exact).abs() <= ORACLE_RTOL * exact.abs()).all()),
+              f"{name}: final off the exact answer (max rel {relerr:.3e})")
+        say("session", query=name, stop=None, steps_taken=sess.steps_taken,
+            final_max_rel_err=f"{relerr:.3e}",
+            matched=int(r.snapshots.matched[-1].sum().item()),
+            seconds=f"{e2e[f'session {name}']:.3f}", launches=got)
+
+    exact1s = exact_of(q1s.fused, group=q1s.fused.group, num_groups=4)
+    session("q6-low", q6, T.rel_width(0.01), exact6, "fused_round_step/scalar")
+    session("q1-small", q1s, T.rel_width(0.01), exact1s, "fused_round_step/group")
+    full_scan("q1-small(4 groups)", q1s, exact1s)
+    full_scan("q1-large(2^13 buckets)", q1l,
+              exact_of(q1l.fused, group=q1l.fused.group,
+                       num_groups=q1l.fused.num_groups))
+    say("main-path launches", **launches)
+    for k, n in launches.items():
+        check(n > 0, f"kernel {k} was not launched on the main path")
+
+    # -- 5. timing: kernel, plain version, library call, closures included --
+    def median_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(reps):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            ts.append(a.elapsed_time(b))
+        return statistics.median(ts)
+
+    def bound(nbytes, flops):
+        tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+        return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+    def stacked(vals, w):
+        """The library call's operand: (v·w, v·v·w, w) per row, [rows, 2A+1]."""
+        vw = vals * w[..., None]
+        return torch.cat([vw, vals * vw, w[..., None]], dim=-1).reshape(-1, 2 * vals.shape[-1] + 1)
+
+    def stacked_rows_last(vals, w):
+        """The same for the scalar kernels, [P, 3, rows] (rows innermost)."""
+        return stacked(vals, w).reshape(P, -1, 3).transpose(1, 2).contiguous()
+
+    rows = []
+
+    def record(name, replaces, ms, plain_ms, nbytes, flops, library_ms, extra):
+        b, by = bound(nbytes, flops)
+        rows.append({
+            "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": checks[name], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+            "library_ms": library_ms})
+        say("time", kernel=name, ms=f"{ms:.6f}", plain_ms=f"{plain_ms:.6f}",
+            bound_ms=f"{b:.6f}", bound_by=by, library_ms=library_ms,
+            bytes=nbytes, flops=flops, **extra)
+
+    # K1 scalar on one round-slice
+    N = vals6.numel()
+    x = stacked_rows_last(vals6, w6)
+    st6 = scan.stack_init(q6, (P,), dev)
+    record("fused_round_step/scalar", K1,
+           median_ms(lambda: FK.scalar_round_step(vals6, w6, carry), 20),
+           median_ms(lambda: ref.scalar_round_step(vals6, w6, carry), 3),
+           4 * (2 * N + 2 * carry.numel()), 6 * N,
+           median_ms(lambda: torch.sum(x, dim=-1), 20),
+           {"with_closures_ms": f"{median_ms(lambda: FK.fused_round_step(q6, st6, sl), 10):.6f}"})
+    del x
+
+    # K1 group on one round-slice, both group shapes of the main path
+    for label in ("G=4", "G=8192"):
+        gla, vals, w, gids, cs, cq, cm = group_inputs[label]
+        G = gla.fused.num_groups
+        N = w.numel()
+        src = stacked(vals, w)
+        idx = (gids.long() + torch.arange(P, device=dev)[:, None, None] * G).reshape(-1)
+        acc = torch.zeros((P * G, src.shape[1]), device=dev)
+        st = scan.stack_init(gla, (P,), dev)
+        ms = median_ms(lambda: FK.group_round_step(vals, w, gids, cs, cq, cm), 10)
+        plain = median_ms(lambda: ref.group_round_step(vals, w, gids, cs, cq, cm), 3)
+        lib = median_ms(lambda: acc.index_add_(0, idx, src), 10)
+        withc = median_ms(lambda: FK.fused_round_step(gla, st, sl), 5)
+        nbytes = 4 * (vals.numel() + 2 * N + 2 * (cs.numel() + cq.numel() + cm.numel()))
+        if label == "G=8192":
+            record("fused_round_step/group", K1, ms, plain, nbytes, 17 * N, lib,
+                   {"shape": label, "with_closures_ms": f"{withc:.6f}"})
+        else:
+            b, by = bound(nbytes, 17 * N)
+            say("time", kernel=f"fused_round_step/group[{label}]", ms=f"{ms:.6f}",
+                plain_ms=f"{plain:.6f}", bound_ms=f"{b:.6f}", bound_by=by,
+                library_ms=lib, with_closures_ms=f"{withc:.6f}")
+        del src, idx, acc
+
+    # K2 on the whole shard
+    N = valsK2.numel()
+    x = stacked_rows_last(valsK2, wK2)
+    record("fused_prefix_states", K2,
+           median_ms(lambda: FK.scalar_prefix(valsK2, wK2), 10),
+           median_ms(lambda: ref.scalar_prefix(valsK2, wK2), 3),
+           4 * (2 * N + P * C * 3), 6 * N,
+           median_ms(lambda: torch.cumsum(x, dim=-1), 5),
+           {"with_closures_ms": f"{median_ms(lambda: FK.fused_prefix_states(q6, shards), 5):.6f}"})
+    del x
+
+    say("end-to-end", **{k.replace(" ", "_"): f"{v:.3f}s" for k, v in e2e.items()})
+    for r_ in rows:
+        check(all(math.isfinite(r_[k]) for k in ("ms", "plain_ms", "bound_ms")),
+              f"{r_['name']}: non-finite timing")
+    print(smi, flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,58 @@
+"""PF-OLA on PyTorch and CUDA — the port of the ``repro`` JAX package.
+
+The query loop of the paper runs here on an NVIDIA Hopper card: TPC-H
+lineitem packed into ``[P, C, L]`` shards, GLAs with the single-estimator
+model, ``run_query`` / ``Session`` with per-round Horvitz–Thompson
+estimates and Eq. (4) bounds, and stopping rules that end the scan early.
+On ``emit="kernel"`` the round-slices go through hand-written CUDA kernels
+(``repro_torch.kernels.fused_agg``); on a CPU tensor the same wrappers run
+their plain PyTorch versions (``repro_torch.kernels.ref``).
+
+Layout: the JAX package keeps its engine modules under ``repro/core/``.
+Here they sit at the package top level (``uda``, ``estimators``, ``gla``,
+``scan``, ``engine``, ``session``, ``spec``, ``randomize``) on purpose:
+the repository's contract linter (``repro/analysis/contracts.py``) matches
+files by path suffix — ``core/scan.py``, ``core/estimators.py``,
+``core/session.py`` — and applies JAX-specific rules to them (no ``int()``
+in any function of ``scan.py``, ``jnp.maximum`` clamps in
+``estimators.py``, a checkpoint manifest in ``session.py``).  A
+``repro_torch/core/`` directory would inherit those rules; the flat layout
+keeps the module names without the trap.
+
+Entry points take ``device=`` and default to ``"cuda"``; with no card they
+raise unless the caller asks for ``"cpu"``.  The package imports ``torch``
+and ``numpy`` only — never ``jax`` and nothing of ``repro``.
+"""
+from repro_torch.engine import QueryResult, run_query
+from repro_torch.gla import debucket, hash_bucket, make_groupby_gla, make_sum_gla
+from repro_torch.session import (
+    RoundProgress,
+    Session,
+    abs_width,
+    all_of,
+    any_of,
+    budget,
+    rel_width,
+)
+from repro_torch.spec import QuerySpec
+from repro_torch.uda import GLA, Estimate, FusedSpec
+
+__all__ = [
+    "GLA",
+    "Estimate",
+    "FusedSpec",
+    "QueryResult",
+    "QuerySpec",
+    "RoundProgress",
+    "Session",
+    "abs_width",
+    "all_of",
+    "any_of",
+    "budget",
+    "debucket",
+    "hash_bucket",
+    "make_groupby_gla",
+    "make_sum_gla",
+    "rel_width",
+    "run_query",
+]

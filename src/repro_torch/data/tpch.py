@@ -1,0 +1,157 @@
+"""Synthetic TPC-H lineitem — the paper's evaluation workload, on the device.
+
+Port of ``repro/data/tpch.py:32-130,249+``.  The generator draws the same
+distributions as the reference (dbgen's for the columns the paper's queries
+touch) from a seeded ``torch.Generator`` on the given device, so a card
+makes hundreds of millions of rows in seconds.  The draws are not the
+reference's numbers (the generators differ); the parity tests hand both
+packages the reference's numpy columns instead.
+
+Column encodings (all numeric, columnar):
+  shipdate  int32  days in [0, 2526)   (1992-01-02 .. 1998-12-01)
+  discount  float32 in {0.00 .. 0.10}
+  quantity  float32 in {1 .. 50}
+  extendedprice float32
+  tax       float32 in {0.00 .. 0.08}
+  rfls      int32 in [0, 4)   returnflag×linestatus combined group
+  suppkey   int32 in [0, num_suppliers)
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch._device import resolve_device
+
+DAYS = 2526  # dbgen shipdate span
+Q6_LOW_WINDOW = (420, 785)  # ~1 year starting '1993-02-26'
+Q6_HIGH_WINDOW = (420, 421)  # the single day '1993-02-26'
+Q1_WINDOW = (2434, 2526)  # ['1998-09-01','1998-12-01']
+
+# Large-domain Q1 (paper §5.3: 1M groups, scaled): suppkey spans 100k raw
+# ids, folded into 2**13 hash buckets (repro_torch.gla.hash_bucket).
+Q1_LARGE_SUPPLIERS = 100_000
+Q1_LARGE_BUCKET_BITS = 13
+
+
+def generate_lineitem(
+    rows: int, *, num_suppliers: int = 1000, seed: int = 7, device="cuda"
+) -> Dict[str, torch.Tensor]:
+    """``rows`` lineitem rows as flat ``[rows]`` columns on ``device``."""
+    dev = resolve_device(device)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def ints(lo, hi, dtype):
+        return torch.randint(lo, hi, (rows,), generator=g, device=dev, dtype=dtype)
+
+    def cents(hi):  # k / 100 for k uniform in [0, hi), rounded once to f32
+        return (ints(0, hi, torch.int32).to(torch.float64) / 100.0).float()
+
+    u = torch.rand(rows, generator=g, device=dev, dtype=torch.float64)
+    return {
+        "shipdate": ints(0, DAYS, torch.int32),
+        "discount": cents(11),
+        "quantity": ints(1, 51, torch.int32).float(),
+        "extendedprice": ((900.0 + u * (105000.0 - 900.0)) / 1000.0).float(),
+        "tax": cents(9),
+        "rfls": ints(0, 4, torch.int32),
+        "suppkey": ints(0, num_suppliers, torch.int32),
+    }
+
+
+# --- query pieces -----------------------------------------------------------
+
+
+def q6_func(chunk):
+    return chunk["extendedprice"] * chunk["discount"]
+
+
+def q6_cond(window):
+    lo, hi = window
+
+    def cond(chunk):
+        sd, dc = chunk["shipdate"], chunk["discount"]
+        return (
+            (sd >= lo)
+            & (sd < hi)
+            & (dc >= 0.02 - 1e-6)
+            & (dc <= 0.03 + 1e-6)
+            & (chunk["quantity"] == 1.0)
+        ).to(torch.float32)
+
+    return cond
+
+
+def q1_func(chunk):
+    """The four Q1 SUM aggregates, stacked [..., 4]."""
+    ep, dc, tx = chunk["extendedprice"], chunk["discount"], chunk["tax"]
+    return torch.stack(
+        [chunk["quantity"], ep, ep * (1 - dc), ep * (1 - dc) * (1 + tx)], dim=-1
+    )
+
+
+def q1_cond(chunk):
+    sd = chunk["shipdate"]
+    return ((sd >= Q1_WINDOW[0]) & (sd < Q1_WINDOW[1])).to(torch.float32)
+
+
+def q1_group_small(chunk):
+    return chunk["rfls"]
+
+
+def q1_group_large(chunk):
+    return chunk["suppkey"]
+
+
+def q1_large_scenario(
+    rows: int,
+    *,
+    num_suppliers: int = Q1_LARGE_SUPPLIERS,
+    bucket_bits: int = Q1_LARGE_BUCKET_BITS,
+    seed: int = 7,
+    estimator: str = "single",
+    device="cuda",
+):
+    """Large-domain Q1 group-by: columns + a hash-bucketed group-by GLA.
+    Returns ``(cols, gla)``."""
+    from repro_torch import gla as _gla  # local: data must not require the engine
+
+    cols = generate_lineitem(rows, num_suppliers=num_suppliers, seed=seed,
+                             device=device)
+    g = _gla.make_groupby_gla(
+        q1_func, q1_cond, q1_group_large, num_groups=num_suppliers,
+        bucket_bits=bucket_bits, d_total=float(rows), estimator=estimator,
+        num_aggs=4)
+    return cols, g
+
+
+def exact_answer(cols, func, cond, group=None, num_groups: int | None = None, *,
+                 batch_rows: int = 1 << 24):
+    """Ground truth in float64 — the oracle for every correctness check.
+
+    ``cols`` is a flat columnar dict (``[N]`` tensors, optionally with a
+    ``_mask``).  The per-row values come from the query's own closures (in
+    float32, as the engine sees them) and are accumulated in float64 over
+    bounded row batches on the columns' device.
+    """
+    n = next(iter(cols.values())).shape[0]
+    acc = None
+    for lo in range(0, n, batch_rows):
+        chunk = {k: v[lo:lo + batch_rows] for k, v in cols.items()}
+        vals = func(chunk).to(torch.float64)
+        w = cond(chunk).to(torch.float64)
+        if "_mask" in chunk:
+            w = w * chunk["_mask"].to(torch.float64)
+        if vals.ndim == 1:
+            vals = vals[:, None]
+        contrib = vals * w[:, None]
+        if group is None:
+            s = contrib.sum(dim=0)
+        else:
+            s = torch.zeros((num_groups, vals.shape[1]), dtype=torch.float64,
+                            device=vals.device)
+            s.index_add_(0, group(chunk).long(), contrib)
+        acc = s if acc is None else acc + s
+    return acc

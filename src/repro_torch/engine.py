@@ -1,0 +1,204 @@
+"""The PF-OLA execution engine — port of ``repro/core/engine.py:58-389``.
+
+Execution model (paper §3.2–§3.4):
+
+  * a *partition* is the unit of data locality; partitions are the leading
+    axis of the ``[P, C, L]`` shards, and every scan runs all of them at
+    once (the reference ``vmap``s them; here the batch axis is written out,
+    and a kernel launch covers every partition).
+  * within a partition chunks are consumed in order; ``lanes > 1`` keeps
+    several GLA states per partition and merges them on demand.
+  * a *snapshot* is the scan carry at a round boundary — emission adds no
+    recompute and no extra pass over the data.
+  * a ``schedule`` gives each partition its own cumulative chunk progress;
+    async snapshots take each partition at its own progress (valid for the
+    single estimator under global randomization), ``sync=True`` truncates
+    every partition to the global minimum (the Wu et al. barrier).
+  * node failure: ``alive`` masks partitions out of merging.
+"""
+from __future__ import annotations
+
+import warnings
+from typing import Any, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import scan as SC
+from repro_torch import spec as QS
+from repro_torch.uda import GLA, Estimate, tree_map
+
+Pytree = Any
+
+
+class QueryResult(NamedTuple):
+    final: Any  # gla.terminate(fully merged state)
+    snapshots: Optional[Pytree]  # merged per-round states, leaves [R, ...]
+    estimates: Optional[Estimate]  # per-round Estimate, leaves [R, ...]
+    d_total: torch.Tensor
+    d_local: torch.Tensor  # [P]
+
+
+def uniform_schedule(num_partitions: int, num_chunks: int, rounds: int) -> np.ndarray:
+    """Cumulative chunk boundaries [P, R+1]; round r covers [b[r], b[r+1])."""
+    b = np.round(np.linspace(0, num_chunks, rounds + 1)).astype(np.int32)
+    return np.broadcast_to(b, (num_partitions, rounds + 1)).copy()
+
+
+# ---------------------------------------------------------------------------
+# merges over the partition axis
+# ---------------------------------------------------------------------------
+
+def _weighted_sum(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """sum_p w[p, ...] * x[p, ...] over the leading axis."""
+    w = w.to(device=x.device, dtype=x.dtype)
+    return (w.reshape(*w.shape, *([1] * (x.ndim - w.ndim))) * x).sum(dim=0)
+
+
+def _merge_over_partitions(gla: GLA, states: Pytree, w: torch.Tensor,
+                           all_alive: bool):
+    """Merge states with leading partition axis [P, ...] under weights [P]."""
+    if gla.merge_is_additive:
+        return tree_map(lambda x: _weighted_sum(w, x), states)
+    if not all_alive:
+        raise NotImplementedError("alive masks need merge_is_additive")
+    return SC.fold_merge(gla.merge, states, w.shape[0])
+
+
+def _merge_rounds(gla: GLA, states: Pytree, w_pr: torch.Tensor, merge,
+                  all_alive: bool):
+    """Merge [P, R, ...] states with per-(partition, round) weights [P, R]."""
+    if gla.merge_is_additive:
+        return tree_map(lambda x: _weighted_sum(w_pr, x), states)
+    if not all_alive:
+        raise NotImplementedError("alive masks need merge_is_additive")
+    return SC.fold_merge(merge, states, w_pr.shape[0])
+
+
+def _gather_rounds(prefixes: Pytree, idx: torch.Tensor) -> Pytree:
+    """prefixes leaves [P, C+1, ...] at per-partition chunk counts idx [P, R]."""
+    rows = torch.arange(idx.shape[0], device=idx.device)[:, None]
+    return tree_map(lambda x: x[rows, idx], prefixes)
+
+
+def _run_vmapped(gla: GLA, shards: dict, sched: np.ndarray, alive, *,
+                 mode: str, emit: str, lanes: int, snapshots: bool,
+                 confidence: float, all_alive: bool) -> QueryResult:
+    """The whole-scan program over every partition at once."""
+    mask = shards["_mask"]
+    dev = mask.device
+    R = sched.shape[1] - 1
+    d_local = mask.sum(dim=(1, 2), dtype=torch.float64).to(torch.float32)
+    d_total = d_local.sum()
+    w_pr, w_final = SC.round_weights(alive, R, dev)
+    kernel = emit == "kernel"
+    if kernel and lanes != 1:
+        raise ValueError("emit='kernel' runs single-lane")
+
+    round_states = None
+    if kernel and gla.fused.group is not None:
+        # group states follow the round emission discipline: one K1 launch
+        # per round-slice (one for the whole scan without snapshots)
+        if mode == "sync":
+            raise NotImplementedError("sync mode requires emit='chunk'")
+        finals, round_states = SC.fused_rounds_states(
+            gla, shards, R if snapshots else 1)
+    elif emit in ("chunk", "kernel"):
+        if kernel:
+            finals, prefixes = SC.fused_prefix_states(gla, shards)
+        else:
+            finals, prefixes = SC.scan_prefix(gla, shards, lanes)
+        if snapshots:
+            idx = torch.as_tensor(sched[:, 1:], dtype=torch.int64, device=dev)
+            if mode == "sync":
+                idx = idx.min(dim=0).values.expand_as(idx)
+            round_states = _gather_rounds(prefixes, idx)  # [P, R, ...]
+    elif emit == "round":
+        if mode == "sync":
+            raise NotImplementedError("sync mode requires emit='chunk'")
+        finals, round_states = SC.scan_rounds(gla, shards, lanes, R)
+    else:
+        raise ValueError(f"unknown emit: {emit!r}")
+
+    # Final result: plain Merge across partitions, then Terminate.
+    final = gla.terminate(_merge_over_partitions(gla, finals, w_final, all_alive))
+    if not snapshots:
+        return QueryResult(final, None, None, d_total, d_local)
+
+    # EstimatorTerminate per (partition, round) with the partition's |D_i|,
+    # then EstimatorMerge across partitions (paper §3.1: intra- then inter-).
+    terminated = gla.estimator_terminate(round_states, {"d_local": d_local})
+    merged = _merge_rounds(gla, terminated, w_pr, gla.estimator_merge, all_alive)
+    estimates = None
+    if gla.estimate is not None:
+        estimates = gla.estimate(merged, confidence, {"d_total": d_total})
+    return QueryResult(final, merged, estimates, d_total, d_local)
+
+
+# ---------------------------------------------------------------------------
+# plan resolution and the public entry point
+# ---------------------------------------------------------------------------
+
+def normalize_plan(qspec: QS.QuerySpec, shards: dict) -> QS.QuerySpec:
+    """Validate the emit/kernel contracts and resolve the plan against the
+    data's ``[P, C, L]`` shape: ``emit`` a concrete string, ``schedule`` a
+    [P, R+1] ndarray, ``rounds`` its R.
+
+    Round-emission paths ("round", and group "kernel") emit at uniform round
+    boundaries only: ``rounds`` degrades to the largest divisor of C with a
+    warning, and an explicit schedule that is indivisible or non-uniform is
+    a ValueError.
+    """
+    gla, emit = qspec.gla, qspec.resolved_emit()
+    rounds, schedule = qspec.rounds, qspec.schedule
+    P, C, _ = shards["_mask"].shape
+    if emit not in ("chunk", "round", "kernel"):
+        raise ValueError(f"unknown emit: {emit!r} (the port runs 'chunk', "
+                         "'round' and 'kernel')")
+    if emit == "kernel" and not SC.fused_available(gla):
+        raise ValueError(f"GLA {gla.name!r} publishes no fused kernel contract")
+    needs_uniform = emit == "round" or (
+        emit == "kernel" and gla.fused.group is not None)
+    if needs_uniform:
+        if schedule is None:
+            if C % rounds:
+                best = max(d for d in range(1, rounds + 1) if C % d == 0)
+                warnings.warn(
+                    f"emit={emit!r} needs C % rounds == 0 (C={C}); degrading "
+                    f"rounds {rounds} -> {best}", stacklevel=3)
+                rounds = best
+        else:
+            sched = np.asarray(schedule)
+            R = sched.shape[1] - 1
+            if C % R:
+                raise ValueError(f"emit={emit!r} needs C % rounds == 0, got "
+                                 f"C={C} with a {R}-round schedule")
+            if not np.array_equal(sched, uniform_schedule(P, C, R)):
+                raise ValueError(
+                    f"emit={emit!r} emits snapshots at uniform round "
+                    "boundaries and cannot honor a non-uniform schedule — "
+                    "use emit='chunk' (prefix states)")
+    if schedule is None:
+        schedule = uniform_schedule(P, C, rounds)
+    schedule = np.asarray(schedule)
+    return qspec.with_(rounds=schedule.shape[1] - 1, schedule=schedule, emit=emit)
+
+
+def run_query(spec, data, *, device="cuda", **plan) -> QueryResult:
+    """Execute a GLA query with on-line estimation.
+
+    A thin wrapper over :class:`repro_torch.session.Session` driven to
+    completion: without a stopping rule the whole-scan program runs; with
+    ``spec.stop`` the session advances round by round and ends as soon as
+    the rule fires.
+
+    Args:
+      spec: a :class:`repro_torch.spec.QuerySpec` (or a bare GLA).
+      data: columnar dict, leaves [P, C, L] incl. "_mask".
+      device: where the query runs ("cuda" by default; "cpu" runs the
+        kernels' plain versions).
+    """
+    from repro_torch import session as SN  # local: session imports engine
+
+    qspec = QS.coerce_spec(spec, plan, caller="run_query")
+    return SN.Session(qspec, data, device=device).run()

@@ -1,0 +1,90 @@
+"""Sampling estimators for parallel on-line aggregation — paper §4.
+
+Port of ``repro/core/estimators.py:40-133``: the generic sampling-without-
+replacement estimator (Eq. 2) with its unbiased variance estimator (Eq. 4),
+and the single-estimator model (paper Alg. 1, corrected: ``scanned`` = |S|
+counts every live item, ``sum``/``sumsq`` only predicate matches).
+
+The functions broadcast: ``scanned`` may carry fewer trailing axes than
+``sum_`` (one count per round or partition against ``[..., A]`` or
+``[..., G, A]`` sums) and is aligned to it on the right.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.uda import Estimate
+
+
+class SumState(NamedTuple):
+    """State of the generic sampling estimator (corrected paper Alg. 1).
+
+    sum     = sum of func(d) over scanned, predicate-matching items
+    sumsq   = sum of func(d)^2 over scanned, predicate-matching items
+    scanned = |S|, number of scanned (live) items — predicate-independent
+    matched = number of scanned items matching the predicate
+    """
+
+    sum: torch.Tensor
+    sumsq: torch.Tensor
+    scanned: torch.Tensor
+    matched: torch.Tensor
+
+
+def _align(x, like: torch.Tensor) -> torch.Tensor:
+    """``x`` as a tensor on ``like``'s device, padded with trailing unit
+    axes so that it broadcasts against ``like`` from the left."""
+    x = torch.as_tensor(x, dtype=like.dtype, device=like.device)
+    return x.reshape(*x.shape, *([1] * (like.ndim - x.ndim)))
+
+
+def zq(confidence) -> torch.Tensor:
+    """Two-sided z quantile: P(|Z| <= zq) = confidence (float32)."""
+    conf = torch.as_tensor(confidence, dtype=torch.float64)
+    return torch.special.ndtri((1.0 + conf) / 2.0).to(torch.float32)
+
+
+def horvitz_estimate(sum_, scanned, d_total):
+    """Paper Eq. (2): X = |D|/|S| * sum_{s in S, cond} func(s)."""
+    sum_ = torch.as_tensor(sum_)
+    safe_s = torch.clamp(_align(scanned, sum_), min=1.0)
+    return d_total / safe_s * sum_
+
+
+def variance_estimate(sum_, sumsq, scanned, d_total):
+    """Paper Eq. (4) — unbiased estimator of Var(X) from the sample.
+
+    Est = |D|(|D|-|S|) / (|S|^2 (|S|-1)) * (|S| * sumsq - sum^2)
+
+    With fewer than two scanned items the variance is undefined: the result
+    is ``+inf`` (an infinite bound), never NaN.
+    """
+    sum_ = torch.as_tensor(sum_)
+    sumsq = torch.as_tensor(sumsq, dtype=sum_.dtype, device=sum_.device)
+    s = _align(scanned, sum_)
+    d = torch.as_tensor(d_total, dtype=sum_.dtype, device=sum_.device)
+    safe = torch.clamp(s, min=2.0)
+    num = d * torch.clamp(d - s, min=0.0)
+    den = safe * safe * (safe - 1.0)
+    est = num / den * torch.clamp(s * sumsq - sum_ * sum_, min=0.0)
+    return torch.where(s >= 2.0, est, torch.full_like(est, math.inf))
+
+
+def normal_bounds(est, var, confidence):
+    half = zq(confidence).to(var.device) * torch.sqrt(var)
+    return est - half, est + half
+
+
+def single_estimate(state: SumState, confidence, *, d_total) -> Estimate:
+    """Paper Alg. 1 (GLASum-SingleEstimator) over the *merged* state.
+
+    Valid at arbitrary per-partition progress given global randomization.
+    """
+    est = horvitz_estimate(state.sum, state.scanned, d_total)
+    var = variance_estimate(state.sum, state.sumsq, state.scanned, d_total)
+    lo, hi = normal_bounds(est, var, confidence)
+    frac = state.scanned / max(float(d_total), 1.0)
+    return Estimate(est, lo, hi, info={"var": var, "frac": frac})

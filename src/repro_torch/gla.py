@@ -1,0 +1,228 @@
+"""Concrete GLAs — paper Algorithms 1 and 3.
+
+Port of ``repro/core/gla.py:37-50,149-421``:
+
+  * :func:`make_sum_gla`     — §4.3 single-table SUM/COUNT (Alg. 1)
+  * :func:`make_groupby_gla` — §4.4 group-by aggregation (Alg. 3), with the
+                               hash-bucketed large-domain group table
+
+Queries are ``func(chunk) -> [..., L] or [..., L, A]`` values (A
+simultaneous aggregates, like TPC-H Q1's four SUMs) and ``cond(chunk) ->
+[..., L]`` 0/1 predicates; group-by adds ``group(chunk) -> [..., L]`` int
+ids.  Chunk columns are ``[B, L]`` with the partition (or lane) axis written
+out as ``B``, and states carry the same leading axis (uda module doc).
+
+States are float32 ``SumState``s, so every GLA here publishes the fused
+kernel contract (``FusedSpec``) that ``emit="kernel"`` runs.  The legacy
+``kernel_cols``/``kernel_num_groups`` projections of the reference serve
+kernels not yet ported and are left out.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch import estimators as E
+from repro_torch.uda import GLA, Chunk, Estimate, FusedSpec, tree_map
+
+_F32 = torch.float32
+
+
+def _as_2d(vals: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """[..., L] -> [..., L, 1]; [..., L, A] stays."""
+    return vals.unsqueeze(-1) if vals.ndim == mask.ndim else vals
+
+
+def _add(a, b):
+    return tree_map(torch.add, a, b)
+
+
+# ---------------------------------------------------------------------------
+# Hash-bucketed group tables (paper §4.4 large-domain group-by).  Raw ids are
+# folded into 2**bucket_bits buckets by a multiplicative hash with an odd
+# multiplier, a bijection on [0, 2**b): domains of at most 2**b raw ids map
+# injectively, so de-bucketing is exact.
+# ---------------------------------------------------------------------------
+
+_BUCKET_MULT = 2654435761  # 2**32 / golden ratio (Knuth), odd
+_MULT_HI, _MULT_LO = _BUCKET_MULT >> 16, _BUCKET_MULT & 0xFFFF
+
+
+def hash_bucket(gids: torch.Tensor, bucket_bits: int) -> torch.Tensor:
+    """Raw group ids -> int32 bucket ids in [0, 2**bucket_bits).
+
+    The reference multiplies in uint32, wrapping mod 2**32.  Here the
+    product is formed in int64 from the multiplier's two 16-bit halves, so
+    no intermediate exceeds 2**48 and the low 32 bits — hence the bucket
+    ids — equal the reference's exactly."""
+    g = gids.to(torch.int64) & 0xFFFFFFFF
+    h = (g * _MULT_LO + (((g * _MULT_HI) & 0xFFFF) << 16)) & 0xFFFFFFFF
+    return (h & ((1 << bucket_bits) - 1)).to(torch.int32)
+
+
+def debucket(bucket_vals: torch.Tensor, raw_ids, bucket_bits: int):
+    """Gather per-raw-id rows from a bucketed group table [2**b, ...]."""
+    idx = hash_bucket(torch.as_tensor(raw_ids, device=bucket_vals.device),
+                      bucket_bits)
+    return bucket_vals[idx.long()]
+
+
+def _check_estimator(estimator: str) -> None:
+    if estimator == "multiple":
+        raise NotImplementedError(
+            "the 'multiple' (stratified) estimator is not ported yet")
+    if estimator not in ("single", "synchronized", "none"):
+        raise ValueError(f"unknown estimator model: {estimator!r}")
+
+
+# ---------------------------------------------------------------------------
+# Paper Alg. 1 — GLASum, single / synchronized / none
+# ---------------------------------------------------------------------------
+
+def make_sum_gla(
+    func: Callable[[Chunk], torch.Tensor],
+    cond: Callable[[Chunk], torch.Tensor],
+    *,
+    d_total: float,
+    estimator: str = "single",
+    num_aggs: int = 1,
+) -> GLA:
+    """SUM(func(d)) WHERE cond(d) — paper query (1).
+
+    ``estimator``: "single" (Alg. 1), "synchronized" (Wu et al.; same state
+    as single — the barrier lives in the engine), or "none" (plain
+    aggregate, no estimation model).
+    """
+    _check_estimator(estimator)
+    A = num_aggs
+
+    def zero_sum(device):
+        z = torch.zeros((A,), dtype=_F32, device=device)
+        s = torch.zeros((), dtype=_F32, device=device)
+        return E.SumState(sum=z, sumsq=z.clone(), scanned=s, matched=s.clone())
+
+    def acc_sum(state: E.SumState, chunk: Chunk) -> E.SumState:
+        mask = chunk["_mask"]
+        vals = _as_2d(func(chunk), mask).to(_F32)  # [..., L, A]
+        w = (cond(chunk) * mask).to(_F32)  # [..., L]
+        m = mask.to(_F32)
+        # multiply-then-reduce, as the reference's acc_sum
+        return E.SumState(
+            sum=state.sum + (vals * w[..., None]).sum(dim=-2),
+            sumsq=state.sumsq + ((vals * vals) * w[..., None]).sum(dim=-2),
+            scanned=state.scanned + m.sum(dim=-1),
+            matched=state.matched + w.sum(dim=-1),
+        )
+
+    def terminate(state):
+        return state.sum if A > 1 else state.sum[..., 0]
+
+    def estimate(state: E.SumState, confidence, ctx=None) -> Estimate:
+        est = E.horvitz_estimate(state.sum, state.scanned, d_total)
+        var = E.variance_estimate(state.sum, state.sumsq, state.scanned, d_total)
+        lo, hi = E.normal_bounds(est, var, confidence)
+
+        def sq(x):
+            return x if A > 1 else x[..., 0]
+
+        return Estimate(sq(est), sq(lo), sq(hi),
+                        info={"var": sq(var), "frac": state.scanned / d_total})
+
+    return GLA(
+        init=zero_sum, accumulate=acc_sum, merge=_add, terminate=terminate,
+        estimate=None if estimator == "none" else estimate,
+        merge_is_additive=True,
+        fused=FusedSpec(func=func, cond=cond, group=None, num_aggs=A),
+        name=f"sum-{estimator}",
+    )
+
+
+# ---------------------------------------------------------------------------
+# Paper Alg. 3 — GLAGroupBy (composite GLA: a GLASum per group)
+# ---------------------------------------------------------------------------
+
+def segment_sum(data: torch.Tensor, gids: torch.Tensor, num_groups: int):
+    """Per-batch segment sums: ``data [..., L, K]`` by ``gids [..., L]``
+    into ``[..., G, K]``.  Ids outside [0, G) are dropped, as
+    ``jax.ops.segment_sum`` drops them.  Deterministic on the CPU
+    (``index_add_`` adds in row order there)."""
+    lead = gids.shape[:-1]
+    B = 1
+    for n in lead:
+        B *= n
+    K = data.shape[-1]
+    g = gids.reshape(B, -1).to(torch.int64)
+    idx = g + torch.arange(B, device=g.device)[:, None] * num_groups
+    keep = ((g >= 0) & (g < num_groups)).reshape(-1)
+    out = torch.zeros((B * num_groups, K), dtype=data.dtype, device=data.device)
+    out.index_add_(0, idx.reshape(-1)[keep], data.reshape(-1, K)[keep])
+    return out.reshape(*lead, num_groups, K)
+
+
+def make_groupby_gla(
+    func: Callable[[Chunk], torch.Tensor],
+    cond: Callable[[Chunk], torch.Tensor],
+    group: Callable[[Chunk], torch.Tensor],
+    *,
+    num_groups: int,
+    d_total: float,
+    estimator: str = "single",
+    num_aggs: int = 1,
+    bucket_bits: Optional[int] = None,
+) -> GLA:
+    """GROUP BY gAtts SUM(func(d)) WHERE cond(d) — paper query (5).
+
+    State is the dense composite of per-group GLASum states: sums/sumsqs/
+    matched are [G, A]/[G]; ``scanned`` is global.  ``bucket_bits`` folds
+    raw ids through :func:`hash_bucket` into 2**bucket_bits buckets (the
+    paper's large-domain Q1); recover per-raw-id rows with :func:`debucket`.
+    """
+    _check_estimator(estimator)
+    A = num_aggs
+    if bucket_bits is not None:
+        raw_group = group
+
+        def group(chunk):  # bucketed view of the raw ids
+            return hash_bucket(raw_group(chunk), bucket_bits)
+
+        G = 1 << bucket_bits
+    else:
+        G = num_groups
+
+    def zero(device):
+        return E.SumState(
+            sum=torch.zeros((G, A), dtype=_F32, device=device),
+            sumsq=torch.zeros((G, A), dtype=_F32, device=device),
+            scanned=torch.zeros((), dtype=_F32, device=device),
+            matched=torch.zeros((G,), dtype=_F32, device=device),
+        )
+
+    def acc(state: E.SumState, chunk: Chunk) -> E.SumState:
+        mask = chunk["_mask"]
+        vals = _as_2d(func(chunk), mask).to(_F32)  # [..., L, A]
+        w = (cond(chunk) * mask).to(_F32)  # [..., L]
+        gids = group(chunk)
+        vw = vals * w[..., None]
+        return E.SumState(
+            sum=state.sum + segment_sum(vw, gids, G),
+            sumsq=state.sumsq + segment_sum(vals * vw, gids, G),
+            scanned=state.scanned + mask.to(_F32).sum(dim=-1),
+            matched=state.matched + segment_sum(w[..., None], gids, G)[..., 0],
+        )
+
+    def estimate(state: E.SumState, confidence, ctx=None) -> Estimate:
+        est = E.horvitz_estimate(state.sum, state.scanned, d_total)  # [..., G, A]
+        var = E.variance_estimate(state.sum, state.sumsq, state.scanned, d_total)
+        lo, hi = E.normal_bounds(est, var, confidence)
+        return Estimate(est, lo, hi, info={"var": var, "matched": state.matched})
+
+    suffix = f"-b{bucket_bits}" if bucket_bits is not None else ""
+    return GLA(
+        init=zero, accumulate=acc, merge=_add, terminate=lambda s: s.sum,
+        estimate=None if estimator == "none" else estimate,
+        merge_is_additive=True,
+        fused=FusedSpec(func=func, cond=cond, group=group, num_aggs=A,
+                        num_groups=G),
+        name=f"groupby-{estimator}{suffix}",
+    )

@@ -1,0 +1,70 @@
+"""Plain PyTorch versions of the fused-aggregate kernels.
+
+The wrappers in ``repro_torch.kernels.fused_agg`` run these on CPU tensors;
+the tests hold them against the JAX reference, and ``chip_smoke.py`` holds
+the CUDA kernels against them on the card.  They repeat the kernels'
+arithmetic — products formed as in the reference's ``acc_sum`` (``v·w``,
+``(v·v)·w``; the group path ``v·(v·w)``), per-chunk totals folded onto the
+carry in chunk order — and are no yardstick of speed.
+
+Layouts (P partitions, C chunks of L rows, A aggregates, G groups):
+  vals  float32 [P, C, L, A]
+  w     float32 [P, C, L]      cond · _mask
+  gids  int32   [P, C, L]      dense group ids; ids outside [0, G) drop out
+  scalar carry  float32 [P, 2A+1]   (sum[A] | sumsq[A] | matched)
+  group carry   float32 [P, G, A], [P, G, A], [P, G]
+"""
+from __future__ import annotations
+
+import torch
+
+
+def scalar_chunk_totals(vals: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Per-chunk (Σv·w, Σ(v·v)·w, Σw) as [P, C, 2A+1]."""
+    ww = w[..., None]
+    return torch.cat([(vals * ww).sum(dim=2), ((vals * vals) * ww).sum(dim=2),
+                      w.sum(dim=2, keepdim=True)], dim=-1)
+
+
+def scalar_round_step(vals: torch.Tensor, w: torch.Tensor,
+                      carry: torch.Tensor) -> torch.Tensor:
+    """K1, scalar: the carry [P, 2A+1] advanced over the C chunks in order."""
+    acc = carry
+    part = scalar_chunk_totals(vals, w)
+    for c in range(part.shape[1]):
+        acc = acc + part[:, c]
+    return acc
+
+
+def scalar_prefix(vals: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """K2: the running totals after every chunk, [P, C, 2A+1], from zero."""
+    part = scalar_chunk_totals(vals, w)
+    out = torch.empty_like(part)
+    acc = torch.zeros_like(part[:, 0])
+    for c in range(part.shape[1]):
+        acc = acc + part[:, c]
+        out[:, c] = acc
+    return out
+
+
+def group_round_step(vals, w, gids, carry_s, carry_q, carry_m):
+    """K1, group: per chunk, the per-group (Σv·w, Σv·(v·w), Σw) summed from
+    zero and then added onto the carry, chunk by chunk — the reference's
+    segment sums added to the state."""
+    P, C, _, A = vals.shape
+    G = carry_s.shape[1]
+    vw = vals * w[..., None]
+    vq = vals * vw
+    g = gids.to(torch.int64)
+    keep = (g >= 0) & (g < G)
+    idx = g + torch.arange(P, device=g.device)[:, None, None] * G
+    s = carry_s.reshape(P * G, A).clone()
+    q = carry_q.reshape(P * G, A).clone()
+    m = carry_m.reshape(P * G).clone()
+    for c in range(C):
+        k = keep[:, c].reshape(-1)
+        i = idx[:, c].reshape(-1)[k]
+        s += torch.zeros_like(s).index_add_(0, i, vw[:, c].reshape(-1, A)[k])
+        q += torch.zeros_like(q).index_add_(0, i, vq[:, c].reshape(-1, A)[k])
+        m += torch.zeros_like(m).index_add_(0, i, w[:, c].reshape(-1)[k])
+    return s.reshape(P, G, A), q.reshape(P, G, A), m.reshape(P, G)

@@ -1,0 +1,338 @@
+"""Interactive OLA sessions — the paper's headline user feature, §1/§3.4.
+
+Port of ``repro/core/session.py:101-215,290-356,415-880`` on resident
+shards: the user stops the computation as soon as the estimate is accurate
+enough.  A :class:`Session` either runs the whole-scan program (no stopping
+rule — byte-for-byte ``engine.run_query``'s path) or advances the scan one
+round-slice at a time and evaluates a stopping rule between rounds, so a
+query over N rounds that converges at round k pays only k/N of the scan.
+
+Per round-slice the ``"scan"`` path folds the GLA's ``accumulate`` chunk by
+chunk; the ``"kernel_fused"`` path (``emit="kernel"``) makes one K1 launch
+covering every partition.  Both keep the chunk-sequential order of the
+whole-scan program.  Pause/resume, fault policies, streaming sources and
+meshes come in later slices.
+"""
+from __future__ import annotations
+
+import time
+from typing import Any, Callable, List, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import engine as EN
+from repro_torch import scan as SC
+from repro_torch import spec as QS
+from repro_torch._device import resolve_device
+from repro_torch.uda import GLA, tree_map, tree_stack
+
+Pytree = Any
+
+
+# ---------------------------------------------------------------------------
+# stopping rules
+# ---------------------------------------------------------------------------
+
+class RoundProgress(NamedTuple):
+    """What a stopping rule sees after each round."""
+
+    round: int  # rounds completed so far (1-based)
+    rounds_total: int
+    estimates: Any  # the round's Estimate, or None without an estimator
+    scanned: float  # tuples scanned so far across all partitions
+    d_total: float
+    elapsed_s: float  # driver wall time
+
+
+StoppingRule = Callable[[RoundProgress], bool]
+
+
+def _np64(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", torch.float64).numpy()
+    return np.asarray(x, np.float64)
+
+
+def _per_estimate(estimate, pred) -> bool:
+    """True when ``pred`` holds for the round's estimate; ``None`` (no
+    estimation model) can never attest convergence."""
+    return estimate is not None and pred(estimate)
+
+
+def _half_widths(est) -> np.ndarray:
+    return (_np64(est.upper) - _np64(est.lower)) / 2.0
+
+
+def rel_width(eps: float, *, min_rounds: int = 1) -> StoppingRule:
+    """Stop once every aggregate's CI half-width ≤ ``eps`` · |estimate|.
+
+    Every aggregate (and group) must converge.  Zero half-widths (e.g. empty
+    groups) count as converged; infinite ones (the |S| ≤ 1 variance clamp)
+    never do.
+    """
+    def converged(e):
+        half = _half_widths(e)
+        mid = np.abs(_np64(e.estimate))
+        rel = np.where(half == 0.0, 0.0, half / np.maximum(mid, 1e-300))
+        return bool(rel.size == 0 or np.max(rel) <= eps)
+
+    def rule(prog: RoundProgress) -> bool:
+        if prog.round < min_rounds:
+            return False
+        return _per_estimate(prog.estimates, converged)
+
+    return rule
+
+
+def abs_width(limit: float, *, min_rounds: int = 1) -> StoppingRule:
+    """Stop once every aggregate's CI half-width ≤ ``limit`` (absolute)."""
+    def converged(e):
+        half = _half_widths(e)
+        return bool(half.size == 0 or np.max(half) <= limit)
+
+    def rule(prog: RoundProgress) -> bool:
+        if prog.round < min_rounds:
+            return False
+        return _per_estimate(prog.estimates, converged)
+
+    return rule
+
+
+def budget(*, max_seconds: Optional[float] = None,
+           max_tuples: Optional[float] = None,
+           max_rounds: Optional[int] = None) -> StoppingRule:
+    """Stop when any resource budget is exhausted, converged or not."""
+    def rule(prog: RoundProgress) -> bool:
+        if max_seconds is not None and prog.elapsed_s >= max_seconds:
+            return True
+        if max_tuples is not None and prog.scanned >= max_tuples:
+            return True
+        return max_rounds is not None and prog.round >= max_rounds
+
+    return rule
+
+
+def any_of(*rules: StoppingRule) -> StoppingRule:
+    """Stop when ANY rule fires (e.g. converged OR out of time budget)."""
+    return lambda prog: any(r(prog) for r in rules)
+
+
+def all_of(*rules: StoppingRule) -> StoppingRule:
+    """Stop only when EVERY rule fires."""
+    return lambda prog: all(r(prog) for r in rules)
+
+
+# ---------------------------------------------------------------------------
+# one round-slice
+# ---------------------------------------------------------------------------
+
+def _step(gla: GLA, states, slice_shards: dict, w_r: torch.Tensor,
+          d_local: torch.Tensor, d_total: torch.Tensor, *, path: str,
+          lanes: int, confidence: float, all_alive: bool):
+    """Advance one round-slice of every partition.
+
+    Returns (new per-partition states, per-partition round views, merged
+    round state, round Estimate-or-None)."""
+    if path == "scan":
+        new_states, views = SC.scan_round_step(gla, states, slice_shards, lanes)
+    else:  # "kernel_fused": carry-style, one K1 launch for every partition
+        new_states = views = SC.fused_round_step(gla, states, slice_shards)
+    term = gla.estimator_terminate(views, {"d_local": d_local})
+    merged = EN._merge_rounds(
+        gla, tree_map(lambda x: x[:, None], term), w_r[:, None],
+        gla.estimator_merge, all_alive)
+    merged = tree_map(lambda x: x[0], merged)
+    est = None
+    if gla.estimate is not None:
+        est = gla.estimate(merged, confidence, {"d_total": d_total})
+    return new_states, views, merged, est
+
+
+# ---------------------------------------------------------------------------
+# the session
+# ---------------------------------------------------------------------------
+
+class Session:
+    """A long-lived OLA query: advance round by round, stop early.
+
+    ``data`` is a resident ``[P, C, L]`` shards dict; it is moved to
+    ``device`` ("cuda" by default, a no-op for tensors already there).
+    Drive it with
+
+      * :meth:`run` — to convergence (``stop`` rule) or completion.  With no
+        stopping rule and no prior :meth:`step` this runs the whole-scan
+        program of ``engine.run_query``.
+      * :meth:`step` — one round-slice; returns the :class:`RoundProgress`
+        the stopping rule saw.  Needs ``sync=False``, a partition-uniform
+        schedule and no [R, P] alive schedule.
+      * :meth:`result` — :class:`engine.QueryResult` over the rounds run.
+    """
+
+    def __init__(self, spec, data, *, device="cuda", **plan):
+        qspec = QS.coerce_spec(spec, plan, caller="Session")
+        dev = resolve_device(device)
+        shards = {k: torch.as_tensor(v).to(dev) for k, v in data.items()}
+        qspec = EN.normalize_plan(qspec, shards)
+        self.spec = qspec  # the resolved plan, for introspection
+        gla: GLA = qspec.gla
+        self._gla = gla
+        self._device = dev
+        self._shards = shards
+        self._sched = np.asarray(qspec.schedule, np.int32)
+        self._rounds = self._sched.shape[1] - 1
+        self._stop = qspec.stop
+        self._confidence = float(qspec.confidence)
+        self._mode = qspec.mode
+        self._emit = qspec.emit
+        self._lanes = qspec.lanes
+        self._snapshots = qspec.snapshots
+        P, C, _ = shards["_mask"].shape
+        self._P = P
+
+        alive_np = None if qspec.alive is None else np.asarray(qspec.alive)
+        self._all_alive = alive_np is None or bool(np.all(alive_np))
+        self._alive = (np.ones((P,), bool) if alive_np is None else alive_np)
+
+        uniform = bool(np.all(self._sched == self._sched[0]))
+        self._incremental_ok = (self._mode == "async" and uniform
+                                and self._alive.ndim == 1)
+        if self._stop is not None and not self._incremental_ok:
+            raise ValueError(
+                "stopping rules need an incrementally-steppable session: "
+                "sync=False with a partition-uniform schedule and no [R, P] "
+                "failure-injection alive mask")
+        if self._emit == "kernel" and self._lanes != 1:
+            raise ValueError("emit='kernel' runs single-lane")
+        self._path = "kernel_fused" if self._emit == "kernel" else "scan"
+
+        self._d_local = self._d_total = None
+        self._w_pr = self._w_final = None
+        self._mask_cum: Optional[np.ndarray] = None
+        self._states: Optional[Pytree] = None
+        self._views: Optional[Pytree] = None
+        self._merged: List[Pytree] = []
+        self._ests: List[Any] = []
+        self._steps = 0
+        self._elapsed = 0.0
+        self._converged = False
+        self._result: Optional[EN.QueryResult] = None
+
+    # -- introspection -------------------------------------------------------
+
+    @property
+    def steps_taken(self) -> int:
+        """Round-slices executed so far (the k in 'pays only k/N')."""
+        return self._steps
+
+    @property
+    def rounds_total(self) -> int:
+        return self._rounds
+
+    @property
+    def converged(self) -> bool:
+        """True once the stopping rule has fired."""
+        return self._converged
+
+    @property
+    def done(self) -> bool:
+        return (self._converged or self._steps >= self._rounds
+                or self._result is not None)
+
+    @property
+    def elapsed_s(self) -> float:
+        return self._elapsed
+
+    # -- the incremental driver ----------------------------------------------
+
+    def _init_states(self) -> Pytree:
+        batch = (self._P,) if self._path != "scan" or self._lanes == 1 else (
+            self._P, self._lanes)
+        return SC.stack_init(self._gla, batch, self._device)
+
+    def _ensure_stats(self) -> None:
+        if self._d_local is None:
+            counts = self._shards["_mask"].sum(dim=2, dtype=torch.float64)  # [P, C]
+            self._d_local = counts.sum(dim=1).to(torch.float32)
+            self._d_total = self._d_local.sum()
+            self._mask_cum = np.cumsum(_np64(counts), axis=1)
+            self._w_pr, self._w_final = SC.round_weights(
+                self._alive, self._rounds, self._device)
+
+    def step(self) -> RoundProgress:
+        """Advance one round-slice; evaluate the stopping rule; return what
+        it saw."""
+        if self._result is not None:
+            raise RuntimeError("session already ran to completion")
+        if not self._incremental_ok:
+            raise ValueError(
+                "this session cannot step incrementally (sync mode, "
+                "non-uniform schedule, or [R, P] alive schedule) — use run()")
+        if self.done:
+            raise RuntimeError("session is done; call result()")
+        t0 = time.perf_counter()
+        self._ensure_stats()
+        r = self._steps
+        lo, hi = int(self._sched[0, r]), int(self._sched[0, r + 1])
+        slice_shards = {k: v[:, lo:hi] for k, v in self._shards.items()}
+        states = self._states if self._states is not None else self._init_states()
+        new_states, views, merged, est = _step(
+            self._gla, states, slice_shards, self._w_pr[:, r], self._d_local,
+            self._d_total, path=self._path, lanes=self._lanes,
+            confidence=self._confidence, all_alive=self._all_alive)
+        self._states, self._views = new_states, views
+        if self._snapshots:
+            self._merged.append(merged)
+            self._ests.append(est)
+        self._steps += 1
+        scanned = float(self._mask_cum[:, hi - 1].sum()) if hi else 0.0
+        self._elapsed += time.perf_counter() - t0
+        prog = RoundProgress(
+            round=self._steps, rounds_total=self._rounds, estimates=est,
+            scanned=scanned, d_total=float(self._d_total),
+            elapsed_s=self._elapsed)
+        if self._stop is not None and self._stop(prog):
+            self._converged = True
+        return prog
+
+    def run(self) -> EN.QueryResult:
+        """Drive to convergence or completion and return the result."""
+        if self._result is not None:
+            return self._result
+        if self._steps == 0 and (self._stop is None or not self._incremental_ok):
+            t0 = time.perf_counter()
+            self._result = EN._run_vmapped(
+                self._gla, self._shards, self._sched, self._alive,
+                mode=self._mode, emit=self._emit, lanes=self._lanes,
+                snapshots=self._snapshots, confidence=self._confidence,
+                all_alive=self._all_alive)
+            self._elapsed += time.perf_counter() - t0
+            self._steps = self._rounds
+            return self._result
+        while not self.done:
+            self.step()
+        return self.result()
+
+    def result(self) -> EN.QueryResult:
+        """QueryResult over the rounds executed so far.
+
+        ``final`` is Terminate(Merge of the current per-partition states) —
+        the full-scan answer when the session completed, the raw partial
+        aggregate over the scanned prefix when it stopped early (the anytime
+        *answer* is the last round's ``estimates`` entry).
+        ``snapshots``/``estimates`` stack the executed rounds.
+        """
+        if self._result is not None:
+            return self._result
+        if self._steps == 0:
+            raise RuntimeError("no rounds executed yet — step() or run()")
+        final = self._gla.terminate(EN._merge_over_partitions(
+            self._gla, self._views, self._w_final, self._all_alive))
+        snaps = tree_stack(self._merged) if self._merged else None
+        ests = None
+        if self._ests and self._ests[0] is not None:
+            ests = tree_stack(self._ests)
+        res = EN.QueryResult(final, snaps, ests, self._d_total, self._d_local)
+        if self.done:
+            self._result = res
+        return res

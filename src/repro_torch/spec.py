@@ -1,0 +1,93 @@
+"""QuerySpec — the one query-plan object every entry point accepts.
+
+Port of ``repro/core/spec.py:337-461`` (``QuerySpec`` and ``coerce_spec``;
+plan trees come in a later slice).  ``QuerySpec`` is plan-only: *where* the
+plan runs (``device``) stays a per-call argument of ``run_query`` /
+``Session``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import Any, Optional
+
+#: Loose plan kwargs accepted, with a DeprecationWarning, by the
+#: ``run_query``/``Session`` shims.  ``mode`` maps onto ``QuerySpec.sync``.
+DEPRECATED_PLAN_KWARGS = (
+    "rounds", "schedule", "stop", "confidence", "mode", "emit", "lanes",
+    "snapshots", "alive",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class QuerySpec:
+    """One OLA query plan.
+
+      gla         the GLA to run.
+      rounds      snapshot points over the scan.
+      schedule    cumulative chunk boundaries [P, R+1]; None = uniform.
+      stop        stopping rule (``repro_torch.session.rel_width`` et al.).
+      emit        state-emission discipline: "chunk" (prefix states, any
+                  schedule), "round" (round-boundary states) or "kernel"
+                  (the fused CUDA kernels); None resolves to "chunk".
+      sync        True = the Wu et al. synchronized estimator barrier.
+      lanes       parallel GLA states per partition.
+      snapshots   False = non-interactive mode (no per-round states).
+      confidence  CI level for estimates.
+      alive       static liveness mask [P] or [R, P] (paper §4.6).
+    """
+
+    gla: Any
+    rounds: int = 8
+    schedule: Optional[Any] = None
+    stop: Optional[Any] = None
+    emit: Optional[str] = None
+    sync: bool = False
+    lanes: int = 1
+    snapshots: bool = True
+    confidence: float = 0.95
+    alive: Optional[Any] = None
+
+    def __post_init__(self):
+        if isinstance(self.gla, (tuple, list)):
+            raise TypeError(
+                "a QuerySpec over a sequence of GLAs is a run_queries() plan, "
+                "which the port does not have yet")
+
+    @property
+    def mode(self) -> str:
+        return "sync" if self.sync else "async"
+
+    def resolved_emit(self) -> str:
+        return "chunk" if self.emit is None else self.emit
+
+    def with_(self, **kw) -> "QuerySpec":
+        return dataclasses.replace(self, **kw)
+
+
+def coerce_spec(spec_or_gla, legacy: dict, *, caller: str) -> QuerySpec:
+    """The shim behind every entry point: a ready :class:`QuerySpec` passes
+    through (loose kwargs beside it are a TypeError); a bare GLA is wrapped,
+    with one ``DeprecationWarning`` when loose plan kwargs come with it."""
+    if isinstance(spec_or_gla, QuerySpec):
+        if legacy:
+            raise TypeError(
+                f"{caller}(): pass the plan inside the QuerySpec, not as "
+                f"loose kwargs too ({sorted(legacy)})")
+        return spec_or_gla
+    if not legacy:
+        return QuerySpec(gla=spec_or_gla)
+    unknown = sorted(set(legacy) - set(DEPRECATED_PLAN_KWARGS))
+    if unknown:
+        raise TypeError(f"{caller}() got unexpected keyword arguments: {unknown}")
+    warnings.warn(
+        f"{caller}(gla, data, {'/'.join(sorted(legacy))}=...) loose plan "
+        f"kwargs are deprecated — pass {caller}(QuerySpec(gla, ...), data)",
+        DeprecationWarning, stacklevel=3)
+    kw = dict(legacy)
+    mode = kw.pop("mode", None)
+    if mode is not None:
+        if mode not in ("async", "sync"):
+            raise ValueError(f"mode must be 'async' or 'sync', got {mode!r}")
+        kw["sync"] = mode == "sync"
+    return QuerySpec(gla=spec_or_gla, **kw)

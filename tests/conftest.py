@@ -10,6 +10,9 @@ if str(SRC) not in sys.path:
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: multi-minute subprocess tests (fake-device meshes)")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device (the port's kernels); skips "
+        "without one")
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,132 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Every test here is marked ``gpu`` and skips without a CUDA device.  The file
+imports no JAX, so it runs on a machine that has a card but not the JAX
+package's dependencies:
+
+    python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
+
+Tolerances: counters (``scanned``, ``matched``) exact; f32 sums rtol=1e-5
+with atol=1e-5·max|plain| — the kernels sum in another order; repeat runs
+bitwise-equal (no atomics).
+"""
+import pytest
+import torch
+
+import repro_torch as T
+from repro_torch import randomize
+from repro_torch.data import tpch
+from repro_torch.kernels import fused_agg as FK
+from repro_torch.kernels import ref
+
+RTOL = 1e-5
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the port's kernels run only on the card")
+    return torch.device("cuda")
+
+
+def _close(a, b):
+    torch.testing.assert_close(a, b, rtol=RTOL, atol=RTOL * b.abs().max().item())
+
+
+def _random_inputs(seed, dev, P=4, A=3, G=37, C=5, L=100):
+    g = torch.Generator().manual_seed(seed)
+    vals = torch.rand((P, C, L, A), generator=g) * 100
+    w = (torch.rand((P, C, L), generator=g) < 0.4).float()
+    gids = torch.randint(-2, G + 2, (P, C, L), generator=g, dtype=torch.int32)
+    carry = torch.cat([torch.rand((P, 2 * A), generator=g),
+                       torch.randint(0, 9, (P, 1), generator=g).float()], 1)
+    cs, cq = torch.rand((P, G, A), generator=g), torch.rand((P, G, A), generator=g)
+    cm = torch.randint(0, 9, (P, G), generator=g).float()
+    return [t.to(dev) for t in (vals, w, gids, carry, cs, cq, cm)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [
+    dict(A=3, G=37, C=5, L=100),  # ragged: L not a power of two
+    dict(A=1, G=4, C=64, L=2048),  # Q6 / Q1-small widths
+    dict(A=4, G=8192, C=16, L=2048),  # Q1 with 2^13 buckets
+], ids=["ragged", "small-groups", "buckets"])
+def test_kernels_match_plain_versions(shape):
+    dev = _cuda()
+    vals, w, gids, carry, cs, cq, cm = _random_inputs(0, dev, **shape)
+    A = vals.shape[-1]
+    before = FK.launch_counts()
+    k1 = FK.scalar_round_step(vals, w, carry)
+    r1 = ref.scalar_round_step(vals, w, carry)
+    _close(k1[:, :2 * A], r1[:, :2 * A])
+    assert torch.equal(k1[:, 2 * A], r1[:, 2 * A])
+    k2 = FK.scalar_prefix(vals, w)
+    r2 = ref.scalar_prefix(vals, w)
+    _close(k2[..., :2 * A], r2[..., :2 * A])
+    assert torch.equal(k2[..., 2 * A], r2[..., 2 * A])
+    kg = FK.group_round_step(vals, w, gids, cs, cq, cm)
+    rs, rq, rm = ref.group_round_step(vals, w, gids, cs, cq, cm)
+    _close(kg[0], rs)
+    _close(kg[1], rq)
+    assert torch.equal(kg[2], rm)
+    again = (FK.scalar_round_step(vals, w, carry), FK.scalar_prefix(vals, w),
+             *FK.group_round_step(vals, w, gids, cs, cq, cm))
+    assert all(torch.equal(a, b) for a, b in zip((k1, k2, *kg), again))
+    after = FK.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "fused_round_step/scalar": 2, "fused_round_step/group": 2,
+        "fused_prefix_states": 2}
+
+
+@pytest.mark.gpu
+def test_group_kernel_adds_each_chunk_total_to_the_carry():
+    """As the plain version: a run's rows are summed from zero and the
+    total added to the carry once per chunk; rows added one by one onto a
+    carry of 2**24 would each round away."""
+    dev = _cuda()
+    P, C, L, G = 2, 3, 64, 2
+    big = float(2 ** 24)
+    vals = torch.ones((P, C, L, 1), device=dev)
+    w = torch.ones((P, C, L), device=dev)
+    gids = torch.zeros((P, C, L), dtype=torch.int32, device=dev)
+    cs, cq = (torch.full((P, G, 1), big, device=dev) for _ in range(2))
+    cm = torch.full((P, G), big, device=dev)
+    s, q, m = FK.group_round_step(vals, w, gids, cs, cq, cm)
+    want = torch.tensor([big + C * L, big], device=dev).expand(P, G)
+    for x in (s[..., 0], q[..., 0], m):
+        assert torch.equal(x, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("query", ["q6", "q1-small", "q1-buckets"])
+def test_query_on_the_card_matches_the_plain_route(query):
+    """The same shards through the kernels (cuda) and the plain versions
+    (cpu): counters exact, sums and estimates within RTOL."""
+    dev = _cuda()
+    P, C, L = 4, 32, 2048
+    cols = tpch.generate_lineitem(P * C * L, num_suppliers=5000, seed=4,
+                                  device="cpu")
+    shards = randomize.pack_partitions(
+        randomize.randomize_global(cols, torch.Generator().manual_seed(1), P),
+        chunk_len=L)
+    d = float(P * C * L)
+    if query == "q6":
+        gla = T.make_sum_gla(tpch.q6_func, tpch.q6_cond((0, 1500)), d_total=d)
+    else:
+        kw = (dict(num_groups=4) if query == "q1-small"
+              else dict(num_groups=5000, bucket_bits=7))
+        grp = tpch.q1_group_small if query == "q1-small" else tpch.q1_group_large
+        gla = T.make_groupby_gla(tpch.q1_func, tpch.q1_cond, grp, d_total=d,
+                                 num_aggs=4, **kw)
+    spec = T.QuerySpec(gla, rounds=8, emit="kernel")
+    want = T.run_query(spec, shards, device="cpu")
+    got = T.run_query(spec, shards, device=dev)
+    stepped = T.Session(spec, shards, device=dev)
+    while not stepped.done:
+        stepped.step()
+    again = stepped.result()
+    assert torch.equal(got.final, again.final)  # round by round == whole scan
+    _close(got.final.cpu(), want.final)
+    for f in ("scanned", "matched"):
+        assert torch.equal(getattr(got.snapshots, f).cpu(), getattr(want.snapshots, f))
+    _close(got.snapshots.sum.cpu(), want.snapshots.sum)
+    _close(got.estimates.estimate.cpu(), want.estimates.estimate)
