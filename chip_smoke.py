@@ -3,12 +3,16 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
-holds each against its plain PyTorch version, runs the paper's query loop
-through the port's public entry points on TPC-H lineitem at 234,881,024
-rows (P=8 partitions x C=14,336 chunks x L=2048, about SF 39 — the scale one
-80 GB card holds; the paper's 48e9 rows do not fit), checks the answers
-against a float64 oracle, and times every kernel beside its bound.
+Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc (one
+nvcc per source, all started together), holds each against its plain
+PyTorch version, runs the paper's query loop through the port's public
+entry points on TPC-H lineitem at 234,881,024 rows (P=8 partitions x
+C=14,336 chunks x L=2048, about SF 39 — the scale one 80 GB card holds; the
+paper's 48e9 rows do not fit) — Q6/Q1 queries and sessions, the Q3 join
+against 58,720,256 orders (probe tables past the reference's fused budget:
+K3), the supplier ⋈ nation join (K1), multi-query bundles on both kernel
+paths (K1 bundle mode, K3) and the legacy scalar path (K4) — checks the
+answers against a float64 oracle, and times every kernel beside its bound.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.  The last line is the run's JSON summary.
@@ -35,7 +39,15 @@ SUM_RTOL = 1e-5  # f32 sums: the summation order differs from the plain version
 ORACLE_RTOL = 1e-3  # finals against the float64 exact answer
 K1 = "src/repro/kernels/fused_agg.py:363"
 K2 = "src/repro/kernels/fused_agg.py:454"
-SOURCE = "src/repro_torch/kernels/csrc/fused_agg.cu"
+K3 = "src/repro/kernels/group_agg.py:76"
+K4 = "src/repro/kernels/chunk_agg.py:131"
+CSRC = "src/repro_torch/kernels/csrc/"
+SOURCES = {"fused_round_step/scalar": "fused_agg.cu",
+           "fused_round_step/group": "fused_agg.cu",
+           "fused_round_step/bundle": "fused_agg.cu",
+           "fused_prefix_states": "fused_agg.cu",
+           "group_agg": "group_agg.cu",
+           "shard_chunk_partials": "chunk_agg.cu"}
 
 
 def fail(msg: str):
@@ -63,7 +75,7 @@ def main() -> None:
     import repro_torch as T
     from repro_torch import randomize, scan
     from repro_torch.data import tpch
-    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import fused_agg as FK
 
     dev = torch.device(DEVICE)
@@ -78,14 +90,16 @@ def main() -> None:
     secs = _build.build_all()
     say("build", seconds=f"{time.perf_counter() - t0:.3f}",
         per_source={k: round(v, 3) for k, v in secs.items()})
-    for line in _build.lib_path("fused_agg").with_suffix(".log").read_text().splitlines():
-        if "Used" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    for src in _build.SOURCES:
+        for line in _build.lib_path(src).with_suffix(".log").read_text().splitlines():
+            if "Used" in line or "spill" in line:
+                print(f"  ptxas[{src}]:", line.strip())
 
     # -- data: generated, globally randomized and packed on the device ------
     t0 = time.perf_counter()
     cols = tpch.generate_lineitem(ROWS, num_suppliers=tpch.Q1_LARGE_SUPPLIERS,
                                   seed=SEED, device=dev)
+    cols["orderkey"] = tpch.generate_orders_fk(ROWS, seed=SEED, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 1)
     parts = randomize.randomize_global(cols, gen, P)
@@ -107,6 +121,23 @@ def main() -> None:
         tpch.q1_func, tpch.q1_cond, tpch.q1_group_large,
         num_groups=tpch.Q1_LARGE_SUPPLIERS,
         bucket_bits=tpch.Q1_LARGE_BUCKET_BITS, d_total=d, num_aggs=4)
+    # Q3: lineitem ⋈ orders (rows/4 orders, as the reference's q3_scenario);
+    # its probe tables are far past the reference's fused budget -> K3
+    orders = tpch.orders_table(ROWS // 4, seed=SEED + 7, device=dev)
+    q3 = T.make_join_groupby_gla(
+        tpch.q6_func, tpch.q1_cond, tpch.orderkey, *orders,
+        num_groups=tpch.NUM_SEGMENTS, d_total=d, device=dev)
+    # supplier ⋈ nation (paper §5.4): a small dimension -> fused K1
+    nation = tpch.supplier_nation_table(tpch.Q1_LARGE_SUPPLIERS, seed=SEED + 11,
+                                        device=dev)
+    jn = T.make_join_groupby_gla(
+        tpch.q1_func, tpch.q1_cond, tpch.q1_group_large, *nation,
+        num_groups=tpch.NUM_NATIONS, d_total=d, num_aggs=4, device=dev)
+    q6k = q6.with_(fused=None)  # the legacy scalar path (K4)
+    check(not FK.fused_available(q3) and FK.fused_available(jn),
+          "join routing differs from the reference's probe-budget rule")
+    say("joins", q3_probe_bytes=FK.probe_bytes(q3), nation_probe_bytes=FK.probe_bytes(jn),
+        budget=FK.REFERENCE_PROBE_BUDGET_BYTES)
 
     # -- 2. every kernel against its plain version, at the main path's shapes
     per = C // ROUNDS
@@ -175,6 +206,90 @@ def main() -> None:
     say("check", kernel="fused_prefix_states", shape=tuple(valsK2.shape),
         max_abs_err=checks["fused_prefix_states"], repeat="bitwise-equal")
     del want, got
+
+    # K4 on the whole shard, as run_query(Q6 without its fused contract)
+    vK4, wK4 = (x.to(torch.float32).contiguous() for x in q6.kernel_cols(shards))
+    mK4 = shards["_mask"]
+    got = twice(lambda: ops.shard_chunk_partials(vK4, wK4, mK4))[0]
+    want = ref.shard_chunk_partials(vK4, wK4, mK4)
+    checks["shard_chunk_partials"] = compare(
+        "K4", (got[..., :2], got[..., 2:]), (want[..., :2], want[..., 2:]), {1})
+    say("check", kernel="shard_chunk_partials", shape=tuple(vK4.shape),
+        max_abs_err=checks["shard_chunk_partials"], repeat="bitwise-equal")
+    del want, got
+
+    # K3 on one round-slice: Q3 alone (A=1, G=5) and the [Q6, Q1-small, Q3]
+    # stack of the legacy bundle path (A=4, G=10); each group member of the
+    # stack bitwise-equal to its own launch
+    b3 = T.GLABundle([q6, q1s, q3])
+
+    def k3_solo(gla):
+        """K3's operands for one GLA's own round-slice launch."""
+        v, w, gi = gla.kernel_cols(sl)
+        A = v.shape[-1] if v.ndim == 4 else 1
+        return (v.reshape(P, -1, A).contiguous(),
+                (w * sl["_mask"]).reshape(P, -1).contiguous(),
+                gi.reshape(P, -1).to(torch.int32).contiguous(), gla.kernel_num_groups)
+
+    vs, ws, gs, Gs, offs, aggs = scan.bundle_operands(b3, sl)
+    k3_inputs = {"Q3": k3_solo(q3), "stack": (vs, ws, gs, Gs)}
+    k3_out = {}
+    for label, (v, w, gi, G) in k3_inputs.items():
+        got = twice(lambda: ops.group_agg(v, w, gi, num_groups=G, block_rows=L))
+        want = ref.group_agg(v, w, gi, G, L)
+        err = compare(f"K3 {label}", got, want, {2})
+        checks["group_agg"] = max(checks.get("group_agg", 0.0), err)
+        k3_out[label] = got
+        say("check", kernel=f"group_agg[{label}]", shape=tuple(v.shape), groups=G,
+            max_abs_err=err, repeat="bitwise-equal")
+    for i, gla in ((1, q1s), (2, q3)):  # the stack's group members
+        o, A = offs[i], aggs[i]
+        solo = ops.group_agg(*k3_solo(gla)[:3], num_groups=gla.kernel_num_groups,
+                             block_rows=L)
+        part = [x[:, o:o + gla.kernel_num_groups] for x in k3_out["stack"]]
+        part[:2] = [x[..., :A] for x in part[:2]]
+        check(all(torch.equal(x, y) for x, y in zip(part, solo)),
+              f"K3: member {i} of the stack differs from its own launch")
+    say("check", kernel="group_agg[stack]", members_vs_solo="bitwise-equal")
+    del want, got, k3_out, solo, part
+
+    # K1 bundle on one round-slice: [Q6, Q1-small, Q1-large, supplier ⋈
+    # nation], every member bitwise-equal to its solo K1 launch
+    bf = T.GLABundle([q6, q1s, q1l, jn])
+    bundle_args = []
+    for gla in bf.members:
+        vals, w, gids = FK.project(gla.fused, sl)
+        A = vals.shape[-1]
+        if gids is None:
+            bundle_args.append((vals, w, None, carry))
+        else:
+            G = gla.fused.num_groups
+            bundle_args.append((
+                vals, w, gids, torch.rand((P, G, A), generator=g, device=dev) * 1e3,
+                torch.rand((P, G, A), generator=g, device=dev) * 1e6,
+                torch.randint(0, 1000, (P, G), generator=g, device=dev).float()))
+    got = FK.bundle_round_step(bundle_args)
+    again = FK.bundle_round_step(bundle_args)
+    want = ref.bundle_round_step(bundle_args)
+    torch.cuda.synchronize()
+    err = 0.0
+    for i, (m, a, b, r) in enumerate(zip(bundle_args, got, again, want)):
+        if m[2] is None:
+            solo = FK.scalar_round_step(m[0], m[1], m[3])
+            A = m[0].shape[-1]
+            a, b, r, solo = ((t[:, :2 * A], t[:, 2 * A]) for t in (a, b, r, solo))
+            exact = {1}
+        else:
+            solo, exact = FK.group_round_step(*m), {2}
+        check(all(torch.equal(x, y) for x, y in zip(a, b)),
+              f"K1 bundle member {i}: repeat run is not bitwise-equal")
+        check(all(torch.equal(x, y) for x, y in zip(a, solo)),
+              f"K1 bundle member {i}: differs from its solo launch")
+        err = max(err, compare(f"K1 bundle member {i}", a, r, exact))
+    checks["fused_round_step/bundle"] = err
+    say("check", kernel="fused_round_step/bundle", members=len(bundle_args),
+        max_abs_err=err, repeat="bitwise-equal", members_vs_solo="bitwise-equal")
+    del got, again, want
 
     # -- 3./4. the main path, through the public entry points ----------------
     # Each path is run with the launch counts set to 0 just before it and is
@@ -266,9 +381,58 @@ def main() -> None:
     session("q6-low", q6, T.rel_width(0.01), exact6, "fused_round_step/scalar")
     session("q1-small", q1s, T.rel_width(0.01), exact1s, "fused_round_step/group")
     full_scan("q1-small(4 groups)", q1s, exact1s)
-    full_scan("q1-large(2^13 buckets)", q1l,
-              exact_of(q1l.fused, group=q1l.fused.group,
-                       num_groups=q1l.fused.num_groups))
+    exact1l = exact_of(q1l.fused, group=q1l.fused.group,
+                       num_groups=q1l.fused.num_groups)
+    full_scan("q1-large(2^13 buckets)", q1l, exact1l)
+
+    def oracle_run(name, fn, expected, exacts):
+        """One run of a query or bundle through its entry point, held to
+        its launch counts and each final to the float64 oracle."""
+        FK.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        e2e[name] = time.perf_counter() - t0
+        got = path_launches(name, expected)
+        res = res if isinstance(res, list) else [res]
+        errs = []
+        for r, exact in zip(res, exacts):
+            fin = r.final.double().reshape(exact.shape)
+            check(torch.isfinite(r.estimates.estimate).all().item(),
+                  f"{name}: estimates not finite")
+            err = ((fin - exact).abs() / exact.abs().clamp(min=1e-300)).max().item()
+            check(bool(((fin - exact).abs() <= ORACLE_RTOL * exact.abs()).all()),
+                  f"{name}: final off the exact answer (max rel {err:.3e})")
+            errs.append(f"{err:.3e}")
+        say("run", path=name, final_max_rel_err=errs,
+            seconds=f"{e2e[name]:.3f}", launches=got)
+
+    exact3 = tpch.exact_answer(flat, tpch.q6_func, tpch.q1_cond,
+                               num_groups=tpch.NUM_SEGMENTS, join_key=tpch.orderkey,
+                               dim_group=orders[0], dim_valid=orders[1])
+    exactn = tpch.exact_answer(flat, tpch.q1_func, tpch.q1_cond,
+                               num_groups=tpch.NUM_NATIONS,
+                               join_key=tpch.q1_group_large,
+                               dim_group=nation[0], dim_valid=nation[1])
+    spec = lambda g: T.QuerySpec(g, rounds=ROUNDS, emit="kernel")  # noqa: E731
+    oracle_run("run_query q3 (K3)", lambda: T.run_query(spec(q3), shards, device=dev),
+               {"group_agg": ROUNDS}, [exact3])
+    session("q3", q3, T.rel_width(0.01), exact3, "group_agg")
+    oracle_run("run_queries [q6, q1-small, q3] (K3)",
+               lambda: T.run_queries(spec([q6, q1s, q3]), shards, device=dev),
+               {"group_agg": ROUNDS}, [exact6, exact1s, exact3])
+    oracle_run("run_queries [q6, q1-small, q1-large, nation] (K1 bundle)",
+               lambda: T.run_queries(spec([q6, q1s, q1l, jn]), shards, device=dev),
+               {"fused_round_step/bundle": ROUNDS},
+               [exact6, exact1s, exact1l, exactn])
+    oracle_run("run_query nation (K1 group)",
+               lambda: T.run_query(spec(jn), shards, device=dev),
+               {"fused_round_step/group": ROUNDS}, [exactn])
+    oracle_run("run_query q6, no fused contract (K4)",
+               lambda: T.run_query(spec(q6k), shards, device=dev),
+               {"shard_chunk_partials": 1}, [exact6])
+    session("q6-low, no fused contract", q6k, T.rel_width(0.01), exact6,
+            "shard_chunk_partials")
     say("main-path launches", **launches)
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was not launched on the main path")
@@ -305,7 +469,8 @@ def main() -> None:
     def record(name, replaces, ms, plain_ms, nbytes, flops, library_ms, extra):
         b, by = bound(nbytes, flops)
         rows.append({
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
+            "name": name, "route": "cuda", "source": CSRC + SOURCES[name],
+            "replaces": replaces,
             "launches": launches[name], "max_abs_err": checks[name], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
             "library_ms": library_ms})
@@ -359,6 +524,74 @@ def main() -> None:
            median_ms(lambda: torch.cumsum(x, dim=-1), 5),
            {"with_closures_ms": f"{median_ms(lambda: FK.fused_prefix_states(q6, shards), 5):.6f}"})
     del x
+
+    # K4 on the whole shard
+    N = vK4.numel()
+    wm = wK4 * mK4
+    x = torch.stack([vK4 * wm, (vK4 * vK4) * wm, mK4, wm], dim=2)  # [P, C, 4, L]
+    del wm
+    record("shard_chunk_partials", K4,
+           median_ms(lambda: ops.shard_chunk_partials(vK4, wK4, mK4), 10),
+           median_ms(lambda: ref.shard_chunk_partials(vK4, wK4, mK4), 3),
+           4 * (3 * N + 4 * P * C), 8 * N,
+           median_ms(lambda: torch.sum(x, dim=-1), 10),
+           {"with_closures_ms":
+            f"{median_ms(lambda: scan.kernel_prefix_states(q6k, shards), 5):.6f}"})
+    del x
+
+    def index_add_call(vals, w, gids, G):
+        """The library call for a group table: ``index_add_`` of the
+        stacked products (v·w, v·v·w, w) into [P·G, 2A+1]."""
+        src = stacked(vals, w)
+        idx = (gids.long() + torch.arange(P, device=dev).reshape(
+            P, *([1] * (gids.ndim - 1))) * G).reshape(-1)
+        acc = torch.zeros((P * G, src.shape[1]), device=dev)
+        return lambda: acc.index_add_(0, idx, src)
+
+    # K3 on one round-slice: Q3 alone (the JSON row) and the bundle stack
+    for label, gla, reps in (("Q3", q3, 5), ("stack", b3, 3)):
+        v, w, gi, G = k3_inputs[label]
+        N, A = w.numel(), v.shape[-1]
+        lib = index_add_call(v, w, gi, G)
+        withc = (lambda: scan.bundle_round_deltas(gla, sl)) if gla.members else (
+            lambda: scan.kernel_round_delta(gla, sl))
+        args = (label, K3, median_ms(lambda: ops.group_agg(v, w, gi, num_groups=G,
+                                                            block_rows=L), reps),
+                median_ms(lambda: ref.group_agg(v, w, gi, G, L), 2),
+                4 * (v.numel() + 2 * N + P * G * (2 * A + 1)), (4 * A + 1) * N,
+                median_ms(lib, 5), {"with_closures_ms": f"{median_ms(withc, 2):.6f}",
+                                    "groups": G})
+        del lib
+        if label == "Q3":
+            record("group_agg", *args[1:])
+        else:
+            b, by = bound(args[4], args[5])
+            say("time", kernel="group_agg[stack]", ms=f"{args[2]:.6f}",
+                plain_ms=f"{args[3]:.6f}", bound_ms=f"{b:.6f}", bound_by=by,
+                library_ms=args[6], bytes=args[4], flops=args[5], **args[7])
+
+    # K1 bundle on one round-slice: [Q6, Q1-small, Q1-large, supplier ⋈ nation]
+    nbytes = flops = 0
+    lib_ms = 0.0
+    for m in bundle_args:
+        N, A = m[1].numel(), m[0].shape[-1]
+        carries = m[3:] if m[2] is not None else m[3:4]
+        nbytes += 4 * (m[0].numel() + N * (1 if m[2] is None else 2)
+                       + 2 * sum(c.numel() for c in carries))
+        flops += (4 * A + 1 + (m[2] is None)) * N
+        if m[2] is None:
+            x = stacked_rows_last(m[0], m[1])
+            lib_ms += median_ms(lambda: torch.sum(x, dim=-1), 10)
+        else:
+            lib_ms += median_ms(index_add_call(m[0], m[1], m[2], m[5].shape[-1]), 5)
+        x = None
+    stb = scan.stack_init(bf, (P,), dev)
+    record("fused_round_step/bundle", K1,
+           median_ms(lambda: FK.bundle_round_step(bundle_args), 10),
+           median_ms(lambda: ref.bundle_round_step(bundle_args), 2),
+           nbytes, flops, lib_ms,
+           {"members": len(bundle_args),
+            "with_closures_ms": f"{median_ms(lambda: FK.fused_round_step(bf, stb, sl), 5):.6f}"})
 
     say("end-to-end", **{k.replace(" ", "_"): f"{v:.3f}s" for k, v in e2e.items()})
     for r_ in rows:

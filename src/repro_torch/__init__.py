@@ -4,8 +4,11 @@ The query loop of the paper runs here on an NVIDIA Hopper card: TPC-H
 lineitem packed into ``[P, C, L]`` shards, GLAs with the single-estimator
 model, ``run_query`` / ``Session`` with per-round Horvitz–Thompson
 estimates and Eq. (4) bounds, and stopping rules that end the scan early.
-On ``emit="kernel"`` the round-slices go through hand-written CUDA kernels
-(``repro_torch.kernels.fused_agg``); on a CPU tensor the same wrappers run
+``run_queries`` runs any number of queries (a ``GLABundle``) over one scan,
+and ``make_join_groupby_gla`` joins a replicated dimension table (paper
+Alg. 4).  On ``emit="kernel"`` the round-slices go through hand-written
+CUDA kernels (``repro_torch.kernels.fused_agg``, and ``kernels.ops`` where
+the fused contract cannot be used); on a CPU tensor the same wrappers run
 their plain PyTorch versions (``repro_torch.kernels.ref``).
 
 Layout: the JAX package keeps its engine modules under ``repro/core/``.
@@ -23,8 +26,15 @@ Entry points take ``device=`` and default to ``"cuda"``; with no card they
 raise unless the caller asks for ``"cpu"``.  The package imports ``torch``
 and ``numpy`` only — never ``jax`` and nothing of ``repro``.
 """
-from repro_torch.engine import QueryResult, run_query
-from repro_torch.gla import debucket, hash_bucket, make_groupby_gla, make_sum_gla
+from repro_torch.engine import QueryResult, run_queries, run_query
+from repro_torch.gla import (
+    GLABundle,
+    debucket,
+    hash_bucket,
+    make_groupby_gla,
+    make_join_groupby_gla,
+    make_sum_gla,
+)
 from repro_torch.session import (
     RoundProgress,
     Session,
@@ -35,12 +45,14 @@ from repro_torch.session import (
     rel_width,
 )
 from repro_torch.spec import QuerySpec
-from repro_torch.uda import GLA, Estimate, FusedSpec
+from repro_torch.uda import GLA, Estimate, FusedSpec, ProbeTable
 
 __all__ = [
     "GLA",
+    "GLABundle",
     "Estimate",
     "FusedSpec",
+    "ProbeTable",
     "QueryResult",
     "QuerySpec",
     "RoundProgress",
@@ -52,7 +64,9 @@ __all__ = [
     "debucket",
     "hash_bucket",
     "make_groupby_gla",
+    "make_join_groupby_gla",
     "make_sum_gla",
     "rel_width",
+    "run_queries",
     "run_query",
 ]

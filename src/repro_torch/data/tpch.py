@@ -1,6 +1,6 @@
 """Synthetic TPC-H lineitem — the paper's evaluation workload, on the device.
 
-Port of ``repro/data/tpch.py:32-130,249+``.  The generator draws the same
+Port of ``repro/data/tpch.py:32-211,249+``.  The generator draws the same
 distributions as the reference (dbgen's for the columns the paper's queries
 touch) from a seeded ``torch.Generator`` on the given device, so a card
 makes hundreds of millions of rows in seconds.  The draws are not the
@@ -15,6 +15,7 @@ Column encodings (all numeric, columnar):
   tax       float32 in {0.00 .. 0.08}
   rfls      int32 in [0, 4)   returnflag×linestatus combined group
   suppkey   int32 in [0, num_suppliers)
+  orderkey  int32 in [0, num_orders)   (join scenarios only)
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ DAYS = 2526  # dbgen shipdate span
 Q6_LOW_WINDOW = (420, 785)  # ~1 year starting '1993-02-26'
 Q6_HIGH_WINDOW = (420, 421)  # the single day '1993-02-26'
 Q1_WINDOW = (2434, 2526)  # ['1998-09-01','1998-12-01']
+NUM_NATIONS = 25
 
 # Large-domain Q1 (paper §5.3: 1M groups, scaled): suppkey spans 100k raw
 # ids, folded into 2**13 hash buckets (repro_torch.gla.hash_bucket).
@@ -35,13 +37,18 @@ Q1_LARGE_SUPPLIERS = 100_000
 Q1_LARGE_BUCKET_BITS = 13
 
 
+def _generator(seed: int, device) -> tuple:
+    dev = resolve_device(device)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return g, dev
+
+
 def generate_lineitem(
     rows: int, *, num_suppliers: int = 1000, seed: int = 7, device="cuda"
 ) -> Dict[str, torch.Tensor]:
     """``rows`` lineitem rows as flat ``[rows]`` columns on ``device``."""
-    dev = resolve_device(device)
-    g = torch.Generator(device=dev)
-    g.manual_seed(seed)
+    g, dev = _generator(seed, device)
 
     def ints(lo, hi, dtype):
         return torch.randint(lo, hi, (rows,), generator=g, device=dev, dtype=dtype)
@@ -59,6 +66,16 @@ def generate_lineitem(
         "rfls": ints(0, 4, torch.int32),
         "suppkey": ints(0, num_suppliers, torch.int32),
     }
+
+
+def supplier_nation_table(num_suppliers: int = 1000, seed: int = 11,
+                          device="cuda"):
+    """Replicated dimension side: suppkey -> nationkey, plus validity —
+    supplier ⋈ nation pre-joined in memory (paper §5.4)."""
+    g, dev = _generator(seed, device)
+    nation = torch.randint(0, NUM_NATIONS, (num_suppliers,), generator=g,
+                           device=dev, dtype=torch.int32)
+    return nation, torch.ones(num_suppliers, dtype=torch.float32, device=dev)
 
 
 # --- query pieces -----------------------------------------------------------
@@ -127,15 +144,93 @@ def q1_large_scenario(
     return cols, g
 
 
+# --- two-table Q3/Q10-class join scenarios ---------------------------------
+#
+# lineitem ⋈ orders on orderkey, grouped by an orders-side attribute with an
+# orders-side date predicate.  The orders dimension is replicated and
+# pre-joined in memory (paper §5.4).
+
+NUM_SEGMENTS = 5  # c_mktsegment / o_orderpriority-scale domain
+Q3_DATE_CUTOFFS = (430, 2100)  # orders-side o_orderdate window
+
+
+def orderkey(chunk):
+    """The lineitem-side join key l_orderkey."""
+    return chunk["orderkey"]
+
+
+def generate_orders_fk(rows: int, *, num_orders: int | None = None,
+                       seed: int = 7, device="cuda") -> torch.Tensor:
+    """The foreign key l_orderkey, int32 [rows] in [0, num_orders)
+    (default rows // 4); callers add it as ``cols["orderkey"]``."""
+    num_orders = num_orders or max(1, rows // 4)
+    g, dev = _generator(seed + 101, device)
+    return torch.randint(0, num_orders, (rows,), generator=g, device=dev,
+                         dtype=torch.int32)
+
+
+def orders_table(num_orders: int, seed: int = 13, *,
+                 date_window=Q3_DATE_CUTOFFS, device="cuda"):
+    """Replicated orders dimension: orderkey -> (segment int32, valid
+    float32), ``valid`` the orders-side date predicate evaluated once."""
+    g, dev = _generator(seed, device)
+    segment = torch.randint(0, NUM_SEGMENTS, (num_orders,), generator=g,
+                            device=dev, dtype=torch.int32)
+    orderdate = torch.randint(0, DAYS, (num_orders,), generator=g, device=dev,
+                              dtype=torch.int32)
+    lo, hi = date_window
+    return segment, ((orderdate >= lo) & (orderdate < hi)).to(torch.float32)
+
+
+def _join_scenario(rows, func, num_aggs, *, num_orders, seed, estimator,
+                   device):
+    from repro_torch import gla as _gla  # local: data must not require the engine
+
+    cols = generate_lineitem(rows, seed=seed, device=device)
+    cols["orderkey"] = generate_orders_fk(rows, num_orders=num_orders,
+                                          seed=seed, device=device)
+    dim = orders_table(num_orders or max(1, rows // 4), seed=seed + 7,
+                       device=device)
+    g = _gla.make_join_groupby_gla(
+        func, q1_cond, orderkey, *dim, num_groups=NUM_SEGMENTS,
+        d_total=float(rows), estimator=estimator, num_aggs=num_aggs,
+        device=device)
+    return cols, g, dim
+
+
+def q3_scenario(rows: int, *, num_orders: int | None = None, seed: int = 7,
+                estimator: str = "single", device="cuda"):
+    """Q3-class join: SUM(revenue) per order segment, orders date-windowed.
+    Returns ``(cols, gla, (segment, valid))``."""
+    return _join_scenario(rows, q6_func, 1, num_orders=num_orders, seed=seed,
+                          estimator=estimator, device=device)
+
+
+def q10_scenario(rows: int, *, num_orders: int | None = None, seed: int = 7,
+                 estimator: str = "single", device="cuda"):
+    """Q10-class join: the four Q1 SUMs per order segment ([G, 4] states).
+    Returns ``(cols, gla, (segment, valid))``."""
+    return _join_scenario(rows, q1_func, 4, num_orders=num_orders, seed=seed,
+                          estimator=estimator, device=device)
+
+
 def exact_answer(cols, func, cond, group=None, num_groups: int | None = None, *,
-                 batch_rows: int = 1 << 24):
+                 batch_rows: int = 1 << 24, join_key=None, dim_group=None,
+                 dim_valid=None):
     """Ground truth in float64 — the oracle for every correctness check.
 
     ``cols`` is a flat columnar dict (``[N]`` tensors, optionally with a
     ``_mask``).  The per-row values come from the query's own closures (in
     float32, as the engine sees them) and are accumulated in float64 over
     bounded row batches on the columns' device.
+
+    Joins: pass ``join_key`` (chunk -> fact-side keys) with the replicated
+    ``dim_group``/``dim_valid``; each batch gathers its keys' dimension
+    rows, folds ``dim_valid`` into the weight and groups by ``dim_group``,
+    as ``gla.make_join_groupby_gla`` does.
     """
+    if join_key is not None and (dim_group is None or dim_valid is None):
+        raise ValueError("join oracle needs dim_group and dim_valid")
     n = next(iter(cols.values())).shape[0]
     acc = None
     for lo in range(0, n, batch_rows):
@@ -144,14 +239,19 @@ def exact_answer(cols, func, cond, group=None, num_groups: int | None = None, *,
         w = cond(chunk).to(torch.float64)
         if "_mask" in chunk:
             w = w * chunk["_mask"].to(torch.float64)
+        gid = None if group is None else group(chunk)
+        if join_key is not None:
+            keys = join_key(chunk).long()
+            w = w * dim_valid.to(w.device)[keys].to(torch.float64)
+            gid = dim_group.to(w.device)[keys]
         if vals.ndim == 1:
             vals = vals[:, None]
         contrib = vals * w[:, None]
-        if group is None:
+        if gid is None:
             s = contrib.sum(dim=0)
         else:
             s = torch.zeros((num_groups, vals.shape[1]), dtype=torch.float64,
                             device=vals.device)
-            s.index_add_(0, group(chunk).long(), contrib)
+            s.index_add_(0, gid.long(), contrib)
         acc = s if acc is None else acc + s
     return acc

@@ -1,4 +1,4 @@
-"""The PF-OLA execution engine — port of ``repro/core/engine.py:58-389``.
+"""The PF-OLA execution engine — port of ``repro/core/engine.py:58-446``.
 
 Execution model (paper §3.2–§3.4):
 
@@ -15,6 +15,12 @@ Execution model (paper §3.2–§3.4):
     single estimator under global randomization), ``sync=True`` truncates
     every partition to the global minimum (the Wu et al. barrier).
   * node failure: ``alive`` masks partitions out of merging.
+  * :func:`run_queries` runs N queries over ONE pass of the shards as a
+    :func:`repro_torch.gla.GLABundle` and unbundles the results.
+
+``emit="kernel"`` routes as the reference does: the fused kernels (K1, K2)
+whenever ``scan.fused_available``; otherwise a group-by GLA or a bundle
+takes one K3 launch per round-slice and a scalar GLA one K4 launch.
 """
 from __future__ import annotations
 
@@ -96,18 +102,26 @@ def _run_vmapped(gla: GLA, shards: dict, sched: np.ndarray, alive, *,
         raise ValueError("emit='kernel' runs single-lane")
 
     round_states = None
-    if kernel and gla.fused.group is not None:
-        # group states follow the round emission discipline: one K1 launch
-        # per round-slice (one for the whole scan without snapshots)
+    fused_ok = SC.fused_available(gla)
+    if kernel and (gla.kernel_num_groups is not None or gla.members):
+        # group and bundle states follow the round emission discipline: one
+        # launch per round-slice (one for the whole scan without snapshots)
         if mode == "sync":
             raise NotImplementedError("sync mode requires emit='chunk'")
-        finals, round_states = SC.fused_rounds_states(
-            gla, shards, R if snapshots else 1)
+        R_ = R if snapshots else 1
+        if fused_ok:
+            finals, round_states = SC.fused_rounds_states(gla, shards, R_)
+        elif gla.members:
+            finals, round_states = SC.bundle_kernel_rounds_states(gla, shards, R_)
+        else:
+            finals, round_states = SC.kernel_rounds_states(gla, shards, R_)
     elif emit in ("chunk", "kernel"):
-        if kernel:
+        if not kernel:
+            finals, prefixes = SC.scan_prefix(gla, shards, lanes)
+        elif fused_ok:
             finals, prefixes = SC.fused_prefix_states(gla, shards)
         else:
-            finals, prefixes = SC.scan_prefix(gla, shards, lanes)
+            finals, prefixes = SC.kernel_prefix_states(gla, shards)
         if snapshots:
             idx = torch.as_tensor(sched[:, 1:], dtype=torch.int64, device=dev)
             if mode == "sync":
@@ -144,21 +158,41 @@ def normalize_plan(qspec: QS.QuerySpec, shards: dict) -> QS.QuerySpec:
     data's ``[P, C, L]`` shape: ``emit`` a concrete string, ``schedule`` a
     [P, R+1] ndarray, ``rounds`` its R.
 
-    Round-emission paths ("round", and group "kernel") emit at uniform round
-    boundaries only: ``rounds`` degrades to the largest divisor of C with a
-    warning, and an explicit schedule that is indivisible or non-uniform is
-    a ValueError.
+    A multi-query spec is a TypeError: :func:`run_queries` bundles it first.
+    Round-emission paths ("round", and group-by or bundle "kernel") emit at
+    uniform round boundaries only: ``rounds`` degrades to the largest
+    divisor of C with a warning, and an explicit schedule that is
+    indivisible or non-uniform is a ValueError.
     """
+    if qspec.is_multi:
+        raise TypeError(
+            "a QuerySpec holding a sequence of GLAs is a run_queries() "
+            "plan — run_queries bundles it before execution")
     gla, emit = qspec.gla, qspec.resolved_emit()
     rounds, schedule = qspec.rounds, qspec.schedule
     P, C, _ = shards["_mask"].shape
     if emit not in ("chunk", "round", "kernel"):
         raise ValueError(f"unknown emit: {emit!r} (the port runs 'chunk', "
                          "'round' and 'kernel')")
-    if emit == "kernel" and not SC.fused_available(gla):
-        raise ValueError(f"GLA {gla.name!r} publishes no fused kernel contract")
+    if emit == "kernel":
+        if gla.members:
+            # one launch serves every member: either all publish a fused
+            # contract (K1) or all publish kernel_cols (K3)
+            if any(m.fused is None for m in gla.members):
+                missing = [m.name for m in gla.members if m.kernel_cols is None]
+                if missing:
+                    raise ValueError(
+                        f"bundle members {missing} do not publish kernel_cols "
+                        "or a fused contract — emit='kernel' batches every "
+                        "member into one dispatch and cannot mix in "
+                        "scan-only members")
+        elif gla.kernel_cols is None and gla.fused is None:
+            raise ValueError(
+                f"GLA {gla.name!r} publishes neither kernel_cols nor a "
+                "fused kernel contract")
     needs_uniform = emit == "round" or (
-        emit == "kernel" and gla.fused.group is not None)
+        emit == "kernel" and (gla.kernel_num_groups is not None
+                              or bool(gla.members)))
     if needs_uniform:
         if schedule is None:
             if C % rounds:
@@ -202,3 +236,39 @@ def run_query(spec, data, *, device="cuda", **plan) -> QueryResult:
 
     qspec = QS.coerce_spec(spec, plan, caller="run_query")
     return SN.Session(qspec, data, device=device).run()
+
+
+def run_queries(specs, data, *, device="cuda", **plan):
+    """Execute N concurrent OLA queries over ONE pass of the shards.
+
+    The queries are stacked into a :func:`repro_torch.gla.GLABundle` (one
+    tuple-of-states GLA), every scan path feeds all of them from the same
+    chunks, and the result is unbundled into one :class:`QueryResult` per
+    query.  Within the port each member's finals, snapshot states and
+    bounds equal its solo :func:`run_query` on the scan paths and on the
+    fused kernel path.
+
+    ``specs`` is a :class:`repro_torch.spec.QuerySpec` whose ``gla`` is a
+    sequence of GLAs (or a bare sequence).  The plan applies to the shared
+    scan; ``emit`` resolves to ``"round"`` by default.  ``emit="kernel"``
+    runs every member in one K1 launch per round-slice when all have a
+    usable fused contract, else one K3 launch per round-slice over their
+    ``kernel_cols``.  With ``spec.stop`` every member that estimates must
+    converge before the bundle stops.
+
+    Returns: list of :class:`QueryResult`, one per GLA, in order.
+    """
+    from repro_torch.gla import GLABundle  # local: gla is a leaf module
+
+    qspec = QS.coerce_spec(specs, plan, caller="run_queries")
+    if not qspec.is_multi:
+        raise TypeError("run_queries() takes a sequence of GLAs — for a "
+                        "single query use run_query()")
+    glas = list(qspec.gla)
+    qspec = qspec.with_(emit=qspec.resolved_emit(), gla=GLABundle(glas))
+    res = run_query(qspec, data, device=device)
+    return [QueryResult(res.final[i],
+                        None if res.snapshots is None else res.snapshots[i],
+                        None if res.estimates is None else res.estimates[i],
+                        res.d_total, res.d_local)
+            for i in range(len(glas))]

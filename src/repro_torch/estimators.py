@@ -1,6 +1,6 @@
 """Sampling estimators for parallel on-line aggregation — paper §4.
 
-Port of ``repro/core/estimators.py:40-133``: the generic sampling-without-
+Port of ``repro/core/estimators.py:40-133,192-202``: the generic sampling-without-
 replacement estimator (Eq. 2) with its unbiased variance estimator (Eq. 4),
 and the single-estimator model (paper Alg. 1, corrected: ``scanned`` = |S|
 counts every live item, ``sum``/``sumsq`` only predicate matches).
@@ -88,3 +88,16 @@ def single_estimate(state: SumState, confidence, *, d_total) -> Estimate:
     lo, hi = normal_bounds(est, var, confidence)
     frac = state.scanned / max(float(d_total), 1.0)
     return Estimate(est, lo, hi, info={"var": var, "frac": frac})
+
+
+def join_scale(d_fact, s_fact, d_dim, s_dim):
+    """§3.3 multiplicative join estimator scale: (|R|/|S_R|)·(|T|/|S_T|).
+
+    With the dimension side fully resident (``s_dim == d_dim``, the probe
+    table joins) the second factor is exactly 1 and the scale is the plain
+    Horvitz–Thompson |R|/|S_R|.  Denominators are clamped at 1.
+    """
+    xs = [torch.as_tensor(x) for x in (d_fact, s_fact, d_dim, s_dim)]
+    dev = next((x.device for x in xs if x.device.type != "cpu"), xs[0].device)
+    d_f, s_f, d_d, s_d = (x.to(dev, torch.float32) for x in xs)
+    return d_f / torch.clamp(s_f, min=1.0) * (d_d / torch.clamp(s_d, min=1.0))

@@ -1,10 +1,13 @@
-"""Concrete GLAs — paper Algorithms 1 and 3.
+"""Concrete GLAs — paper Algorithms 1, 3 and 4, and multi-query bundles.
 
-Port of ``repro/core/gla.py:37-50,149-421``:
+Port of ``repro/core/gla.py:37-133,149-523``:
 
-  * :func:`make_sum_gla`     — §4.3 single-table SUM/COUNT (Alg. 1)
-  * :func:`make_groupby_gla` — §4.4 group-by aggregation (Alg. 3), with the
-                               hash-bucketed large-domain group table
+  * :func:`make_sum_gla`          — §4.3 single-table SUM/COUNT (Alg. 1)
+  * :func:`make_groupby_gla`      — §4.4 group-by aggregation (Alg. 3), with
+                                    the hash-bucketed large-domain table
+  * :func:`make_join_groupby_gla` — §4.5 join group-by with a replicated
+                                    dimension table (Alg. 4)
+  * :func:`GLABundle`             — §3 any number of queries over one scan
 
 Queries are ``func(chunk) -> [..., L] or [..., L, A]`` values (A
 simultaneous aggregates, like TPC-H Q1's four SUMs) and ``cond(chunk) ->
@@ -13,18 +16,20 @@ ids.  Chunk columns are ``[B, L]`` with the partition (or lane) axis written
 out as ``B``, and states carry the same leading axis (uda module doc).
 
 States are float32 ``SumState``s, so every GLA here publishes the fused
-kernel contract (``FusedSpec``) that ``emit="kernel"`` runs.  The legacy
-``kernel_cols``/``kernel_num_groups`` projections of the reference serve
-kernels not yet ported and are left out.
+kernel contract (``FusedSpec``) that ``emit="kernel"`` runs, and the
+legacy ``kernel_cols`` projection (scalar with A == 1, and group-by) that
+it falls back to when the fused contract cannot be used.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from functools import lru_cache
+from typing import Callable, Optional, Sequence
 
 import torch
 
 from repro_torch import estimators as E
-from repro_torch.uda import GLA, Chunk, Estimate, FusedSpec, tree_map
+from repro_torch._device import resolve_device
+from repro_torch.uda import GLA, Chunk, Estimate, FusedSpec, ProbeTable, tree_map
 
 _F32 = torch.float32
 
@@ -36,6 +41,77 @@ def _as_2d(vals: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 def _add(a, b):
     return tree_map(torch.add, a, b)
+
+
+# ---------------------------------------------------------------------------
+# Multi-query bundles (paper §3: any number of concurrent estimators over
+# one execution).  A bundle is a GLA whose state is the tuple of member
+# states, so every scan path runs N queries over one pass of the chunks;
+# each member sees the same chunks in the same order as it would alone.
+# ---------------------------------------------------------------------------
+
+def GLABundle(glas: Sequence[GLA], *, name: Optional[str] = None) -> GLA:
+    """Stack GLAs into one GLA over a shared scan.
+
+    The state is ``tuple(member states)``; every GLA function applies
+    member-wise.  ``estimate`` returns one :class:`Estimate` per member
+    (``None`` for members without an estimation model).  The bundle
+    publishes no kernel contract of its own: ``emit="kernel"`` runs all
+    members in one K1 launch per round-slice when every member has a
+    usable fused contract, else one K3 launch per round-slice over every
+    member's ``kernel_cols`` projection.  Bundling the same members again
+    returns the same bundle object.  Use
+    :func:`repro_torch.engine.run_queries` to run one.
+    """
+    members = tuple(glas)
+    if not members:
+        raise ValueError("GLABundle needs at least one member GLA")
+    if any(m.members for m in members):
+        raise ValueError("GLABundle members must not themselves be bundles")
+    return _bundle_cached(members, name)
+
+
+@lru_cache(maxsize=256)
+def _bundle_cached(members: tuple, name: Optional[str]) -> GLA:
+    return _combine_members(members, name)
+
+
+def _combine_members(members: tuple, name: Optional[str]) -> GLA:
+    """The tuple-of-states combinator behind :func:`GLABundle`."""
+    def init(device):
+        return tuple(m.init(device) for m in members)
+
+    def accumulate(state, chunk):
+        return tuple(m.accumulate(s, chunk) for m, s in zip(members, state))
+
+    def merge(a, b):
+        return tuple(m.merge(x, y) for m, x, y in zip(members, a, b))
+
+    def terminate(state):
+        return tuple(m.terminate(s) for m, s in zip(members, state))
+
+    def estimator_terminate(state, ctx=None):
+        return tuple(m.estimator_terminate(s, ctx)
+                     for m, s in zip(members, state))
+
+    def estimator_merge(a, b):
+        return tuple(m.estimator_merge(x, y) for m, x, y in zip(members, a, b))
+
+    def estimate(state, confidence, ctx=None):
+        return tuple(
+            m.estimate(s, confidence, ctx) if m.estimate is not None else None
+            for m, s in zip(members, state))
+
+    any_estimate = any(m.estimate is not None for m in members)
+    return GLA(
+        init=init, accumulate=accumulate, merge=merge, terminate=terminate,
+        estimator_terminate=estimator_terminate,
+        estimator_merge=estimator_merge,
+        estimate=estimate if any_estimate else None,
+        merge_is_additive=all(m.merge_is_additive for m in members),
+        members=members,
+        name=name or "bundle[" + "+".join(m.name for m in members) + "]",
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -129,10 +205,13 @@ def make_sum_gla(
         return Estimate(sq(est), sq(lo), sq(hi),
                         info={"var": sq(var), "frac": state.scanned / d_total})
 
+    def kernel_cols(chunk):  # the legacy scalar contract: A == 1 only
+        return func(chunk), cond(chunk)
+
     return GLA(
         init=zero_sum, accumulate=acc_sum, merge=_add, terminate=terminate,
         estimate=None if estimator == "none" else estimate,
-        merge_is_additive=True,
+        merge_is_additive=True, kernel_cols=kernel_cols if A == 1 else None,
         fused=FusedSpec(func=func, cond=cond, group=None, num_aggs=A),
         name=f"sum-{estimator}",
     )
@@ -217,12 +296,104 @@ def make_groupby_gla(
         lo, hi = E.normal_bounds(est, var, confidence)
         return Estimate(est, lo, hi, info={"var": var, "matched": state.matched})
 
+    def kernel_cols(chunk):  # ``group`` is the bucketed view already
+        return func(chunk), cond(chunk), group(chunk)
+
     suffix = f"-b{bucket_bits}" if bucket_bits is not None else ""
     return GLA(
         init=zero, accumulate=acc, merge=_add, terminate=lambda s: s.sum,
         estimate=None if estimator == "none" else estimate,
-        merge_is_additive=True,
+        merge_is_additive=True, kernel_cols=kernel_cols, kernel_num_groups=G,
         fused=FusedSpec(func=func, cond=cond, group=group, num_aggs=A,
                         num_groups=G),
         name=f"groupby-{estimator}{suffix}",
     )
+
+
+# ---------------------------------------------------------------------------
+# Paper Alg. 4 — GLAJoin (replicated in-memory dimension table)
+# ---------------------------------------------------------------------------
+
+def make_join_groupby_gla(
+    func: Callable[[Chunk], torch.Tensor],
+    cond: Callable[[Chunk], torch.Tensor],
+    join_key: Callable[[Chunk], torch.Tensor],
+    dim_group,
+    dim_valid,
+    *,
+    num_groups: int,
+    d_total: float,
+    estimator: str = "single",
+    num_aggs: int = 1,
+    bucket_bits: Optional[int] = None,
+    d_dim: Optional[float] = None,
+    s_dim: Optional[float] = None,
+    device="cuda",
+) -> GLA:
+    """Join group-by — paper query (6), the dimension side replicated and
+    probed by key.
+
+    ``dim_group[k]`` is the group the dimension row with key ``k`` maps to
+    (supplier -> nation, order -> segment), ``dim_valid[k]`` its predicate
+    cond_M.  Both are put on ``device`` ("cuda" by default, as the other
+    entry points): the closures index them with the chunk's keys, which
+    live there.  Accumulate = probe (gather) + GLAGroupBy accumulate.
+
+    The fused contract reads the same arrays as :class:`ProbeTable` s
+    (``FusedSpec.probe_tables``) through ``chunk[pt.key]``.  Whether it is
+    used is the reference's routing rule: ``fused_agg.fused_available`` is
+    False when the probe tables exceed its budget, and the plan then runs
+    the legacy ``kernel_cols`` path (K3).
+
+    §3.3 multiplicative join estimator: ``d_dim`` (dimension cardinality)
+    and ``s_dim`` (rows of it sampled so far, default ``d_dim``) scale the
+    estimate by ``d_dim / s_dim``; without ``d_dim`` the estimate is the
+    single-table Horvitz–Thompson formula.
+    """
+    dev = resolve_device(device)
+    dim_group = torch.as_tensor(dim_group, dtype=torch.int32, device=dev)
+    dim_valid = torch.as_tensor(dim_valid, device=dev)
+
+    def joined_group(chunk: Chunk) -> torch.Tensor:
+        return dim_group[join_key(chunk).long()]
+
+    def joined_cond(chunk: Chunk) -> torch.Tensor:
+        c = cond(chunk)
+        return c * dim_valid[join_key(chunk).long()].to(c.dtype)
+
+    inner = make_groupby_gla(
+        func, joined_cond, joined_group, num_groups=num_groups,
+        d_total=d_total, estimator=estimator, num_aggs=num_aggs,
+        bucket_bits=bucket_bits)
+
+    pt_group = ProbeTable("dim_group", dim_group)
+    pt_valid = ProbeTable("dim_valid", dim_valid)
+
+    def fused_group(chunk: Chunk) -> torch.Tensor:
+        gids = chunk[pt_group.key][join_key(chunk).long()]
+        return gids if bucket_bits is None else hash_bucket(gids, bucket_bits)
+
+    def fused_cond(chunk: Chunk) -> torch.Tensor:
+        c = cond(chunk)
+        return c * chunk[pt_valid.key][join_key(chunk).long()].to(c.dtype)
+
+    fused = inner.fused._replace(cond=fused_cond, group=fused_group,
+                                 probe_tables=(pt_group, pt_valid))
+
+    est_fn = inner.estimate
+    if est_fn is not None and d_dim is not None:
+        sd = float(d_dim if s_dim is None else s_dim)
+        scale = (torch.tensor(float(d_dim), dtype=_F32)
+                 / torch.tensor(max(sd, 1.0), dtype=_F32))
+        inner_estimate = est_fn
+
+        def est_fn(state, confidence, ctx=None):
+            e = inner_estimate(state, confidence, ctx)
+            k = scale.to(e.estimate.device)
+            var = e.info["var"] * (k * k)
+            est = e.estimate * k
+            lo, hi = E.normal_bounds(est, var, confidence)
+            return Estimate(est, lo, hi,
+                            info={**e.info, "var": var, "dim_scale": k})
+
+    return inner.with_(name=f"join-{estimator}", fused=fused, estimate=est_fn)

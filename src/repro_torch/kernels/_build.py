@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles, at first
 use, into ``build/repro_torch/lib<name>-<digest>.so`` under the repository
-root (``build/`` is git-ignored).  The digest covers the source and the
-flags, so an edited kernel never loads a stale library.  Nothing here runs
+root (``build/`` is git-ignored).  The digest covers the source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited kernel never loads a
+stale library.  Nothing here runs
 at import time: the CPU tests import every module without ``nvcc``.
 """
 from __future__ import annotations
@@ -18,7 +19,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("fused_agg",)
+SOURCES = ("fused_agg", "group_agg", "chunk_agg")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -42,34 +43,42 @@ def nvcc() -> str:
 
 def lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
 def build_all(names=SOURCES) -> dict:
-    """Compile every source not built yet.  Returns {name: seconds spent
-    building} (0.0 when the library was already there); raises with the
-    compiler's output if a build fails.  ``-Xptxas -v``'s register and
-    shared-memory report is kept beside each library as ``.log``.  With a
-    single source the builds run one after another; start one ``nvcc`` per
-    source together once there are several."""
+    """Compile every source not built yet, one ``nvcc`` per source, all
+    started together.  Returns {name: seconds from the start until its
+    build was seen to end, waiting on them in order} (0.0 when the library
+    was already there); raises with the compiler's output if a build
+    fails.  ``-Xptxas -v``'s register and shared-memory report is kept
+    beside each library as ``.log``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    secs = {}
+    t0 = time.perf_counter()
+    procs = {}
     for name in names:
         out = lib_path(name)
-        secs[name] = 0.0
         if out.exists():
             continue
-        t0 = time.perf_counter()
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-        out.with_suffix(".log").write_text(proc.stdout)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stdout}")
-        os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
+        with open(out.with_suffix(".log"), "w") as log:  # the child keeps its own handle
+            proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+        procs[name] = (proc, tmp, out)
+    secs = dict.fromkeys(names, 0.0)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        proc.wait()
         secs[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            log = out.with_suffix(".log").read_text()
+            failed.append(f"nvcc failed on {name}.cu:\n{log}")
+        else:
+            os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return secs
 
 

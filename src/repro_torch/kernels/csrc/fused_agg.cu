@@ -2,7 +2,9 @@
 //
 // Replaces, in src/repro/kernels/fused_agg.py:
 //   fused_round_step    (pallas_call at l.363)  -> pf_scalar (carry in,
-//                        final out) and pf_group
+//                        final out), pf_group, and pf_bundle (every member
+//                        of a bundle in one call, as the Pallas kernel runs
+//                        all members in one pallas_call)
 //   fused_prefix_states (pallas_call at l.454)  -> pf_scalar (zero carry,
 //                        every running value out)
 //
@@ -18,50 +20,23 @@
 // against 67 TFLOP/s (f32, no tensor cores) that is memory-bound by two
 // orders of magnitude.
 //
-// Determinism: no atomics.  Every sum has one fixed order — a fixed
-// shuffle tree within a chunk, a sequential fold across chunks, and in the
-// group kernel exactly one writer per (group, column) per chunk — so two
-// runs on the same inputs give bitwise-equal outputs.  Products and sums
-// use __fmul_rn/__fadd_rn so that no multiply-add is contracted into an
-// FMA: the plain PyTorch version rounds the product before the add.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// Determinism: no atomics (agg_common.cuh).  A bundle member runs its solo
+// kernel's body with the solo block size and the solo (partition, chunk) or
+// (partition, column) mapping, so its result is bitwise-equal to its solo
+// launch.
+#include "agg_common.cuh"
 
 namespace {
 
-constexpr int kScalarThreads = 256;
-constexpr int kFoldThreads = 128;
-constexpr int kGroupThreads = 1024;
-constexpr unsigned long long kNoKey = ~0ull;
+using namespace pfola;
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = __fadd_rn(x, __shfl_down_sync(0xffffffffu, x, o));
-  return x;
-}
-
-// Fixed-order block sum: a shuffle tree inside each warp, then warp 0 folds
-// the warp totals with the same tree.  The result is valid in thread 0.
-__device__ float block_sum(float x, float* smem) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  x = warp_sum(x);
-  __syncthreads();  // the previous call's readers are done with smem
-  if (lane == 0) smem[warp] = x;
-  __syncthreads();
-  x = (threadIdx.x < (blockDim.x >> 5)) ? smem[threadIdx.x] : 0.f;
-  if (warp == 0) x = warp_sum(x);
-  return x;
-}
-
-// Pass 1 (scalar): one block per (partition, chunk) reduces its L rows to
-// part[p, c, :] = (sum v*w [A] | sum (v*v)*w [A] | sum w).
-__global__ void __launch_bounds__(kScalarThreads)
-scalar_partials_kernel(const float* __restrict__ vals,
-                       const float* __restrict__ w, float* __restrict__ part,
-                       int L, int A) {
-  __shared__ float smem[32];
-  const long long pc = blockIdx.x;
+// One (partition, chunk) pc of the scalar partials: part[pc, :] =
+// (sum v*w [A] | sum (v*v)*w [A] | sum w) over the chunk's L rows.
+__device__ __forceinline__ void scalar_partials(const float* __restrict__ vals,
+                                                const float* __restrict__ w,
+                                                float* __restrict__ part,
+                                                long long pc, int L, int A,
+                                                float* smem) {
   const float* wr = w + pc * L;
   const float* vr = vals + pc * L * A;
   float* out = part + pc * (2 * A + 1);
@@ -84,16 +59,14 @@ scalar_partials_kernel(const float* __restrict__ vals,
   if (threadIdx.x == 0) out[2 * A] = m;
 }
 
-// Pass 2 (scalar): one thread per (partition, column) folds the chunk
-// totals in chunk order onto the carry (zero when carry is null), writing
-// every running value to prefix when it is not null.
-__global__ void scalar_fold_kernel(const float* __restrict__ part,
-                                   const float* __restrict__ carry,
-                                   float* __restrict__ out,
-                                   float* __restrict__ prefix, int P, int C,
-                                   int K) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= P * K) return;
+// Column t = (p, k) of the scalar fold: the chunk totals in chunk order onto
+// the carry (zero when carry is null), every running value to prefix when
+// it is not null.
+__device__ __forceinline__ void scalar_fold(const float* __restrict__ part,
+                                            const float* __restrict__ carry,
+                                            float* __restrict__ out,
+                                            float* __restrict__ prefix, int t,
+                                            int C, int K) {
   const int p = t / K, k = t % K;
   const long long base = (long long)p * C * K + k;
   float acc = carry ? carry[t] : 0.f;
@@ -105,33 +78,27 @@ __global__ void scalar_fold_kernel(const float* __restrict__ part,
   out[t] = acc;
 }
 
-// Ascending bitonic sort of n (a power of two) keys in shared memory.
-__device__ void bitonic_sort(unsigned long long* keys, int n) {
-  for (int k = 2; k <= n; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        const int ixj = i ^ j;
-        if (ixj > i) {
-          const unsigned long long x = keys[i], y = keys[ixj];
-          if ((x > y) == ((i & k) == 0)) {
-            keys[i] = y;
-            keys[ixj] = x;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
+// Pass 1 (scalar): one block per (partition, chunk).
+__global__ void __launch_bounds__(kScalarThreads)
+scalar_partials_kernel(const float* __restrict__ vals,
+                       const float* __restrict__ w, float* __restrict__ part,
+                       int L, int A) {
+  __shared__ float smem[32];
+  scalar_partials(vals, w, part, blockIdx.x, L, A, smem);
 }
 
-// Group step: block (p, a) owns column a of partition p's carry (a == A is
-// the matched column) and walks the C chunks in order.  Per chunk it sorts
-// the keys (gid << 32 | row) — a stable sort by gid — and one thread per run
-// of equal gids sums that run's rows in row order and adds the total onto
-// the carry.  The
-// carry (2**13 buckets x 4 aggregates x (sum, sumsq) + matched = 288 KiB for
-// the large-domain Q1) exceeds a block's 227 KB of shared memory, so it
-// stays in global memory, where each element has exactly one writer.
+// Pass 2 (scalar): one thread per (partition, column).
+__global__ void scalar_fold_kernel(const float* __restrict__ part,
+                                   const float* __restrict__ carry,
+                                   float* __restrict__ out,
+                                   float* __restrict__ prefix, int P, int C,
+                                   int K) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= P * K) return;
+  scalar_fold(part, carry, out, prefix, t, C, K);
+}
+
+// Group step: block (p, a) owns column a of partition p's carry.
 __global__ void __launch_bounds__(kGroupThreads)
 group_step_kernel(const float* __restrict__ vals, const float* __restrict__ w,
                   const int* __restrict__ gids, const float* __restrict__ in_s,
@@ -140,62 +107,73 @@ group_step_kernel(const float* __restrict__ vals, const float* __restrict__ w,
                   float* __restrict__ out_q, float* __restrict__ out_m, int C,
                   int L, int Lp, int A, int G) {
   extern __shared__ unsigned long long keys[];
-  const int p = blockIdx.x / (A + 1);
-  const int a = blockIdx.x % (A + 1);
-  const bool matched = (a == A);
-  const long long row0 = (long long)p * G;
-  for (int g = threadIdx.x; g < G; g += blockDim.x) {
-    if (matched) {
-      out_m[row0 + g] = in_m[row0 + g];
-    } else {
-      const long long o = (row0 + g) * A + a;
-      out_s[o] = in_s[o];
-      out_q[o] = in_q[o];
-    }
-  }
-  __syncthreads();
-  for (int c = 0; c < C; ++c) {
-    const long long base = ((long long)p * C + c) * L;
-    for (int i = threadIdx.x; i < Lp; i += blockDim.x) {
-      unsigned long long key = kNoKey;
-      if (i < L) {
-        const int g = gids[base + i];
-        if (g >= 0 && g < G)
-          key = ((unsigned long long)(unsigned)g << 32) | (unsigned)i;
-      }
-      keys[i] = key;
-    }
-    __syncthreads();
-    bitonic_sort(keys, Lp);
-    for (int i = threadIdx.x; i < Lp; i += blockDim.x) {
-      const unsigned long long key = keys[i];
-      if (key == kNoKey) continue;
-      const unsigned g = (unsigned)(key >> 32);
-      if (i > 0 && (unsigned)(keys[i - 1] >> 32) == g) continue;  // not a run start
-      // The run sums from zero and is added to the carry once, as the
-      // reference adds each chunk's segment sums to its state: rows added
-      // straight onto a large carry would round at the carry's ulp.
-      if (matched) {
-        float acc = 0.f;
-        for (int j = i; j < Lp && (unsigned)(keys[j] >> 32) == g; ++j)
-          acc = __fadd_rn(acc, w[base + (unsigned)keys[j]]);
-        out_m[row0 + g] = __fadd_rn(out_m[row0 + g], acc);
-      } else {
-        const long long o = (row0 + g) * A + a;
-        float s = 0.f, q = 0.f;
-        for (int j = i; j < Lp && (unsigned)(keys[j] >> 32) == g; ++j) {
-          const long long r = base + (unsigned)keys[j];
-          const float v = vals[r * A + a];
-          const float vw = __fmul_rn(v, w[r]);
-          s = __fadd_rn(s, vw);
-          q = __fadd_rn(q, __fmul_rn(v, vw));
-        }
-        out_s[o] = __fadd_rn(out_s[o], s);
-        out_q[o] = __fadd_rn(out_q[o], q);
-      }
-    }
-    __syncthreads();  // carry writes visible, keys free for the next chunk
-  }
+  group_step(vals, w, gids, in_s, in_q, in_m, out_s, out_q, out_m,
+             blockIdx.x / (A + 1), blockIdx.x % (A + 1), C, L, Lp, A, G, keys);
+}
+
+// -- bundles ----------------------------------------------------------------
+// The member table travels as the kernels' parameter (__grid_constant__: it
+// stays in the parameter bank on the device, indexed by blockIdx.y).
+
+constexpr int kMaxMembers = 16;
+constexpr int kTableCols = 13;  // int64 slots per member in pf_bundle's table
+
+struct ScalarMember {
+  const float* vals;
+  const float* w;
+  const float* carry;
+  float* out;
+  float* part;
+  int A;
+};
+
+struct GroupMember {
+  const float* vals;
+  const float* w;
+  const int* gids;
+  const float* in_s;
+  const float* in_q;
+  const float* in_m;
+  float* out_s;
+  float* out_q;
+  float* out_m;
+  int A;
+  int G;
+};
+
+struct Bundle {
+  ScalarMember s[kMaxMembers];
+  GroupMember g[kMaxMembers];
+  int ns, ng;
+};
+
+__global__ void __launch_bounds__(kScalarThreads)
+bundle_partials_kernel(const __grid_constant__ Bundle b, int L) {
+  __shared__ float smem[32];
+  const ScalarMember& m = b.s[blockIdx.y];
+  scalar_partials(m.vals, m.w, m.part, blockIdx.x, L, m.A, smem);
+}
+
+__global__ void bundle_fold_kernel(const __grid_constant__ Bundle b, int P,
+                                   int C) {
+  const ScalarMember& m = b.s[blockIdx.y];
+  const int K = 2 * m.A + 1;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= P * K) return;
+  scalar_fold(m.part, m.carry, m.out, nullptr, t, C, K);
+}
+
+// blockIdx.x = p * (A_max + 1) + a; blocks past a member's own A + 1
+// columns have nothing to do.
+__global__ void __launch_bounds__(kGroupThreads)
+bundle_group_kernel(const __grid_constant__ Bundle b, int C, int L, int Lp,
+                    int A_max) {
+  extern __shared__ unsigned long long keys[];
+  const GroupMember& m = b.g[blockIdx.y];
+  const int p = blockIdx.x / (A_max + 1), a = blockIdx.x % (A_max + 1);
+  if (a > m.A) return;
+  group_step(m.vals, m.w, m.gids, m.in_s, m.in_q, m.in_m, m.out_s, m.out_q,
+             m.out_m, p, a, C, L, Lp, m.A, m.G, keys);
 }
 
 }  // namespace
@@ -228,16 +206,69 @@ int pf_group(const float* vals, const float* w, const int* gids,
              float* out_s, float* out_q, float* out_m, int P, int C, int L,
              int A, int G, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int Lp = 1;
-  while (Lp < L) Lp <<= 1;
+  const int Lp = pow2_at_least(L);
   const size_t smem = (size_t)Lp * sizeof(unsigned long long);
   group_step_kernel<<<P * (A + 1), kGroupThreads, smem, s>>>(
       vals, w, gids, in_s, in_q, in_m, out_s, out_q, out_m, C, L, Lp, A, G);
   return (int)cudaGetLastError();
 }
 
-const char* pf_error_string(int e) {
-  return cudaGetErrorString(static_cast<cudaError_t>(e));
+// K1 bundle: M members over the same [P, C, L] round-slice.  table is a
+// host array of M rows of kTableCols int64: kind (0 scalar, 1 group), A, G,
+// then the addresses vals, w, gids, in_s (scalar: carry), in_q, in_m,
+// out_s (scalar: out), out_q, out_m, part (scalar: [P, C, 2A+1] scratch).
+// One call launches the scalar members' partials, the group members' steps
+// and the scalar members' fold — three grids, however many members.
+int pf_bundle(const long long* table, int M, int P, int C, int L,
+              void* stream) {
+  if (M < 1 || M > kMaxMembers) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Bundle b = {};
+  int A_scalar = 0, A_group = 0;
+  for (int i = 0; i < M; ++i) {
+    const long long* r = table + (long long)i * kTableCols;
+    const int A = (int)r[1];
+    if (r[0] == 0) {
+      ScalarMember& m = b.s[b.ns++];
+      m = {reinterpret_cast<const float*>(r[3]),
+           reinterpret_cast<const float*>(r[4]),
+           reinterpret_cast<const float*>(r[6]),
+           reinterpret_cast<float*>(r[9]), reinterpret_cast<float*>(r[12]), A};
+      A_scalar = A > A_scalar ? A : A_scalar;
+    } else {
+      GroupMember& m = b.g[b.ng++];
+      m = {reinterpret_cast<const float*>(r[3]),
+           reinterpret_cast<const float*>(r[4]),
+           reinterpret_cast<const int*>(r[5]),
+           reinterpret_cast<const float*>(r[6]),
+           reinterpret_cast<const float*>(r[7]),
+           reinterpret_cast<const float*>(r[8]),
+           reinterpret_cast<float*>(r[9]), reinterpret_cast<float*>(r[10]),
+           reinterpret_cast<float*>(r[11]), A, (int)r[2]};
+      A_group = A > A_group ? A : A_group;
+    }
+  }
+  const long long blocks = (long long)P * C;
+  if (b.ns > 0 && blocks > 0) {
+    bundle_partials_kernel<<<dim3((unsigned)blocks, b.ns), kScalarThreads, 0,
+                             s>>>(b, L);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (b.ng > 0) {
+    const int Lp = pow2_at_least(L);
+    const size_t smem = (size_t)Lp * sizeof(unsigned long long);
+    bundle_group_kernel<<<dim3(P * (A_group + 1), b.ng), kGroupThreads, smem,
+                          s>>>(b, C, L, Lp, A_group);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (b.ns > 0) {
+    const int n = P * (2 * A_scalar + 1);
+    bundle_fold_kernel<<<dim3((n + kFoldThreads - 1) / kFoldThreads, b.ns),
+                         kFoldThreads, 0, s>>>(b, P, C);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -5,8 +5,10 @@ Two kernels carry the main path's device work (``csrc/fused_agg.cu``):
 
   K1 ``fused_round_step``    advance a carried SumState over one round-slice
                              (scalar: ``pf_scalar`` with a carry; group:
-                             ``pf_group``).  Serves every ``kernel_fused``
-                             session step and the engine's group path.
+                             ``pf_group``; a bundle: ``pf_bundle``, every
+                             member in one launch).  Serves every
+                             ``kernel_fused`` session step and the engine's
+                             group and bundle paths.
   K2 ``fused_prefix_states`` the running state after every chunk of a whole
                              shard (``pf_scalar`` with prefix output).  Serves
                              the engine's scalar ``emit="kernel"`` path.
@@ -16,13 +18,19 @@ closures stay PyTorch: :func:`project` evaluates them on the round-slice on
 the device and the CUDA kernels do the chunk-ordered, carry-in
 accumulation.  The partition axis is a batch axis of one launch.
 
+Join GLAs publish probe tables (``FusedSpec.probe_tables``): :func:`project`
+puts them into the column dict under their keys before the closures run,
+where the reference injects them into the Pallas body.  Whether a plan may
+take this path at all is the reference's routing rule,
+:func:`fused_available`.
+
 The tensor-level wrappers (:func:`scalar_round_step`, :func:`scalar_prefix`,
-:func:`group_round_step`) check device, dtype, shape and contiguity, run the
-plain version (``kernels/ref.py``) on CPU tensors, and on CUDA tensors launch
-the kernel — or raise, never falling back.  Each launch adds one to its
-kernel's count in :data:`LAUNCHES` (the counterpart of the reference's
-``count_dispatches``).  ``scanned`` is summed outside the kernels, as in the
-reference: live counts are integers and need only ``_mask``.
+:func:`group_round_step`, :func:`bundle_round_step`) check device, dtype,
+shape and contiguity, run the plain version (``kernels/ref.py``) on CPU
+tensors, and on CUDA tensors launch the kernel — or raise, never falling
+back.  Each launch adds one to its kernel's count in :data:`LAUNCHES`
+(``kernels/_runtime.py``).  ``scanned`` is summed outside the kernels, as
+in the reference: live counts are integers and need only ``_mask``.
 """
 from __future__ import annotations
 
@@ -32,74 +40,31 @@ import torch
 
 from repro_torch import estimators as E
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _runtime as RT
+from repro_torch.kernels._runtime import (  # noqa: F401 — re-exported
+    LAUNCHES,
+    launch_counts,
+    reset_launch_counts,
+)
 
-#: launches per kernel since the last :func:`reset_launch_counts`
-LAUNCHES = {
-    "fused_round_step/scalar": 0,
-    "fused_round_step/group": 0,
-    "fused_prefix_states": 0,
-}
+MAX_BUNDLE_MEMBERS = 16  # members in one pf_bundle launch (csrc kMaxMembers)
+_TABLE_COLS = 13  # int64 slots per member row of pf_bundle's table (csrc kTableCols)
 
-MAX_GROUP_ROWS = 4096  # L bound of the group kernel's shared-memory sort
+#: The reference's routing rule (``repro/kernels/fused_agg.py:63``,
+#: ``PROBE_VMEM_BUDGET_BYTES``): a join whose probe tables exceed 4 MiB
+#: does not take the fused kernel but the legacy ``kernel_cols`` path.
+#: The budget is the reference TPU kernel's; the port keeps it so that a
+#: plan takes the same path as in the reference, not as a limit of the
+#: H100 (whose kernels here read the tables from device memory).
+REFERENCE_PROBE_BUDGET_BYTES = 4 * 1024 * 1024
 
-_F32, _I32 = torch.float32, torch.int32
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def launch_counts() -> dict:
-    return dict(LAUNCHES)
+_F32, _I32 = RT.F32, RT.I32
+_check, _route, _ptr = RT.check, RT.route, RT.ptr
 
 
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("fused_agg")
-    if not getattr(lib, "_pf_bound", False):
-        ptr, i = ctypes.c_void_p, ctypes.c_int
-        lib.pf_scalar.argtypes = [ptr] * 6 + [i] * 4 + [ptr]
-        lib.pf_scalar.restype = i
-        lib.pf_group.argtypes = [ptr] * 9 + [i] * 5 + [ptr]
-        lib.pf_group.restype = i
-        lib.pf_error_string.argtypes = [i]
-        lib.pf_error_string.restype = ctypes.c_char_p
-        lib._pf_bound = True
-    return lib
-
-
-def _check(name, t, dtype, shape, device):
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _route(device: torch.device) -> str:
-    if device.type == "cpu":
-        return "plain"
-    if device.type == "cuda":
-        return "cuda"
-    raise ValueError(f"no kernel for device {device}")
-
-
-def _launch(fn, *args, device: torch.device) -> None:
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, stream)
-    if err != 0:
-        msg = _lib().pf_error_string(err).decode()
-        raise RuntimeError(f"CUDA kernel launch failed: {msg} (error {err})")
-
-
-def _ptr(t: torch.Tensor):
-    return ctypes.c_void_p(t.data_ptr())
+    return RT.bind(_build.load("fused_agg"), pf_scalar=(6, 4),
+                   pf_group=(9, 5), pf_bundle=(1, 4))
 
 
 def _scalar(vals, w, carry, prefix: bool):
@@ -114,10 +79,10 @@ def _scalar(vals, w, carry, prefix: bool):
     part = torch.empty((P, C, 2 * A + 1), dtype=_F32, device=dev)
     out = torch.empty((P, 2 * A + 1), dtype=_F32, device=dev)
     pre = torch.empty_like(part) if prefix else None
-    _launch(_lib().pf_scalar, _ptr(vals), _ptr(w), _ptr(part),
-            None if carry is None else _ptr(carry), _ptr(out),
-            None if pre is None else _ptr(pre), P, C, L, A, device=dev)
-    LAUNCHES["fused_prefix_states" if prefix else "fused_round_step/scalar"] += 1
+    lib = _lib()
+    RT.launch(lib, lib.pf_scalar, _ptr(vals), _ptr(w), _ptr(part), _ptr(carry),
+              _ptr(out), _ptr(pre), P, C, L, A, device=dev,
+              count="fused_prefix_states" if prefix else "fused_round_step/scalar")
     return pre if prefix else out
 
 
@@ -143,9 +108,7 @@ def scalar_prefix(vals: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _scalar(vals, w, None, prefix=True)
 
 
-def group_round_step(vals, w, gids, carry_s, carry_q, carry_m):
-    """K1, group: per-group sums over ``gids [P, C, L]`` added onto the
-    carries ``[P, G, A]``, ``[P, G, A]``, ``[P, G]`` chunk by chunk."""
+def _check_group(vals, w, gids, carry_s, carry_q, carry_m):
     _check_vals(vals)
     P, C, L, A = vals.shape
     dev = vals.device
@@ -155,33 +118,133 @@ def group_round_step(vals, w, gids, carry_s, carry_q, carry_m):
     _check("carry_s", carry_s, _F32, (P, G, A), dev)
     _check("carry_q", carry_q, _F32, (P, G, A), dev)
     _check("carry_m", carry_m, _F32, (P, G), dev)
+    if _route(dev) == "cuda" and L > RT.MAX_GROUP_ROWS:
+        raise ValueError(f"group kernel sorts a chunk in shared memory: "
+                         f"L={L} exceeds {RT.MAX_GROUP_ROWS}")
+
+
+def group_round_step(vals, w, gids, carry_s, carry_q, carry_m):
+    """K1, group: per-group sums over ``gids [P, C, L]`` added onto the
+    carries ``[P, G, A]``, ``[P, G, A]``, ``[P, G]`` chunk by chunk."""
+    _check_group(vals, w, gids, carry_s, carry_q, carry_m)
+    P, C, L, A = vals.shape
+    dev = vals.device
     if _route(dev) == "plain":
         return ref.group_round_step(vals, w, gids, carry_s, carry_q, carry_m)
-    if L > MAX_GROUP_ROWS:
-        raise ValueError(f"group kernel sorts a chunk in shared memory: "
-                         f"L={L} exceeds {MAX_GROUP_ROWS}")
+    G = carry_m.shape[-1]
     out_s, out_q = torch.empty_like(carry_s), torch.empty_like(carry_q)
     out_m = torch.empty_like(carry_m)
-    _launch(_lib().pf_group, _ptr(vals), _ptr(w), _ptr(gids), _ptr(carry_s),
-            _ptr(carry_q), _ptr(carry_m), _ptr(out_s), _ptr(out_q),
-            _ptr(out_m), P, C, L, A, G, device=dev)
-    LAUNCHES["fused_round_step/group"] += 1
+    lib = _lib()
+    RT.launch(lib, lib.pf_group, _ptr(vals), _ptr(w), _ptr(gids), _ptr(carry_s),
+              _ptr(carry_q), _ptr(carry_m), _ptr(out_s), _ptr(out_q),
+              _ptr(out_m), P, C, L, A, G, device=dev,
+              count="fused_round_step/group")
     return out_s, out_q, out_m
+
+
+def bundle_round_step(members):
+    """K1, bundle: every member advanced over the same ``C`` chunks in ONE
+    launch (``pf_bundle``) of up to :data:`MAX_BUNDLE_MEMBERS` members (a
+    larger bundle takes one launch per that many), each member's arithmetic
+    that of its solo step, so each member's result is bitwise-equal to its
+    solo launch.
+
+    ``members`` holds ``(vals, w, None, carry)`` for a scalar member and
+    ``(vals, w, gids, carry_s, carry_q, carry_m)`` for a group member, all
+    with the same ``P, C, L``.  Returns the advanced carries in that order
+    (a tensor for a scalar member, a triple for a group member)."""
+    if not members:
+        raise ValueError("a bundle launch needs one or more members, got none")
+    _check_vals(members[0][0])
+    P, C, L, _ = members[0][0].shape
+    dev = members[0][0].device
+    for m in members:
+        if m[2] is None:
+            _check_vals(m[0])
+            _check("w", m[1], _F32, (P, C, L), dev)
+            _check("carry", m[3], _F32, (P, 2 * m[0].shape[3] + 1), dev)
+        else:
+            _check_group(*m)
+        if m[0].shape[:3] != (P, C, L):
+            raise ValueError("bundle members need the same P, C, L")
+    if _route(dev) == "plain":
+        return ref.bundle_round_step(members)
+    outs = []
+    for i in range(0, len(members), MAX_BUNDLE_MEMBERS):
+        outs += _bundle_launch(members[i:i + MAX_BUNDLE_MEMBERS], P, C, L, dev)
+    return outs
+
+
+def _bundle_launch(members, P, C, L, dev):
+    """One ``pf_bundle`` launch over at most MAX_BUNDLE_MEMBERS members."""
+    table = torch.zeros((len(members), _TABLE_COLS), dtype=torch.int64)
+    outs = []
+    keep = []  # the partials scratch: the table holds only its address
+    for i, m in enumerate(members):
+        A = m[0].shape[3]
+        if m[2] is None:  # kind 0: carry in, out and [P, C, 2A+1] partials
+            out = torch.empty_like(m[3])
+            part = torch.empty((P, C, 2 * A + 1), dtype=_F32, device=dev)
+            ptrs = (m[0], m[1], None, m[3], None, None, out, None, None, part)
+            row = [0, A, 1]
+            outs.append(out)
+            keep.append(part)
+        else:  # kind 1: group carries in and out
+            out = tuple(torch.empty_like(c) for c in m[3:])
+            ptrs = (m[0], m[1], m[2], *m[3:], *out, None)
+            row = [1, A, m[5].shape[-1]]
+            outs.append(out)
+        table[i] = torch.tensor(row + [0 if t is None else t.data_ptr() for t in ptrs])
+    lib = _lib()
+    RT.launch(lib, lib.pf_bundle, ctypes.c_void_p(table.data_ptr()),
+              len(members), P, C, L, device=dev,
+              count="fused_round_step/bundle")
+    return outs
 
 
 # ---------------------------------------------------------------------------
 # GLA-level entry points
 # ---------------------------------------------------------------------------
 
+def fused_members(gla):
+    """The per-member ``FusedSpec`` tuple of ``gla`` (itself, or its bundle
+    members), or None when any member lacks a fused contract."""
+    specs = tuple(m.fused for m in (gla.members or (gla,)))
+    return None if any(s is None for s in specs) else specs
+
+
+def unique_probes(specs):
+    """Unique ProbeTables across member specs, first-seen order (members
+    that share a table object read it once)."""
+    seen = {}
+    for fs in specs:
+        for pt in fs.probe_tables:
+            seen.setdefault(pt.key, pt)
+    return tuple(seen.values())
+
+
+def probe_bytes(gla) -> int:
+    """Combined unique probe-table bytes of ``gla``'s fused contract (0
+    when it has none)."""
+    specs = fused_members(gla)
+    return 0 if specs is None else sum(pt.nbytes for pt in unique_probes(specs))
+
+
 def fused_available(gla) -> bool:
-    """True when ``gla`` publishes the fused kernel contract."""
-    return gla.fused is not None
+    """True when every member publishes a fused contract and their probe
+    tables fit :data:`REFERENCE_PROBE_BUDGET_BYTES` (the reference's rule)."""
+    return (fused_members(gla) is not None
+            and probe_bytes(gla) <= REFERENCE_PROBE_BUDGET_BYTES)
 
 
 def project(fs, cols):
-    """Evaluate the FusedSpec closures on ``cols`` ({name: [P, C, L]}):
-    (vals [P, C, L, A] f32, w = cond·_mask [P, C, L] f32, gids i32 or None),
+    """Evaluate the FusedSpec closures on ``cols`` ({name: [P, C, L]}), with
+    ``fs``'s probe tables put into the column dict under their keys first,
+    as the reference injects them into the in-kernel column dict: (vals
+    [P, C, L, A] f32, w = cond·_mask [P, C, L] f32, gids i32 or None),
     contiguous, on the columns' device."""
+    if fs.probe_tables:
+        cols = {**cols, **{pt.key: pt.values for pt in fs.probe_tables}}
     mask = cols["_mask"]
     vals = fs.func(cols)
     if vals.ndim == mask.ndim:
@@ -197,38 +260,68 @@ def _live_counts(mask: torch.Tensor) -> torch.Tensor:
     return mask.sum(dim=-1, dtype=torch.float64)
 
 
-def _fused_spec(gla):
-    fs = gla.fused
-    if fs is None:
+def _fused_specs(gla):
+    specs = fused_members(gla)
+    if specs is None:
         raise ValueError(f"GLA {gla.name!r} does not publish a fused kernel contract")
-    return fs
+    pbytes = probe_bytes(gla)
+    if pbytes > REFERENCE_PROBE_BUDGET_BYTES:
+        raise ValueError(
+            f"GLA {gla.name!r}: probe tables of {pbytes} bytes exceed the "
+            f"reference's {REFERENCE_PROBE_BUDGET_BYTES}-byte fused budget — "
+            "this plan takes the legacy kernel_cols path")
+    return specs
 
 
-def fused_round_step(gla, state: E.SumState, cols: dict) -> E.SumState:
-    """K1: advance the per-partition ``state`` (leaves [P, ...]) over one
-    round-slice ``cols`` ({name: [P, C, L]}, incl. ``_mask``)."""
-    fs = _fused_spec(gla)
+def _member_args(fs, state: E.SumState, cols: dict) -> tuple:
+    """One member's kernel operands: (vals, w, None, carry) for a scalar
+    contract, (vals, w, gids, carry_s, carry_q, carry_m) for a group one."""
     vals, w, gids = project(fs, cols)
-    A = vals.shape[-1]
-    scanned = state.scanned + _live_counts(cols["_mask"]).sum(dim=1).to(_F32)
     if gids is None:
         carry = torch.cat([state.sum, state.sumsq, state.matched[:, None]],
                           dim=1).contiguous()
-        out = scalar_round_step(vals, w, carry)
+        return vals, w, None, carry
+    return (vals, w, gids, state.sum.contiguous(), state.sumsq.contiguous(),
+            state.matched.contiguous())
+
+
+def _member_state(out, A: int, scanned) -> E.SumState:
+    if isinstance(out, torch.Tensor):  # scalar (sum | sumsq | matched)
         return E.SumState(sum=out[:, :A], sumsq=out[:, A:2 * A],
                           scanned=scanned, matched=out[:, 2 * A])
-    s, q, m = group_round_step(vals, w, gids, state.sum.contiguous(),
-                               state.sumsq.contiguous(),
-                               state.matched.contiguous())
+    s, q, m = out
     return E.SumState(sum=s, sumsq=q, scanned=scanned, matched=m)
+
+
+def fused_round_step(gla, state, cols: dict):
+    """K1: advance the per-partition ``state`` (leaves [P, ...]; a tuple of
+    member states for a bundle) over one round-slice ``cols``
+    ({name: [P, C, L]}, incl. ``_mask``).  A bundle takes ONE
+    ``pf_bundle`` launch for every member; ``scanned`` is summed once,
+    outside the kernel."""
+    specs = _fused_specs(gla)
+    is_bundle = bool(gla.members)
+    states = tuple(state) if is_bundle else (state,)
+    delta = _live_counts(cols["_mask"]).sum(dim=1).to(_F32)
+    args = [_member_args(fs, st, cols) for fs, st in zip(specs, states)]
+    if is_bundle:
+        outs = bundle_round_step(args)
+    elif args[0][2] is None:
+        outs = [scalar_round_step(args[0][0], args[0][1], args[0][3])]
+    else:
+        outs = [group_round_step(*args[0])]
+    new = [_member_state(o, a[0].shape[-1], st.scanned + delta)
+           for o, a, st in zip(outs, args, states)]
+    return tuple(new) if is_bundle else new[0]
 
 
 def fused_prefix_states(gla, cols: dict):
     """K2: whole-shard scalar scan of ``cols`` ({name: [P, C, L]}) emitting
     per-chunk prefixes.  Returns ``(final, prefixes)``: leaves [P, ...] and
     [P, C + 1, ...] (row 0 is init(), row c+1 the state after chunk c)."""
-    fs = _fused_spec(gla)
-    if fs.group is not None:
+    specs = _fused_specs(gla)
+    fs = specs[0]
+    if gla.members or fs.group is not None:
         raise ValueError(f"fused_prefix_states needs a scalar GLA, got {gla.name!r}")
     vals, w, _ = project(fs, cols)
     P, _, _, A = vals.shape

@@ -1,6 +1,7 @@
-"""Plain PyTorch versions of the fused-aggregate kernels.
+"""Plain PyTorch versions of the port's kernels.
 
-The wrappers in ``repro_torch.kernels.fused_agg`` run these on CPU tensors;
+The wrappers in ``repro_torch.kernels.fused_agg`` (K1, K2) and
+``repro_torch.kernels.ops`` (K3, K4) run these on CPU tensors;
 the tests hold them against the JAX reference, and ``chip_smoke.py`` holds
 the CUDA kernels against them on the card.  They repeat the kernels'
 arithmetic — products formed as in the reference's ``acc_sum`` (``v·w``,
@@ -13,6 +14,8 @@ Layouts (P partitions, C chunks of L rows, A aggregates, G groups):
   gids  int32   [P, C, L]      dense group ids; ids outside [0, G) drop out
   scalar carry  float32 [P, 2A+1]   (sum[A] | sumsq[A] | matched)
   group carry   float32 [P, G, A], [P, G, A], [P, G]
+K3 takes the rows of a partition flat (``[P, N, A]``, ``N = C·L``), K4
+takes ``vals``/``weight``/``mask`` as ``[P, C, L]``.
 """
 from __future__ import annotations
 
@@ -68,3 +71,34 @@ def group_round_step(vals, w, gids, carry_s, carry_q, carry_m):
         q += torch.zeros_like(q).index_add_(0, i, vq[:, c].reshape(-1, A)[k])
         m += torch.zeros_like(m).index_add_(0, i, w[:, c].reshape(-1)[k])
     return s.reshape(P, G, A), q.reshape(P, G, A), m.reshape(P, G)
+
+
+def bundle_round_step(members):
+    """K1, bundle: every member advanced as its solo step advances it.
+    ``members`` holds ``(vals, w, None, carry)`` for a scalar member and
+    ``(vals, w, gids, carry_s, carry_q, carry_m)`` for a group member."""
+    return [scalar_round_step(m[0], m[1], m[3]) if m[2] is None
+            else group_round_step(*m) for m in members]
+
+
+def group_agg(vals: torch.Tensor, w: torch.Tensor, gids: torch.Tensor,
+              num_groups: int, block_rows: int):
+    """K3: per-group (Σv·w, Σv·(v·w), Σw) over ``vals [P, N, A]`` by
+    ``gids [P, N]``, from zero.  Each block of ``block_rows`` rows is summed
+    per group from zero and added to the totals in block order — K1
+    group's step from a zero carry, with the blocks as chunks."""
+    P, N, A = vals.shape
+    C = N // block_rows
+    z = torch.zeros((P, num_groups, A), dtype=vals.dtype, device=vals.device)
+    return group_round_step(
+        vals.reshape(P, C, block_rows, A), w.reshape(P, C, block_rows),
+        gids.reshape(P, C, block_rows), z, z, z[..., 0])
+
+
+def shard_chunk_partials(vals: torch.Tensor, w: torch.Tensor,
+                         mask: torch.Tensor) -> torch.Tensor:
+    """K4: per chunk (Σv·wm, Σ(v·v)·wm, Σm, Σwm) with ``wm = w·m``,
+    ``[P, C, L]`` -> ``[P, C, 4]``."""
+    wm = w * mask
+    return torch.stack([(vals * wm).sum(dim=-1), ((vals * vals) * wm).sum(dim=-1),
+                        mask.sum(dim=-1), wm.sum(dim=-1)], dim=-1)

@@ -1,4 +1,4 @@
-"""Shared scan/merge core — port of ``repro/core/scan.py:70-192,483-556,575-588``.
+"""Shared scan/merge core — port of ``repro/core/scan.py:70-461,483-588``.
 
 Where the reference ``vmap``s a per-partition scan, the partition axis is
 written out here: columns are ``[P, C, L]`` and every state leaf carries a
@@ -13,12 +13,22 @@ Scan variants (selected by the engine's ``emit``):
   ``scan_rounds``          state only at round boundaries [P, R, ...];
                            uniform schedules (C % R == 0).
   ``fused_rounds_states``  one K1 launch per round-slice (all partitions);
-                           group states on ``emit="kernel"``.
+                           group and bundle states on ``emit="kernel"``.
   ``fused_prefix_states``  one K2 launch for the whole data; scalar states
                            on ``emit="kernel"``.
 
-``scan_round_step`` and ``fused_round_step`` are also the session's
-per-round-slice primitives (``repro_torch.session``).
+and, where the fused contract cannot be used (no ``gla.fused``, or a join
+over the reference's probe budget), the legacy ``kernel_cols`` paths:
+
+  ``kernel_prefix_states``        one K4 launch for the whole data; scalar.
+  ``kernel_rounds_states``        one K3 launch per round-slice; group-by.
+  ``bundle_kernel_rounds_states`` one K3 launch per round-slice for every
+                                  member of a bundle.
+
+The reference launches its kernels once per partition; here the partition
+axis stays a batch axis and one launch covers all P partitions.
+``scan_round_step``, ``fused_round_step`` and :data:`ROUND_DELTA_FNS` are
+also the session's per-round-slice primitives (``repro_torch.session``).
 """
 from __future__ import annotations
 
@@ -26,7 +36,8 @@ from typing import Any, Tuple
 
 import torch
 
-from repro_torch.kernels import fused_agg
+from repro_torch import estimators as E
+from repro_torch.kernels import fused_agg, ops
 from repro_torch.uda import GLA, tree_map, tree_stack
 
 Pytree = Any
@@ -123,7 +134,8 @@ def scan_rounds(gla: GLA, cols: dict, lanes: int, rounds: int):
 # ---------------------------------------------------------------------------
 
 def fused_available(gla: GLA) -> bool:
-    """True when ``gla`` publishes the fused kernel contract."""
+    """True when ``gla`` (and every bundle member) publishes the fused
+    kernel contract and its probe tables fit the reference's budget."""
     return fused_agg.fused_available(gla)
 
 
@@ -137,7 +149,8 @@ def fused_round_step(gla: GLA, state, slice_cols: dict):
 
 
 def fused_rounds_states(gla: GLA, cols: dict, rounds: int):
-    """One K1 launch per round-slice with the carry threaded through.
+    """One K1 launch per round-slice with the carry threaded through (a
+    bundle: one launch for every member).
 
     Returns ``(final [P, ...], views [P, R, ...])``.  Requires C % rounds == 0.
     """
@@ -154,6 +167,200 @@ def fused_prefix_states(gla: GLA, cols: dict):
     """K2: one launch for the whole data, emitting per-chunk prefixes.
     Returns ``(final [P, ...], prefixes [P, C+1, ...])``."""
     return fused_agg.fused_prefix_states(gla, cols)
+
+
+# ---------------------------------------------------------------------------
+# legacy kernel_cols paths (kernels/ops.py: K3, K4)
+# ---------------------------------------------------------------------------
+
+def _live(mask: torch.Tensor) -> torch.Tensor:
+    """Live rows per partition, f32 [P] — exact integers, summed in f64."""
+    return mask.sum(dim=(1, 2), dtype=torch.float64).to(torch.float32)
+
+
+def _scalar_projection(gla: GLA, cols: dict):
+    assert gla.kernel_cols is not None, "GLA does not publish kernel_cols"
+    mask = cols["_mask"]
+    vals, weight = gla.kernel_cols(cols)
+    return vals.reshape(mask.shape), weight.reshape(mask.shape), mask
+
+
+def kernel_prefix_states(gla: GLA, cols: dict):
+    """One K4 launch for the whole ``[P, C, L]`` data -> SumState prefixes.
+
+    K4 emits per-chunk (sum, sumsq, scanned, matched) partials; additivity
+    turns the prefix states into their cumsum over chunks, taken outside
+    the kernel as in the reference.  Interchangeable (not bitwise) with
+    :func:`scan_prefix`.  Returns ``(final [P, ...], prefixes [P, C+1, ...])``.
+    """
+    partials = ops.shard_chunk_partials(*_scalar_projection(gla, cols))
+    P = partials.shape[0]
+    cum = torch.cat([torch.zeros((P, 1, 4), dtype=partials.dtype,
+                                 device=partials.device),
+                     partials.cumsum(dim=1)], dim=1)  # [P, C+1, 4]
+    prefixes = E.SumState(sum=cum[..., 0:1], sumsq=cum[..., 1:2],
+                          scanned=cum[..., 2], matched=cum[..., 3])
+    return tree_map(lambda x: x[:, -1], prefixes), prefixes
+
+
+def kernel_scalar_round_delta(gla: GLA, slice_cols: dict):
+    """Scalar SumState delta of ONE round-slice: one K4 launch, the slice's
+    chunk partials summed in chunk order (the last row of their cumsum).
+    Adding deltas round by round re-associates against the whole-shard
+    cumsum of :func:`kernel_prefix_states`: interchangeable, not bitwise."""
+    tot = ops.shard_chunk_partials(*_scalar_projection(gla, slice_cols))
+    tot = tot.cumsum(dim=1)[:, -1]  # [P, 4]
+    return E.SumState(sum=tot[:, 0:1], sumsq=tot[:, 1:2], scanned=tot[:, 2],
+                      matched=tot[:, 3])
+
+
+def _fold_running_sum(deltas):
+    """Fold per-round additive deltas into round-boundary states.
+
+    Sequential adds on purpose: the whole-scan loop and the session's
+    round-by-round steps fold the same deltas in the same order, so their
+    states are bitwise-equal.  Returns (final, views stacked [P, R, ...]).
+    """
+    acc, views = deltas[0], [deltas[0]]
+    for d in deltas[1:]:
+        acc = tree_map(torch.add, acc, d)
+        views.append(acc)
+    return acc, tree_stack(views, dim=1)
+
+
+def _group_agg(vals, w, gids, num_groups: int, L: int):
+    """K3 over flat per-partition rows: vals [P, N, A], w/gids [P, N]."""
+    return ops.group_agg(vals.to(torch.float32).contiguous(),
+                         w.to(torch.float32).contiguous(),
+                         gids.to(torch.int32).contiguous(),
+                         num_groups=num_groups, block_rows=L)
+
+
+def kernel_round_delta(gla: GLA, slice_cols: dict):
+    """Group-by SumState delta of ONE round-slice: one K3 launch with
+    ``block_rows`` = L, so the kernel keeps the chunk-by-chunk association.
+    The primitive of both :func:`kernel_rounds_states` and the session's
+    ``kernel_group`` steps."""
+    assert gla.kernel_cols is not None, "GLA does not publish kernel_cols"
+    assert gla.kernel_num_groups is not None, (
+        "GLA publishes the scalar kernel contract, not the group-by one")
+    mask = slice_cols["_mask"]
+    P, per, L = mask.shape
+    vals, weight, gids = gla.kernel_cols(slice_cols)
+    if vals.ndim == mask.ndim:
+        vals = vals.unsqueeze(-1)
+    sums, sumsqs, matched = _group_agg(
+        vals.reshape(P, per * L, vals.shape[-1]),
+        (weight * mask).reshape(P, per * L), gids.reshape(P, per * L),
+        gla.kernel_num_groups, L)
+    return E.SumState(sum=sums, sumsq=sumsqs, scanned=_live(mask),
+                      matched=matched)
+
+
+def kernel_rounds_states(gla: GLA, cols: dict, rounds: int):
+    """One K3 launch per round-slice -> group SumState views.
+
+    The dense [G, A] state makes per-chunk prefixes infeasible, so this
+    path emits at round boundaries: the round states are the running sum of
+    the per-round deltas (:func:`_fold_running_sum`).  Returns
+    ``(final [P, ...], views [P, R, ...])``; requires C % rounds == 0."""
+    return _fold_running_sum([
+        kernel_round_delta(gla, sl)
+        for sl in _round_slices(cols, rounds, "the group-by kernel path")])
+
+
+def _bundle_member_projection(member: GLA, sl: dict):
+    """A member's kernel projection as (vals [P, C, L, A], w, gids, G).
+
+    A scalar member becomes a one-group table (every row in group 0), so
+    one K3 launch serves scalar and group-by members alike."""
+    assert member.kernel_cols is not None, (
+        f"bundle member {member.name!r} does not publish kernel_cols")
+    mask = sl["_mask"]
+    if member.kernel_num_groups is None:
+        vals, weight = member.kernel_cols(sl)
+        gids, G = torch.zeros(mask.shape, dtype=torch.int32,
+                              device=mask.device), 1
+    else:
+        vals, weight, gids = member.kernel_cols(sl)
+        G = member.kernel_num_groups
+    if vals.ndim == mask.ndim:
+        vals = vals.unsqueeze(-1)
+    return vals, weight * mask, gids.to(torch.int32), G
+
+
+def bundle_operands(gla: GLA, slice_cols: dict):
+    """K3's operands for ONE round-slice of a bundle: every member's
+    projection stacked row-wise per partition (vals [P, M·N, A_max] zero-
+    padded to the widest member, w and gids [P, M·N], member m's ids
+    offset by ``offsets[m]`` into one table of ``num_groups`` rows), plus
+    each member's aggregate count.  Returns ``(vals, w, gids, num_groups,
+    offsets, aggs)``."""
+    members = gla.members
+    assert members, "bundle kernel path needs a GLABundle"
+    P, per, L = slice_cols["_mask"].shape
+    N = per * L
+    projs = [_bundle_member_projection(m, slice_cols) for m in members]
+    A_max = max(v.shape[-1] for v, _, _, _ in projs)
+    vals_cat, w_cat, gids_cat, offs = [], [], [], []
+    off = 0
+    for vals, w, gids, G in projs:
+        offs.append(off)
+        pad = A_max - vals.shape[-1]
+        vals = vals.to(torch.float32)
+        if pad:
+            vals = torch.cat([vals, vals.new_zeros((*vals.shape[:-1], pad))], -1)
+        vals_cat.append(vals.reshape(P, N, A_max))
+        w_cat.append(w.reshape(P, N))
+        gids_cat.append((gids + off).reshape(P, N))
+        off += G
+    return (torch.cat(vals_cat, 1), torch.cat(w_cat, 1), torch.cat(gids_cat, 1),
+            off, offs, [v.shape[-1] for v, _, _, _ in projs])
+
+
+def bundle_round_deltas(gla: GLA, slice_cols: dict):
+    """Per-member SumState deltas of ONE round-slice of a bundle, in ONE K3
+    launch over :func:`bundle_operands`.  Each member's rows are whole
+    chunks of L rows, so a member's table rows take adds from its own rows
+    only: group-by members are bitwise-equal to their solo K3 launch;
+    scalar members, one-group tables here, are interchangeable with their
+    solo K4 path.  Returns one delta per member."""
+    mask = slice_cols["_mask"]
+    vals, w, gids, num_groups, offs, aggs = bundle_operands(gla, slice_cols)
+    sums, sumsqs, matched = _group_agg(vals, w, gids, num_groups, mask.shape[2])
+    scanned = _live(mask)
+    deltas = []
+    for m, o, A in zip(gla.members, offs, aggs):
+        G = m.kernel_num_groups
+        if G is None:
+            deltas.append(E.SumState(sum=sums[:, o, :1], sumsq=sumsqs[:, o, :1],
+                                     scanned=scanned, matched=matched[:, o]))
+        else:
+            deltas.append(E.SumState(
+                sum=sums[:, o:o + G, :A], sumsq=sumsqs[:, o:o + G, :A],
+                scanned=scanned, matched=matched[:, o:o + G]))
+    return tuple(deltas)
+
+
+def bundle_kernel_rounds_states(gla: GLA, cols: dict, rounds: int):
+    """ONE K3 launch per round-slice for a whole bundle
+    (:func:`bundle_round_deltas`), each member's deltas folded into its
+    round states.  Returns ``(tuple of member finals, tuple of member
+    views [P, R, ...])``; requires C % rounds == 0."""
+    per_round = [bundle_round_deltas(gla, sl)
+                 for sl in _round_slices(cols, rounds, "the bundle kernel path")]
+    folded = [_fold_running_sum(list(ds)) for ds in zip(*per_round)]
+    return tuple(f for f, _ in folded), tuple(v for _, v in folded)
+
+
+#: The session's path name -> per-round-slice delta primitive.  Delta-style:
+#: the first round's state IS its delta, later rounds add onto it.  The
+#: carry-style "kernel_fused" path calls :func:`fused_round_step` instead.
+ROUND_DELTA_FNS = {
+    "kernel_scalar": kernel_scalar_round_delta,
+    "kernel_group": kernel_round_delta,
+    "kernel_bundle": bundle_round_deltas,
+}
 
 
 # ---------------------------------------------------------------------------

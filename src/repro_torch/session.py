@@ -8,10 +8,17 @@ round-slice at a time and evaluates a stopping rule between rounds, so a
 query over N rounds that converges at round k pays only k/N of the scan.
 
 Per round-slice the ``"scan"`` path folds the GLA's ``accumulate`` chunk by
-chunk; the ``"kernel_fused"`` path (``emit="kernel"``) makes one K1 launch
-covering every partition.  Both keep the chunk-sequential order of the
-whole-scan program.  Pause/resume, fault policies, streaming sources and
-meshes come in later slices.
+chunk.  ``emit="kernel"`` picks its path as the reference does: the
+carry-style ``"kernel_fused"`` (one K1 launch covering every partition and
+every bundle member) whenever the fused contract can be used, else a
+delta-style legacy path — ``"kernel_bundle"`` and ``"kernel_group"`` (one
+K3 launch per round-slice) or ``"kernel_scalar"`` (one K4 launch) — whose
+first round's state IS the round's delta and whose later rounds add onto
+it.  Every path but ``"kernel_scalar"`` keeps the whole-scan program's
+association, so stepping round by round gives its states bit for bit.
+A bundle's stopping rule holds only when every member that estimates has
+converged.  Pause/resume, fault policies, streaming sources and meshes
+come in later slices.
 """
 from __future__ import annotations
 
@@ -25,7 +32,7 @@ from repro_torch import engine as EN
 from repro_torch import scan as SC
 from repro_torch import spec as QS
 from repro_torch._device import resolve_device
-from repro_torch.uda import GLA, tree_map, tree_stack
+from repro_torch.uda import GLA, Estimate, tree_map, tree_stack
 
 Pytree = Any
 
@@ -35,7 +42,9 @@ Pytree = Any
 # ---------------------------------------------------------------------------
 
 class RoundProgress(NamedTuple):
-    """What a stopping rule sees after each round."""
+    """What a stopping rule sees after each round.  ``estimates`` is the
+    round's Estimate, a tuple of one per member (``None`` for members
+    without an estimation model) for a bundle, or ``None``."""
 
     round: int  # rounds completed so far (1-based)
     rounds_total: int
@@ -54,10 +63,19 @@ def _np64(x) -> np.ndarray:
     return np.asarray(x, np.float64)
 
 
-def _per_estimate(estimate, pred) -> bool:
-    """True when ``pred`` holds for the round's estimate; ``None`` (no
-    estimation model) can never attest convergence."""
-    return estimate is not None and pred(estimate)
+def _per_estimate(estimates, pred) -> bool:
+    """True when ``pred`` holds for every available member estimate.
+
+    ``None`` (no estimation model anywhere) can never attest convergence.
+    For a bundle, members without an estimator are skipped and every other
+    member must pass: the all-queries-converged rule.
+    """
+    if estimates is None:
+        return False
+    members = ((estimates,) if isinstance(estimates, Estimate)
+               else tuple(estimates))
+    present = [e for e in members if e is not None]
+    return bool(present) and all(pred(e) for e in present)
 
 
 def _half_widths(est) -> np.ndarray:
@@ -129,15 +147,21 @@ def all_of(*rules: StoppingRule) -> StoppingRule:
 
 def _step(gla: GLA, states, slice_shards: dict, w_r: torch.Tensor,
           d_local: torch.Tensor, d_total: torch.Tensor, *, path: str,
-          lanes: int, confidence: float, all_alive: bool):
+          lanes: int, confidence: float, all_alive: bool, first: bool):
     """Advance one round-slice of every partition.
 
-    Returns (new per-partition states, per-partition round views, merged
-    round state, round Estimate-or-None)."""
+    ``first`` matters on the delta-style legacy paths only: the running
+    sum starts from the first delta (not zero + delta), as
+    ``scan._fold_running_sum`` does.  Returns (new per-partition states,
+    per-partition round views, merged round state, round Estimate-or-None)."""
     if path == "scan":
         new_states, views = SC.scan_round_step(gla, states, slice_shards, lanes)
-    else:  # "kernel_fused": carry-style, one K1 launch for every partition
+    elif path == "kernel_fused":  # carry-style, one K1 launch for every partition
         new_states = views = SC.fused_round_step(gla, states, slice_shards)
+    else:
+        delta = SC.ROUND_DELTA_FNS[path](gla, slice_shards)
+        new_states = views = (delta if first
+                              else tree_map(torch.add, states, delta))
     term = gla.estimator_terminate(views, {"d_local": d_local})
     merged = EN._merge_rounds(
         gla, tree_map(lambda x: x[:, None], term), w_r[:, None],
@@ -202,9 +226,17 @@ class Session:
                 "stopping rules need an incrementally-steppable session: "
                 "sync=False with a partition-uniform schedule and no [R, P] "
                 "failure-injection alive mask")
-        if self._emit == "kernel" and self._lanes != 1:
-            raise ValueError("emit='kernel' runs single-lane")
-        self._path = "kernel_fused" if self._emit == "kernel" else "scan"
+        if self._emit == "kernel":
+            if self._lanes != 1:
+                raise ValueError("emit='kernel' runs single-lane")
+            if SC.fused_available(gla):
+                self._path = "kernel_fused"
+            else:
+                self._path = ("kernel_bundle" if gla.members
+                              else "kernel_group" if gla.kernel_num_groups
+                              is not None else "kernel_scalar")
+        else:
+            self._path = "scan"
 
         self._d_local = self._d_total = None
         self._w_pr = self._w_final = None
@@ -279,7 +311,8 @@ class Session:
         new_states, views, merged, est = _step(
             self._gla, states, slice_shards, self._w_pr[:, r], self._d_local,
             self._d_total, path=self._path, lanes=self._lanes,
-            confidence=self._confidence, all_alive=self._all_alive)
+            confidence=self._confidence, all_alive=self._all_alive,
+            first=self._path not in ("scan", "kernel_fused") and r == 0)
         self._states, self._views = new_states, views
         if self._snapshots:
             self._merged.append(merged)

@@ -1,9 +1,10 @@
 """QuerySpec — the one query-plan object every entry point accepts.
 
 Port of ``repro/core/spec.py:337-461`` (``QuerySpec`` and ``coerce_spec``;
-plan trees come in a later slice).  ``QuerySpec`` is plan-only: *where* the
-plan runs (``device``) stays a per-call argument of ``run_query`` /
-``Session``.
+plan trees come in a later slice).  A ``QuerySpec`` whose ``gla`` is a
+sequence of GLAs is a :func:`repro_torch.engine.run_queries` plan.
+``QuerySpec`` is plan-only: *where* the plan runs (``device``) stays a
+per-call argument of ``run_query`` / ``Session``.
 """
 from __future__ import annotations
 
@@ -23,13 +24,14 @@ DEPRECATED_PLAN_KWARGS = (
 class QuerySpec:
     """One OLA query plan.
 
-      gla         the GLA to run.
+      gla         the GLA to run, or a sequence of GLAs for run_queries().
       rounds      snapshot points over the scan.
       schedule    cumulative chunk boundaries [P, R+1]; None = uniform.
       stop        stopping rule (``repro_torch.session.rel_width`` et al.).
       emit        state-emission discipline: "chunk" (prefix states, any
                   schedule), "round" (round-boundary states) or "kernel"
-                  (the fused CUDA kernels); None resolves to "chunk".
+                  (the CUDA kernels); None resolves to "chunk", or to
+                  "round" for a multi-query plan.
       sync        True = the Wu et al. synchronized estimator barrier.
       lanes       parallel GLA states per partition.
       snapshots   False = non-interactive mode (no per-round states).
@@ -48,18 +50,18 @@ class QuerySpec:
     confidence: float = 0.95
     alive: Optional[Any] = None
 
-    def __post_init__(self):
-        if isinstance(self.gla, (tuple, list)):
-            raise TypeError(
-                "a QuerySpec over a sequence of GLAs is a run_queries() plan, "
-                "which the port does not have yet")
-
     @property
     def mode(self) -> str:
         return "sync" if self.sync else "async"
 
+    @property
+    def is_multi(self) -> bool:
+        return isinstance(self.gla, (tuple, list))
+
     def resolved_emit(self) -> str:
-        return "chunk" if self.emit is None else self.emit
+        if self.emit is not None:
+            return self.emit
+        return "round" if self.is_multi else "chunk"
 
     def with_(self, **kw) -> "QuerySpec":
         return dataclasses.replace(self, **kw)

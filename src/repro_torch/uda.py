@@ -38,6 +38,35 @@ class Estimate(NamedTuple):
     info: Any = None
 
 
+class ProbeTable:
+    """A dimension-side array a join's fused closures read by key.
+
+    The reference threads such arrays into its Pallas kernel as explicit
+    operands and injects them into the in-kernel column dict under
+    ``key``; here :func:`repro_torch.kernels.fused_agg.project` puts
+    ``values`` into the column dict under ``key`` before the closures run,
+    so the fused closures gather from ``chunk[pt.key]`` exactly as the scan
+    path gathers from the closed-over tensor.  Identity semantics: equal
+    only to itself, hashed by identity (tensors are unhashable).
+    """
+
+    _ids = 0
+
+    def __init__(self, name: str, values: torch.Tensor):
+        ProbeTable._ids += 1
+        self.name = name
+        self.values = values
+        self.key = f"__probe{ProbeTable._ids}_{name}"
+
+    @property
+    def nbytes(self) -> int:
+        return self.values.numel() * self.values.element_size()
+
+    def __repr__(self):
+        v = self.values
+        return f"ProbeTable({self.name}, shape={tuple(v.shape)}, {v.dtype})"
+
+
 class FusedSpec(NamedTuple):
     """Contract of the fused selection→bucket→aggregate kernel
     (``repro_torch.kernels.fused_agg``).
@@ -48,6 +77,10 @@ class FusedSpec(NamedTuple):
       group: chunk -> [..., L] int dense group ids in [0, num_groups),
              already hash-bucketed; None selects the scalar SumState contract
       num_aggs, num_groups: A and G (None for scalar)
+      probe_tables: :class:`ProbeTable` s the closures read via
+             ``chunk[pt.key]``; their combined bytes decide, by the
+             reference's routing rule, whether the fused kernel runs
+             (``fused_agg.fused_available``).
 
     The closures are PyTorch code: the kernel wrapper evaluates them on the
     round-slice on the device and hands (vals, weight, gids) to the CUDA
@@ -59,6 +92,7 @@ class FusedSpec(NamedTuple):
     group: Optional[Callable[[Chunk], Any]]
     num_aggs: int
     num_groups: Optional[int] = None
+    probe_tables: tuple = ()
 
 
 def _identity(state: State, ctx: Optional[dict] = None) -> State:
@@ -73,6 +107,17 @@ class GLA:
     ``init`` takes the device the state lives on.  ``merge_is_additive``
     lets the engine merge partitions as a weighted sum.  ``fused`` publishes
     the fused-kernel contract that ``emit="kernel"`` runs.
+
+    ``kernel_cols`` is the legacy projection that ``emit="kernel"`` falls
+    back to when no usable fused contract exists (a join over the probe
+    budget, a GLA built with ``fused=None``).  Two contracts, selected by
+    ``kernel_num_groups``: scalar, ``chunk -> (vals, weight)``, served by
+    K4 (``kernels.ops.shard_chunk_partials``) once per shard; group-by,
+    ``chunk -> (vals, weight, gids)`` with ``kernel_num_groups`` the dense
+    table size G, served by K3 (``kernels.ops.group_agg``) once per
+    round-slice.  ``weight`` is the bare predicate; the engine fuses
+    ``_mask``.  ``members`` is non-empty only for a bundle
+    (``repro_torch.gla.GLABundle``): the GLAs whose states it stacks.
     """
 
     init: Callable[[Any], State]
@@ -83,7 +128,10 @@ class GLA:
     estimator_merge: Optional[Callable[[State, State], State]] = None
     estimate: Optional[Callable[..., Estimate]] = None
     merge_is_additive: bool = False
+    kernel_cols: Optional[Callable[[Chunk], Any]] = None
+    kernel_num_groups: Optional[int] = None
     fused: Optional[FusedSpec] = None
+    members: tuple = ()
     name: str = "gla"
 
     def __post_init__(self):

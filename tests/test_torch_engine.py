@@ -157,14 +157,27 @@ def test_entry_points_refuse_a_missing_card(shards, monkeypatch):
         T.Session(T.QuerySpec(tgla, rounds=ROUNDS), shards)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TT.generate_lineitem(16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        T.run_queries(T.QuerySpec([tgla, tgla], rounds=ROUNDS), shards)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        T.make_join_groupby_gla(TT.q6_func, TT.q1_cond, lambda c: c["suppkey"],
+                                np.zeros(8, np.int32), np.ones(8, np.float32),
+                                num_groups=2, d_total=1.0)
 
 
-def test_plan_validation(shards):
-    _, q6 = _pair("q6-low")
+def test_plan_validation(shards, ref_shards):
+    rq6, q6 = _pair("q6-low")
     _, q1 = _pair("q1-small")
-    with pytest.raises(ValueError, match="fused"):
-        T.run_query(T.QuerySpec(q6.with_(fused=None), emit="kernel"), shards,
-                    device="cpu")
+    # without a fused contract emit="kernel" takes the legacy scalar path
+    # (K4), as in the reference
+    want = REN.run_query(RQuerySpec(rq6.with_(fused=None), rounds=ROUNDS,
+                                    emit="kernel"), ref_shards)
+    got = T.run_query(T.QuerySpec(q6.with_(fused=None), rounds=ROUNDS, emit="kernel"),
+                      shards, device="cpu")
+    _assert_result(got, want)
+    with pytest.raises(ValueError, match="neither kernel_cols nor a fused"):
+        T.run_query(T.QuerySpec(q6.with_(fused=None, kernel_cols=None),
+                                emit="kernel"), shards, device="cpu")
     with pytest.raises(ValueError, match="unknown emit"):
         T.run_query(T.QuerySpec(q6, emit="round_masked"), shards, device="cpu")
     with pytest.raises(ValueError, match="non-uniform"):

@@ -1,15 +1,20 @@
-"""Port parity for the fused-aggregate kernels (``repro_torch.kernels``).
+"""Port parity for the kernels (``repro_torch.kernels``): K1 (scalar, group
+and bundle), K2, K3 ``group_agg`` and K4 ``shard_chunk_partials``.
 
 On the CPU the wrappers run their plain versions (``kernels/ref.py``); these
 are held against the reference's Pallas kernels in interpret mode
-(``repro.kernels.fused_agg``) on the same shards and the same carry.  The
+(``repro.kernels.fused_agg`` and ``repro.kernels.ops``) on the same inputs
+and the same carry.  The
 CUDA kernels are held against the plain versions by the ``gpu`` tests,
 which skip without a card (``chip_smoke.py`` runs the same checks at the
 main path's shapes); they live in test_torch_kernels_gpu.py, which imports
 no JAX so that it runs on a machine with a card.
 
 Tolerances: counters (``scanned``, ``matched``) exact; f32 sums
-rtol=1e-5 with atol=1e-5·max|ref| — the summation order differs.
+rtol=1e-5 with atol=1e-5·max|ref| — the summation order differs.  A K1
+bundle is held to the reference within tolerance, not bitwise (on jax 0.9.0
+the reference's own fused and scan group states differ in low bits), and
+to the port's solo plain versions bitwise.
 """
 import jax
 import jax.numpy as jnp
@@ -21,11 +26,12 @@ from repro.core import gla as RG
 from repro.core import randomize as RR
 from repro.data import tpch as RT
 from repro.kernels import fused_agg as RFK
+from repro.kernels import ops as ROPS
 from repro_torch import convert
 from repro_torch import gla as TG
 from repro_torch.data import tpch as TT
 from repro_torch.kernels import fused_agg as FK
-from repro_torch.kernels import ref
+from repro_torch.kernels import ops, ref
 
 P, C, L = 4, 8, 256
 ROWS = P * C * L
@@ -178,3 +184,146 @@ def test_wrappers_check_their_inputs():
         FK.group_round_step(vals, w, gids.long(), cs, cq, cm)
     with pytest.raises(ValueError, match="no kernel for device"):
         FK.scalar_prefix(vals.to("meta"), w.to("meta"))
+
+
+def _close(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    assert a.shape == b.shape
+    np.testing.assert_allclose(a, b, rtol=RTOL, atol=RTOL * np.abs(b).max())
+
+
+@pytest.mark.parametrize("A,G", [(1, 5), (4, 10), (3, 37)])
+def test_group_agg_matches_reference_interpret(A, G):
+    """K3 with block_rows = L against the reference's one-hot Pallas kernel,
+    one partition at a time; ids outside [0, G) drop out in both."""
+    vals, w, gids, *_ = _random_inputs(3, A=A, G=G, Cn=4, Ln=128)
+    Pn, Cn, Ln, _ = vals.shape
+    flat = (vals.reshape(Pn, -1, A), w.reshape(Pn, -1), gids.reshape(Pn, -1))
+    got = ops.group_agg(*flat, num_groups=G, block_rows=Ln)
+    for p in range(Pn):
+        want = ROPS.group_agg(jnp.asarray(flat[0][p].numpy()),
+                              jnp.asarray(flat[1][p].numpy()),
+                              jnp.asarray(flat[2][p].numpy()), num_groups=G,
+                              block_rows=Ln, interpret=True)
+        _close(got[0][p], want[0])
+        _close(got[1][p], want[1])
+        np.testing.assert_array_equal(got[2][p].numpy(), np.asarray(want[2]))
+
+
+def test_group_agg_is_the_group_step_from_zero():
+    """K3 over C·L rows equals K1 group from a zero carry with L-row chunks,
+    bit for bit; [P, N] vals are one aggregate."""
+    vals, w, gids, *_ = _random_inputs(4, A=2, G=9, Cn=3, Ln=64)
+    Pn, Cn, Ln, A = vals.shape
+    z = torch.zeros((Pn, 9, A))
+    want = ref.group_round_step(vals, w, gids, z, z, z[..., 0])
+    got = ops.group_agg(vals.reshape(Pn, -1, A), w.reshape(Pn, -1),
+                        gids.reshape(Pn, -1), num_groups=9, block_rows=Ln)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    one = ops.group_agg(vals[..., 0].reshape(Pn, -1).contiguous(), w.reshape(Pn, -1),
+                        gids.reshape(Pn, -1), num_groups=9, block_rows=Ln)
+    assert torch.equal(one[0][..., 0], got[0][..., 0])
+
+
+def test_shard_chunk_partials_matches_reference_interpret(shards):
+    """K4 on the Q6 projection of every partition (weight = the bare
+    predicate, the mask separate) against the reference's Pallas kernel."""
+    _, tgla = _pair("q6-low")
+    cols = convert.shards_from_reference(shards, device="cpu")
+    vals, weight = tgla.kernel_cols(cols)
+    got = ops.shard_chunk_partials(vals, weight, cols["_mask"])
+    assert got.shape == (P, C, 4)
+    for p in range(P):
+        want = ROPS.shard_chunk_partials(
+            jnp.asarray(vals[p].numpy()), jnp.asarray(weight[p].numpy()),
+            jnp.asarray(shards["_mask"][p]), interpret=True)
+        _close(got[p, :, :2], want[:, :2])
+        np.testing.assert_array_equal(got[p, :, 2:].numpy(), np.asarray(want[:, 2:]))
+
+
+def test_shard_chunk_partials_casts_its_inputs():
+    """Like the reference wrapper, any numeric dtype is cast to f32."""
+    vals = torch.arange(2 * 3 * 8, dtype=torch.int32).reshape(2, 3, 8)
+    pred = (vals % 3 == 0)
+    mask = torch.ones((2, 3, 8), dtype=torch.float64)
+    got = ops.shard_chunk_partials(vals, pred, mask)
+    want = ref.shard_chunk_partials(vals.float(), pred.float(), mask.float())
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+
+
+def _bundle_pair():
+    names = ["q6-low", "q1-small", "q1-bucketed", "q1-scalar"]
+    pairs = [_pair(n) for n in names]
+    return (RG.GLABundle([r for r, _ in pairs]),
+            TG.GLABundle([t for _, t in pairs]), [t for _, t in pairs])
+
+
+def test_bundle_round_step_matches_reference_interpret(shards):
+    """K1 bundle from the same mid-scan carries: within tolerance of the
+    reference's one-pallas_call bundle, bitwise-equal to each member's
+    solo plain step."""
+    rb, tb, solos = _bundle_pair()
+    carry, want = _ref_states(rb, shards, 4, 8, carry_hi=4)
+    state = tuple(convert.state_from_reference(c, device="cpu") for c in carry)
+    cols = convert.shards_from_reference({k: v[:, 4:8] for k, v in shards.items()},
+                                         device="cpu")
+    got = FK.fused_round_step(tb, state, cols)
+    assert isinstance(got, tuple) and len(got) == len(solos)
+    for g, w, st, solo in zip(got, want, state, solos):
+        _assert_state(g, w)
+        alone = FK.fused_round_step(solo, st, cols)
+        assert all(torch.equal(a, b) for a, b in zip(g, alone))
+
+
+def test_probe_tables_enter_the_column_dict():
+    """A join's fused closures read their probe tables by key: project()
+    puts them into the columns before the closures run, and a table shared
+    by two members counts once against the budget."""
+    n = 50
+    keys = torch.arange(2 * 1 * n, dtype=torch.int32).reshape(2, 1, n) % 7
+    cols = {"k": keys, "v": torch.ones((2, 1, n)), "_mask": torch.ones((2, 1, n))}
+    jg = TG.make_join_groupby_gla(
+        lambda c: c["v"], lambda c: torch.ones_like(c["v"]), lambda c: c["k"],
+        torch.tensor([0, 1, 2, 0, 1, 2, 0]), torch.tensor([1., 1, 1, 1, 0, 0, 1]),
+        num_groups=3, d_total=100.0, device="cpu")
+    specs = FK.fused_members(TG.GLABundle([jg, jg]))
+    assert len(FK.unique_probes(specs)) == 2
+    assert FK.probe_bytes(jg) == 7 * 4 * 2
+    assert FK.probe_bytes(TG.GLABundle([jg, jg])) == FK.probe_bytes(jg)
+    vals, w, gids = FK.project(jg.fused, cols)
+    v2, w2, g2 = jg.kernel_cols(cols)
+    assert set(cols) == {"k", "v", "_mask"}  # the caller's dict is untouched
+    assert torch.equal(gids, g2.to(torch.int32)) and torch.equal(w, (w2 * cols["_mask"]))
+
+
+def test_new_wrappers_check_their_inputs():
+    vals, w, gids, carry, cs, cq, cm = _random_inputs(5)
+    Pn, Cn, Ln, A = vals.shape
+    flat = (vals.reshape(Pn, -1, A), w.reshape(Pn, -1), gids.reshape(Pn, -1))
+    with pytest.raises(ValueError, match="block_rows"):
+        ops.group_agg(*flat, num_groups=4, block_rows=Ln + 1)
+    with pytest.raises(ValueError, match="dtype"):
+        ops.group_agg(flat[0], flat[1], flat[2].long(), num_groups=4, block_rows=Ln)
+    with pytest.raises(ValueError, match="shape"):
+        ops.group_agg(flat[0], flat[1][:, 1:], flat[2], num_groups=4, block_rows=Ln)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.group_agg(flat[0].transpose(0, 1).contiguous().transpose(0, 1),
+                      flat[1], flat[2], num_groups=4, block_rows=Ln)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.group_agg(*(t.to("meta") for t in flat), num_groups=4, block_rows=Ln)
+    with pytest.raises(ValueError, match="shape"):
+        ops.shard_chunk_partials(vals[..., 0], w, w[:, :1])
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.shard_chunk_partials(*(t.to("meta") for t in (vals[..., 0], w, w)))
+    with pytest.raises(ValueError, match="members"):
+        FK.bundle_round_step([])
+    with pytest.raises(ValueError, match="shape"):
+        FK.bundle_round_step([(vals, w, None, carry),
+                              (vals[:, :2].contiguous(), w[:, :2].contiguous(),
+                               None, carry)])
+    with pytest.raises(ValueError, match="same P, C, L"):
+        FK.bundle_round_step([(vals, w, None, carry),
+                              (vals[:, :2].contiguous(), w[:, :2].contiguous(),
+                               gids[:, :2].contiguous(), cs, cq, cm)])
+    with pytest.raises(ValueError, match="shape"):
+        FK.bundle_round_step([(vals, w, gids, cs, cq, cm[:, :2].contiguous())])

@@ -17,7 +17,7 @@ import repro_torch as T
 from repro_torch import randomize
 from repro_torch.data import tpch
 from repro_torch.kernels import fused_agg as FK
-from repro_torch.kernels import ref
+from repro_torch.kernels import ops, ref
 
 RTOL = 1e-5
 
@@ -72,7 +72,7 @@ def test_kernels_match_plain_versions(shape):
              *FK.group_round_step(vals, w, gids, cs, cq, cm))
     assert all(torch.equal(a, b) for a, b in zip((k1, k2, *kg), again))
     after = FK.launch_counts()
-    assert {k: after[k] - before[k] for k in after} == {
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {
         "fused_round_step/scalar": 2, "fused_round_step/group": 2,
         "fused_prefix_states": 2}
 
@@ -130,3 +130,139 @@ def test_query_on_the_card_matches_the_plain_route(query):
         assert torch.equal(getattr(got.snapshots, f).cpu(), getattr(want.snapshots, f))
     _close(got.snapshots.sum.cpu(), want.snapshots.sum)
     _close(got.estimates.estimate.cpu(), want.estimates.estimate)
+
+
+def _delta(before):
+    after = FK.launch_counts()
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [
+    dict(A=3, G=37, C=5, L=100),
+    dict(A=1, G=5, C=64, L=2048),  # Q3: one sum, 5 segments
+    dict(A=4, G=10, C=16, L=2048),  # a [Q6, Q1-small, Q3] stack
+], ids=["ragged", "q3", "stack"])
+def test_group_agg_matches_plain_version(shape):
+    """K3 from zero against its plain version; repeats bitwise-equal."""
+    dev = _cuda()
+    vals, w, gids, *_ = _random_inputs(2, dev, **shape)
+    P, C, L, A = vals.shape
+    args = (vals.reshape(P, C * L, A), w.reshape(P, C * L), gids.reshape(P, C * L))
+    before = FK.launch_counts()
+    got = ops.group_agg(*args, num_groups=shape["G"], block_rows=L)
+    again = ops.group_agg(*args, num_groups=shape["G"], block_rows=L)
+    want = ref.group_agg(*args, shape["G"], L)
+    _close(got[0], want[0])
+    _close(got[1], want[1])
+    assert torch.equal(got[2], want[2])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert _delta(before) == {"group_agg": 2}
+
+
+@pytest.mark.gpu
+def test_group_agg_bundle_member_equals_its_solo_launch():
+    """Rows stacked member after member, ids offset: each member's table
+    rows are bitwise what its own launch gives."""
+    dev = _cuda()
+    P, C, L = 4, 8, 2048
+    members = [_random_inputs(s, dev, P=P, A=A, G=G, C=C, L=L)[:3]
+               for s, A, G in ((3, 1, 1), (4, 4, 4), (5, 1, 5))]
+    solo, vals_cat, w_cat, g_cat, off = [], [], [], [], 0
+    for (vals, w, gids), G in zip(members, (1, 4, 5)):
+        gids = gids.clamp(0, G - 1)
+        v = torch.nn.functional.pad(vals, (0, 4 - vals.shape[-1]))
+        solo.append(ops.group_agg(vals.reshape(P, C * L, -1), w.reshape(P, -1),
+                                  gids.reshape(P, -1), num_groups=G, block_rows=L))
+        vals_cat.append(v.reshape(P, C * L, 4))
+        w_cat.append(w.reshape(P, -1))
+        g_cat.append((gids + off).reshape(P, -1))
+        off += G
+    s, q, m = ops.group_agg(torch.cat(vals_cat, 1).contiguous(),
+                            torch.cat(w_cat, 1).contiguous(),
+                            torch.cat(g_cat, 1).contiguous(),
+                            num_groups=off, block_rows=L)
+    off = 0
+    for (ss, qq, mm), G in zip(solo, (1, 4, 5)):
+        A = ss.shape[-1]
+        assert torch.equal(s[:, off:off + G, :A], ss)
+        assert torch.equal(q[:, off:off + G, :A], qq)
+        assert torch.equal(m[:, off:off + G], mm)
+        off += G
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [dict(C=5, L=100), dict(C=64, L=2048)],
+                         ids=["ragged", "wide"])
+def test_shard_chunk_partials_matches_plain_version(shape):
+    dev = _cuda()
+    vals, w, *_ = _random_inputs(6, dev, A=1, **shape)
+    vals = vals[..., 0].contiguous()
+    mask = (w * 0 + 1).contiguous()
+    mask[:, -1, shape["L"] // 2:] = 0  # a ragged tail
+    pred = (vals > 50).float()
+    before = FK.launch_counts()
+    got = ops.shard_chunk_partials(vals, pred, mask)
+    again = ops.shard_chunk_partials(vals, pred, mask)
+    want = ref.shard_chunk_partials(vals, pred, mask)
+    _close(got[..., :2], want[..., :2])
+    assert torch.equal(got[..., 2:], want[..., 2:])
+    assert torch.equal(got, again)
+    assert _delta(before) == {"shard_chunk_partials": 2}
+
+
+@pytest.mark.gpu
+def test_bundle_members_equal_their_solo_launches():
+    """K1 bundle: one launch for every member; each member bitwise-equal to
+    its solo K1 launch and within RTOL of the plain version."""
+    dev = _cuda()
+    members = []
+    for seed, A, G in ((7, 1, None), (8, 4, 4), (9, 4, 8192), (10, 4, None),
+                       (11, 1, 5)):
+        vals, w, gids, carry, cs, cq, cm = _random_inputs(
+            seed, dev, P=4, A=A, G=G or 3, C=16, L=2048)
+        members.append((vals, w, None, carry) if G is None
+                       else (vals, w, gids, cs, cq, cm))
+    before = FK.launch_counts()
+    got = FK.bundle_round_step(members)
+    again = FK.bundle_round_step(members)
+    assert _delta(before) == {"fused_round_step/bundle": 2}
+    want = ref.bundle_round_step(members)
+    for m, g, a, r in zip(members, got, again, want):
+        if m[2] is None:
+            solo = FK.scalar_round_step(m[0], m[1], m[3])
+            assert torch.equal(g, solo) and torch.equal(g, a)
+            A = m[0].shape[-1]
+            _close(g[:, :2 * A], r[:, :2 * A])
+            assert torch.equal(g[:, 2 * A], r[:, 2 * A])
+        else:
+            solo = FK.group_round_step(*m)
+            for x, y, z, rr, i in zip(g, solo, a, r, range(3)):
+                assert torch.equal(x, y) and torch.equal(x, z)
+                if i == 2:
+                    assert torch.equal(x, rr)
+                else:
+                    _close(x, rr)
+
+
+@pytest.mark.gpu
+def test_bundle_wider_than_one_member_table():
+    """More members than one pf_bundle table holds: one launch per
+    MAX_BUNDLE_MEMBERS members, each member still bitwise its solo launch."""
+    dev = _cuda()
+    n = FK.MAX_BUNDLE_MEMBERS + 1
+    members = []
+    for seed in range(n):
+        vals, w, gids, carry, cs, cq, cm = _random_inputs(
+            20 + seed, dev, P=2, A=2, G=6, C=4, L=256)
+        members.append((vals, w, None, carry) if seed % 2
+                       else (vals, w, gids, cs, cq, cm))
+    before = FK.launch_counts()
+    got = FK.bundle_round_step(members)
+    assert _delta(before) == {"fused_round_step/bundle": 2}
+    for m, g in zip(members, got):
+        if m[2] is None:
+            assert torch.equal(g, FK.scalar_round_step(m[0], m[1], m[3]))
+        else:
+            assert all(torch.equal(x, y)
+                       for x, y in zip(g, FK.group_round_step(*m)))

@@ -1,6 +1,11 @@
 """Port parity for interactive sessions: ``repro_torch.Session`` stops at the
-same round as the reference ``Session`` under the same stopping rule, and
-its incremental discipline reproduces the whole-scan program.
+same round as the reference ``Session`` under the same stopping rule, picks
+the same per-round path (``kernel_fused``, ``kernel_group``,
+``kernel_bundle``, ``kernel_scalar``), and its incremental discipline
+reproduces the whole-scan program: bitwise on every path but
+``kernel_scalar``, whose per-round K4 deltas re-associate against the
+whole-scan cumsum (rtol=1e-5, as the reference calls the two
+interchangeable).
 
 The fixture picks ε between two consecutive rounds' reference widths, so
 that the stopping round's bounds clear ε with margin (the port's half-widths
@@ -113,6 +118,75 @@ def test_incremental_steps_equal_the_whole_scan(shards, query, emit):
     for a, b in zip(res.snapshots, whole.snapshots):
         assert torch.equal(a, b)
     assert torch.equal(res.estimates.upper, whole.estimates.upper)
+
+
+def _legacy(pair):
+    """The same GLAs without their fused contract: the legacy kernel paths."""
+    return tuple(g.with_(fused=None) for g in pair)
+
+
+def _path_cases():
+    q6, q1 = _pair("q6-dense"), _pair("q1-small")
+    return {
+        "kernel_fused": q6,
+        "kernel_scalar": _legacy(q6),
+        "kernel_group": _legacy(q1),
+        "kernel_fused/bundle": (RG.GLABundle([q6[0], q1[0]]),
+                                T.GLABundle([q6[1], q1[1]])),
+        "kernel_bundle": (RG.GLABundle([q6[0], _legacy(q1)[0]]),
+                          T.GLABundle([q6[1], _legacy(q1)[1]])),
+    }
+
+
+@pytest.mark.parametrize("case", ["kernel_fused", "kernel_scalar", "kernel_group",
+                                  "kernel_fused/bundle", "kernel_bundle"])
+def test_session_path_agrees_with_reference(shards, case):
+    ref_shards, t_shards = shards
+    rgla, tgla = _path_cases()[case]
+    r = RS.Session(RQuerySpec(rgla, rounds=ROUNDS, emit="kernel"), ref_shards)._path
+    t = T.Session(T.QuerySpec(tgla, rounds=ROUNDS, emit="kernel"), t_shards,
+                  device="cpu")._path
+    assert t == r == case.split("/")[0]
+
+
+@pytest.mark.parametrize("case", ["kernel_group", "kernel_bundle", "kernel_scalar"])
+def test_legacy_steps_equal_the_whole_scan(shards, case):
+    """Delta-style steps: the first round's state is its delta and later
+    rounds add onto it, as the whole scan folds its per-round deltas."""
+    _, t_shards = shards
+    tgla = _path_cases()[case][1]
+    spec = T.QuerySpec(tgla, rounds=ROUNDS, emit="kernel")
+    whole = T.Session(spec, t_shards, device="cpu").run()
+    sess = T.Session(spec, t_shards, device="cpu")
+    while not sess.done:
+        sess.step()
+    res = sess.result()
+    pairs = list(zip(jax.tree.leaves(tuple(res.snapshots)),
+                     jax.tree.leaves(tuple(whole.snapshots))))
+    pairs += list(zip(jax.tree.leaves(res.final), jax.tree.leaves(whole.final)))
+    assert pairs
+    for a, b in pairs:
+        if case == "kernel_scalar":
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * b.abs().max().item())
+        else:
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("query", ["q6-dense", "q1-small"])
+def test_legacy_paths_stop_at_the_reference_round(shards, query):
+    """K4 (scalar) and K3 (group) sessions under rel_width stop where the
+    reference's legacy sessions stop."""
+    ref_shards, t_shards = shards
+    rgla, tgla = _legacy(_pair(query))
+    full = RS.Session(RQuerySpec(rgla, rounds=ROUNDS), ref_shards).run()
+    eps, expect = _epsilon(_rel_widths(full.estimates))
+    rs = RS.Session(RQuerySpec(rgla, rounds=ROUNDS, emit="kernel",
+                               stop=RS.rel_width(eps)), ref_shards)
+    rs.run()
+    ts = T.Session(T.QuerySpec(tgla, rounds=ROUNDS, emit="kernel",
+                               stop=T.rel_width(eps)), t_shards, device="cpu")
+    ts.run()
+    assert ts.steps_taken == rs.steps_taken == expect and ts.converged
 
 
 def _progress(cls, est_cls, rnd, est):
