@@ -11,8 +11,12 @@ C=14,336 chunks x L=2048, about SF 39 — the scale one 80 GB card holds; the
 paper's 48e9 rows do not fit) — Q6/Q1 queries and sessions, the Q3 join
 against 58,720,256 orders (probe tables past the reference's fused budget:
 K3), the supplier ⋈ nation join (K1), multi-query bundles on both kernel
-paths (K1 bundle mode, K3) and the legacy scalar path (K4) — checks the
-answers against a float64 oracle, and times every kernel beside its bound.
+paths (K1 bundle mode, K3) and the legacy scalar path (K4) — and then the
+out-of-core scan: Q6, Q1-small and [Q6, Q1-small] sessions streamed from an
+npy and from an encoded copy of the same rows on disk (K1, and K1's column
+decode on the encoded copy), each bitwise its resident twin.  It checks
+the answers against a float64 oracle and times every kernel (K5 and K6,
+which no entry point reaches, included) beside its bound.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.  The last line is the run's JSON summary.
@@ -21,6 +25,7 @@ from __future__ import annotations
 
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -41,13 +46,28 @@ K1 = "src/repro/kernels/fused_agg.py:363"
 K2 = "src/repro/kernels/fused_agg.py:454"
 K3 = "src/repro/kernels/group_agg.py:76"
 K4 = "src/repro/kernels/chunk_agg.py:131"
+K5 = "src/repro/kernels/chunk_agg.py:85"
+K6 = "src/repro/kernels/chunk_agg.py:170"
+DECODE = "src/repro/kernels/fused_agg.py:224"  # _decode_chunk, in K1's and K2's bodies
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {"fused_round_step/scalar": "fused_agg.cu",
            "fused_round_step/group": "fused_agg.cu",
            "fused_round_step/bundle": "fused_agg.cu",
            "fused_prefix_states": "fused_agg.cu",
            "group_agg": "group_agg.cu",
-           "shard_chunk_partials": "chunk_agg.cu"}
+           "shard_chunk_partials": "chunk_agg.cu",
+           "chunk_agg": "chunk_agg.cu",
+           "q6_agg": "chunk_agg.cu",
+           "decode": "decode.cu"}
+#: K5 and K6: no entry point of either package reaches them; the main path
+#: must launch them no time
+OFF_PATH = ("chunk_agg", "q6_agg")
+#: the columns the streamed queries read, copied to the host (28 B/row)
+STREAM_COLS = ("shipdate", "discount", "quantity", "extendedprice", "tax",
+               "rfls", "_mask")
+#: peak device memory of a streamed session above what was allocated
+#: before it, in round-slices of those columns (the data is 16 of them)
+STREAM_PEAK_SLICES = 4
 
 
 def fail(msg: str):
@@ -71,12 +91,26 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
+    work = ROOT / "build" / "chip_smoke_sources"  # git-ignored; deleted at the end
+    try:
+        run(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def run(work: Path) -> None:
+    import torch
+
 
     import repro_torch as T
     from repro_torch import randomize, scan
+    from repro_torch.data import encodings as ENC
+    from repro_torch.data import source as DS
     from repro_torch.data import tpch
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import decode as KD
     from repro_torch.kernels import fused_agg as FK
+    from repro_torch.uda import tree_map
 
     dev = torch.device(DEVICE)
     smi = subprocess.run(
@@ -112,6 +146,37 @@ def main() -> None:
     say("data", rows=ROWS, shape=(P, C, L), resident_gib=f"{gib:.3f}",
         seconds=f"{time.perf_counter() - t0:.3f}")
     flat = {k: v.reshape(-1) for k, v in shards.items()}
+
+    # -- the out-of-core copies: the streamed queries' columns on the host,
+    # written as an npy and an encoded directory and read back by mmap ----
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    say("disk", path=str(work.relative_to(ROOT)),
+        free_gb=f"{shutil.disk_usage(work).free / 1e9:.3f}",
+        needed_gb=f"{ROWS * (28 + 13.25) / 1e9:.3f}")
+    t0 = time.perf_counter()
+    host = {k: shards[k].cpu().numpy() for k in STREAM_COLS}
+    t_host = time.perf_counter() - t0
+    encs = {k: ENC.dict_encoding_for(host[k]) for k in ("discount", "quantity", "tax")}
+    encs.update(shipdate=ENC.BitPackedEncoding(16), rfls=ENC.BitPackedEncoding(2))
+    t0 = time.perf_counter()
+    npy_src = DS.NpyMmapSource(DS.NpyMmapSource.save(host, work / "npy"))
+    t_npy = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    enc_src = DS.EncodedSource(DS.EncodedSource.save(host, work / "encoded", encs))
+    t_enc = time.perf_counter() - t0
+    del host
+    sizes = {d: sum(f.stat().st_size for f in (work / d).iterdir()) for d in ("npy", "encoded")}
+    check(enc_src.spec == npy_src.spec, "encoded and npy sources differ in spec")
+    check(enc_src.fingerprint() == npy_src.fingerprint(),
+          "encoded and npy fingerprints differ")
+    say("sources", columns=list(STREAM_COLS), to_host_s=f"{t_host:.3f}",
+        npy_bytes=sizes["npy"], npy_write_s=f"{t_npy:.3f}",
+        encoded_bytes=sizes["encoded"], encode_and_write_s=f"{t_enc:.3f}",
+        encodings={k: type(e).__name__ + (f"({e.code_dtype}, {len(e.values)} values)"
+                                          if hasattr(e, "values") else f"({e.bits} bits)")
+                   for k, e in enc_src.encodings},
+        fingerprint=npy_src.fingerprint()[:16])
 
     d = float(ROWS)
     q6 = T.make_sum_gla(tpch.q6_func, tpch.q6_cond(tpch.Q6_LOW_WINDOW), d_total=d)
@@ -291,6 +356,62 @@ def main() -> None:
         max_abs_err=err, repeat="bitwise-equal", members_vs_solo="bitwise-equal")
     del got, again, want
 
+    # K1's decode stage on the encoded source's first round-slice: every
+    # encoded column in one launch, bitwise its plain version and the plain
+    # column itself (the decode is exact)
+    phys = {k: torch.from_numpy(v).to(dev) for k, v in enc_src.slice_cols(0, per).items()}
+    dec_in = [(phys[k], e) for k, e in enc_src.encodings]
+
+    def plain_decode():
+        return [ref.decode_dict(x, e.table(dev)) if isinstance(e, ENC.DictEncoding)
+                else ref.decode_bitpacked(x, e.bits) for x, e in dec_in]
+
+    got, again, want = KD.decode(dec_in), KD.decode(dec_in), plain_decode()
+    torch.cuda.synchronize()
+    for (k, _), a, b, r in zip(enc_src.encodings, got, again, want):
+        check(torch.equal(a, b), f"decode {k}: repeat run is not bitwise-equal")
+        check(a.dtype == r.dtype and torch.equal(a, r),
+              f"decode {k}: differs from its plain version")
+        check(torch.equal(a, sl[k]), f"decode {k}: differs from the plain column")
+    checks["decode"] = 0.0
+    say("check", kernel="decode", columns=[k for k, _ in enc_src.encodings],
+        shape=tuple(phys["_mask"].shape), vs_plain="bitwise-equal",
+        vs_column="bitwise-equal", repeat="bitwise-equal")
+    del got, again, want
+
+    # K5 and K6 on the first round-slice flattened (14,680,064 rows: every
+    # count below 2**24, so counters are exact integers in f32), and K6 on
+    # the whole shard against the float64 Q6 oracle
+    flat_sl = {k: v.reshape(-1) for k, v in sl.items()}
+    v5, w5 = q6.fused.func(flat_sl), q6.fused.cond(flat_sl)
+    got = twice(lambda: ops.chunk_agg(v5, w5, flat_sl["_mask"]))[0]
+    want = ref.chunk_agg(v5, w5, flat_sl["_mask"])
+    checks["chunk_agg"] = compare("K5", (got[:2], got[2:]), (want[:2], want[2:]), {1})
+    say("check", kernel="chunk_agg", rows=v5.numel(),
+        max_abs_err=checks["chunk_agg"], repeat="bitwise-equal")
+    lo6, hi6 = tpch.Q6_LOW_WINDOW
+    q6_params = torch.tensor([lo6, hi6, 0.02 - 1e-6, 0.03 + 1e-6, 1.0], device=dev)
+
+    def q6_cols(c):
+        return (c["shipdate"], c["discount"], c["quantity"], c["extendedprice"], c["_mask"])
+
+    got6 = twice(lambda: ops.q6_agg(q6_params, *q6_cols(flat_sl)))[0]
+    want = ref.q6_agg(q6_params, *q6_cols(flat_sl))
+    checks["q6_agg"] = compare("K6", (got6[:2], got6[2:]), (want[:2], want[2:]), {1})
+    check(torch.equal(got6, got), "K6 differs from K5 over Q6's closures")
+    exact6 = tpch.exact_answer(flat, q6.fused.func, q6.fused.cond)[0]
+    count6 = tpch.exact_answer(flat, lambda c: torch.ones_like(c["discount"]),
+                               q6.fused.cond)[0]
+    full6 = twice(lambda: ops.q6_agg(q6_params, *q6_cols(flat)))[0].double()
+    for i, want_ in ((0, exact6), (3, count6), (2, float(ROWS))):
+        err_ = abs(float(full6[i]) - float(want_)) / abs(float(want_))
+        check(err_ <= ORACLE_RTOL, f"K6 output {i} off the oracle by {err_:.3e}")
+    say("check", kernel="q6_agg", rows=v5.numel(), max_abs_err=checks["q6_agg"],
+        repeat="bitwise-equal", vs_k5_on_closures="bitwise-equal",
+        full_rows=ROWS, full_sum=float(full6[0]), oracle_sum=float(exact6),
+        full_matched=float(full6[3]), oracle_matched=float(count6))
+    del got, want, v5, w5, flat_sl
+
     # -- 3./4. the main path, through the public entry points ----------------
     # Each path is run with the launch counts set to 0 just before it and is
     # held to its own expected counts just after; `launches` sums the paths.
@@ -317,7 +438,6 @@ def main() -> None:
     final = float(res.final)
     e2e["run_query q6"] = time.perf_counter() - t0
     got = path_launches("run_query q6", {"fused_prefix_states": 1})
-    exact6 = exact_of(q6.fused)[0]
     rel6 = abs(final - float(exact6)) / abs(float(exact6))
     check(rel6 < ORACLE_RTOL, f"Q6 final {final} vs exact {float(exact6)}")
     est = res.estimates
@@ -433,9 +553,83 @@ def main() -> None:
                {"shard_chunk_partials": 1}, [exact6])
     session("q6-low, no fused contract", q6k, T.rel_width(0.01), exact6,
             "shard_chunk_partials")
+
+    # the out-of-core scan: each session stepped over the resident shards
+    # (its twin), then streamed from the npy and from the encoded copy —
+    # every final, snapshot and per-round estimate bitwise the twin's
+    def leaves(tree):
+        out = []
+        tree_map(out.append, tree)
+        return out
+
+    def same(a, b):
+        la, lb = leaves(a), leaves(b)
+        return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+    streamed = (("q6", q6, "fused_round_step/scalar"),
+                ("q1-small", q1s, "fused_round_step/group"),
+                ("[q6, q1-small]", T.GLABundle([q6, q1s]), "fused_round_step/bundle"))
+    twins = {}
+    for qname, gla, kernel in streamed:
+        FK.reset_launch_counts()
+        t0 = time.perf_counter()
+        sess = T.Session(spec(gla), shards, device=dev)
+        while not sess.done:
+            sess.step()
+        twins[qname] = sess.result()
+        torch.cuda.synchronize()
+        e2e[f"resident {qname}"] = time.perf_counter() - t0
+        got = path_launches(f"resident {qname}", {kernel: ROUNDS})
+        say("resident", query=qname, steps=sess.steps_taken,
+            seconds=f"{e2e[f'resident {qname}']:.3f}", launches=got)
+    slice_bytes = ROWS // ROUNDS * 28  # one logical round-slice of STREAM_COLS
+    exact6_src = tpch.exact_answer(enc_src, q6.fused.func, q6.fused.cond, device=dev)[0]
+    check(abs(float(exact6_src) - float(exact6)) <= 1e-9 * abs(float(exact6)),
+          "the oracle over the encoded source differs from the flat one")
+    for sname, src in (("npy", npy_src), ("encoded", enc_src)):
+        for qname, gla, kernel in streamed:
+            name = f"streamed {sname} {qname}"
+            FK.reset_launch_counts()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            sess = T.Session(spec(gla), src, device=dev)
+            res = sess.run()
+            torch.cuda.synchronize()
+            e2e[name] = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - base
+            want = {kernel: ROUNDS, "decode": ROUNDS if src.encodings else 0}
+            got = path_launches(name, want)
+            twin = twins[qname]
+            check(sess.steps_taken == ROUNDS, f"{name}: {sess.steps_taken} rounds")
+            check(same(res.final, twin.final), f"{name}: final differs from resident")
+            check(same(res.snapshots, twin.snapshots),
+                  f"{name}: snapshots differ from resident")
+            check(same(res.estimates, twin.estimates),
+                  f"{name}: per-round estimates differ from resident")
+            check(peak <= STREAM_PEAK_SLICES * slice_bytes,
+                  f"{name}: peak device memory {peak} B is not O(slice)")
+            q6_final = res.final if qname == "q6" else (
+                res.final[0] if qname.startswith("[") else None)
+            if q6_final is not None:
+                err_ = abs(float(q6_final) - float(exact6_src)) / abs(float(exact6_src))
+                check(err_ < ORACLE_RTOL, f"{name}: Q6 final off the oracle by {err_:.3e}")
+            io = sess.io_stats
+            check(io["slices"] == ROUNDS, f"{name}: {io['slices']} slices copied")
+            say("stream", source=sname, query=qname, bitwise_vs_resident=True,
+                seconds=f"{e2e[name]:.3f}",
+                resident_seconds=f"{e2e[f'resident {qname}']:.3f}",
+                h2d_bytes_per_round=io["bytes"] // ROUNDS,
+                host_read_s=io["read_s"], h2d_copy_ms=io["copy_ms"], waited_s=io["wait_s"],
+                peak_device_bytes=peak, peak_in_slices=f"{peak / slice_bytes:.3f}",
+                launches=got)
     say("main-path launches", **launches)
     for k, n in launches.items():
-        check(n > 0, f"kernel {k} was not launched on the main path")
+        if k in OFF_PATH:
+            check(n == 0, f"kernel {k} launched on the main path, which has none")
+        else:
+            check(n > 0, f"kernel {k} was not launched on the main path")
 
     # -- 5. timing: kernel, plain version, library call, closures included --
     def median_ms(fn, reps):
@@ -592,6 +786,42 @@ def main() -> None:
            nbytes, flops, lib_ms,
            {"members": len(bundle_args),
             "with_closures_ms": f"{median_ms(lambda: FK.fused_round_step(bf, stb, sl), 5):.6f}"})
+
+    # K1's decode stage on one encoded round-slice (all five encoded columns,
+    # one launch); the library yardstick is one indexing or shift-and-mask
+    # call per column, summed
+    outs = KD.decode(dec_in)
+    nbytes = sum(x.numel() * x.element_size() for x, _ in dec_in) + sum(
+        y.numel() * y.element_size() for y in outs)
+    lib_ms = 0.0
+    for x, e in dec_in:
+        if isinstance(e, ENC.DictEncoding):
+            tab, idx = e.table(dev), x.long()
+            lib_ms += median_ms(lambda: torch.take(tab, idx), 20)
+        else:
+            sh = e.bits * torch.arange(e.lanes, dtype=torch.int32, device=dev)
+            lib_ms += median_ms(lambda: (x[..., None] >> sh) & ((1 << e.bits) - 1), 20)
+    record("decode", DECODE, median_ms(lambda: KD.decode(dec_in), 20),
+           median_ms(plain_decode, 5), nbytes, 0, lib_ms,
+           {"columns": len(dec_in), "rows": phys["_mask"].numel(),
+            "with_closures_ms": f"{median_ms(lambda: FK.fused_round_step(q6, st6, phys, enc_src.encodings), 10):.6f}"})
+    del outs
+
+    # K5 and K6 on the whole shard flattened (234,881,024 rows); the library
+    # yardstick is torch.sum over the four stacked products
+    v5, w5, m5 = q6.fused.func(flat), q6.fused.cond(flat), flat["_mask"]
+    wm = w5 * m5
+    x = torch.stack([v5 * wm, (v5 * v5) * wm, m5, wm])
+    del wm
+    lib_ms = median_ms(lambda: torch.sum(x, dim=1), 10)
+    del x
+    record("chunk_agg", K5, median_ms(lambda: ops.chunk_agg(v5, w5, m5), 10),
+           median_ms(lambda: ref.chunk_agg(v5, w5, m5), 3), 12 * ROWS + 16, 8 * ROWS,
+           lib_ms, {"rows": ROWS, "with_closures_ms": f"{median_ms(lambda: ops.chunk_agg(q6.fused.func(flat), q6.fused.cond(flat), m5), 5):.6f}"})
+    del v5, w5
+    record("q6_agg", K6, median_ms(lambda: ops.q6_agg(q6_params, *q6_cols(flat)), 10),
+           median_ms(lambda: ref.q6_agg(q6_params, *q6_cols(flat)), 3),
+           20 * ROWS + 20 + 16, 15 * ROWS, lib_ms, {"rows": ROWS, "raw_columns": True})
 
     say("end-to-end", **{k.replace(" ", "_"): f"{v:.3f}s" for k, v in e2e.items()})
     for r_ in rows:

@@ -6,7 +6,10 @@ model, ``run_query`` / ``Session`` with per-round Horvitz–Thompson
 estimates and Eq. (4) bounds, and stopping rules that end the scan early.
 ``run_queries`` runs any number of queries (a ``GLABundle``) over one scan,
 and ``make_join_groupby_gla`` joins a replicated dimension table (paper
-Alg. 4).  On ``emit="kernel"`` the round-slices go through hand-written
+Alg. 4).  Any entry point also takes a chunk source (``data/source.py``):
+``NpyMmapSource`` and ``EncodedSource`` (dictionary-coded and bit-packed
+columns, ``data/encodings.py``) are scanned out of core, one prefetched
+round-slice on the card at a time, bitwise as the resident run.  On ``emit="kernel"`` the round-slices go through hand-written
 CUDA kernels (``repro_torch.kernels.fused_agg``, and ``kernels.ops`` where
 the fused contract cannot be used); on a CPU tensor the same wrappers run
 their plain PyTorch versions (``repro_torch.kernels.ref``).
@@ -26,6 +29,14 @@ Entry points take ``device=`` and default to ``"cuda"``; with no card they
 raise unless the caller asks for ``"cpu"``.  The package imports ``torch``
 and ``numpy`` only — never ``jax`` and nothing of ``repro``.
 """
+from repro_torch.data.encodings import BitPackedEncoding, DictEncoding
+from repro_torch.data.source import (
+    ChunkSource,
+    EncodedSource,
+    InMemorySource,
+    NpyMmapSource,
+    as_source,
+)
 from repro_torch.engine import QueryResult, run_queries, run_query
 from repro_torch.gla import (
     GLABundle,
@@ -48,10 +59,16 @@ from repro_torch.spec import QuerySpec
 from repro_torch.uda import GLA, Estimate, FusedSpec, ProbeTable
 
 __all__ = [
-    "GLA",
-    "GLABundle",
+    "BitPackedEncoding",
+    "ChunkSource",
+    "DictEncoding",
+    "EncodedSource",
     "Estimate",
     "FusedSpec",
+    "GLA",
+    "GLABundle",
+    "InMemorySource",
+    "NpyMmapSource",
     "ProbeTable",
     "QueryResult",
     "QuerySpec",
@@ -59,6 +76,7 @@ __all__ = [
     "Session",
     "abs_width",
     "all_of",
+    "as_source",
     "any_of",
     "budget",
     "debucket",

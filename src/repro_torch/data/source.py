@@ -1,0 +1,373 @@
+"""Chunk sources — out-of-core scans; port of ``repro/data/source.py``
+(``ColumnSpec``/``ChunkSpec`` l.83-124, ``ChunkSource`` l.125-240,
+``InMemorySource`` l.251-278, ``NpyMmapSource`` l.280-332,
+``EncodedSource`` l.334-463, ``as_source`` l.704-713).
+
+The paper estimates over tables far larger than any device holds.  A
+:class:`ChunkSource` decouples the scan from residency: it yields
+round-slices ``[P, hi-lo, L]`` of its columns (incl. ``_mask``) and
+per-chunk live counts, and a session over a streaming source
+(``repro_torch.session``) pulls one slice per round through a
+double-buffered host→device prefetcher, so device memory stays O(slice)
+while finals, snapshots and bounds stay bitwise those of the resident run.
+
+  * :class:`InMemorySource` — resident ``[P, C, L]`` tensors; what a plain
+    shards dict becomes (:func:`as_source`).  Sessions keep their
+    whole-scan program for it.
+  * :class:`NpyMmapSource` — one memory-mapped ``<column>.npy`` per
+    column, the reference's layout: either package reads what the other
+    wrote.
+  * :class:`EncodedSource` — dictionary-coded and bit-packed columns
+    (``data/encodings.py``) stored physical, with the reference's
+    ``encodings.json``; it presents the plain logical ``spec``, ships the
+    physical bytes, and the scan decodes them on the device.
+
+Streaming sources return host NumPy arrays from :meth:`ChunkSource.slice_cols`
+(the reference's API) and can copy a slice straight into caller buffers
+(:meth:`ChunkSource.read_into`, which the CUDA prefetcher points at pinned
+staging memory).  Every source publishes the reference's content
+:meth:`ChunkSource.fingerprint` — sha256 over ``repr(spec)``, the per-chunk
+``_mask`` sums and strided samples of every column's logical values — equal
+to the reference's on the same rows.  ``ParquetSource``,
+``RepartitionedSource`` and ``PartitionLostError`` are not ported yet
+(ROADMAP Queue 1).
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+from pathlib import Path
+from typing import Dict, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.data import encodings as ENC
+
+# Bound on host bytes touched per fingerprint/mask-sum pass (the reference's).
+_SAMPLE_CHUNKS = 8
+_SAMPLE_ELEMS = 256
+
+
+class ColumnSpec(NamedTuple):
+    name: str
+    dtype: str  # NumPy's dtype name, e.g. "float32"
+    trailing: Tuple[int, ...] = ()  # dims after [P, C, L] (usually none)
+    # logical elements per stored element: 1 for plain columns, the
+    # per-word lane count for bit-packed physical columns
+    lanes: int = 1
+
+
+class ChunkSpec(NamedTuple):
+    """Static shape contract of a source: [P, C, L] plus column table.
+    ``repr`` feeds the fingerprint and prints as the reference's."""
+
+    P: int
+    C: int
+    L: int
+    columns: Tuple[ColumnSpec, ...]  # sorted by name; includes "_mask"
+
+    def slice_like(self, width: int) -> dict:
+        """{name: (shape, dtype name)} of one [P, width, L] slice."""
+        return {c.name: ((self.P, width, self.L // c.lanes, *c.trailing), c.dtype)
+                for c in self.columns}
+
+
+def _numpy(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def as_tensor(x) -> torch.Tensor:
+    """A slice column as a tensor: tensors pass through, host arrays are
+    wrapped without a copy unless they are read-only (a mmap view)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    a = np.asarray(x)
+    return torch.from_numpy(a if a.flags.writeable else a.copy())
+
+
+def _mask_sums(read_mask, P: int, C: int) -> np.ndarray:
+    """Per-(partition, chunk) live counts, float64 [P, C], from
+    ``read_mask(lo, hi)`` (the [P, hi-lo, L] mask) in 512-chunk steps, so
+    at most a slice of the data is read at a time."""
+    out = np.zeros((P, C), np.float64)
+    step = _SAMPLE_CHUNKS * 64
+    for lo in range(0, C, step):
+        hi = min(C, lo + step)
+        out[:, lo:hi] = _numpy(read_mask(lo, hi)).sum(axis=2, dtype=np.float64)
+    return out
+
+
+class ChunkSource:
+    """Base class: a [P, C, L] columnar dataset readable in chunk slices.
+
+    ``spec`` is the *logical* shape contract — what the query closures see
+    after any decode; ``encodings`` (name-sorted tuple of ``(column,
+    Encoding)``) names the columns that :meth:`slice_cols` returns in
+    *physical* form.  ``resident`` is True when the whole dataset lives on
+    the device.  ``_mask`` is never encoded.
+    """
+
+    spec: ChunkSpec
+    resident: bool = False
+    encodings: tuple = ()
+
+    def slice_cols(self, lo: int, hi: int) -> dict:
+        """Columns of chunk range [lo, hi): dict of [P, hi-lo, ·] arrays
+        (host NumPy for streaming sources), incl. ``_mask``; encoded
+        columns come back physical."""
+        raise NotImplementedError
+
+    def read_into(self, lo: int, hi: int, out: Dict[str, np.ndarray]) -> None:
+        """Copy the slice [lo, hi) into ``out`` (writable host arrays of
+        :meth:`step_slice_like`'s shapes).  Streaming sources copy from
+        storage straight into them; this default goes through
+        :meth:`slice_cols`."""
+        for k, v in self.slice_cols(lo, hi).items():
+            np.copyto(out[k], _numpy(v))
+
+    def physical_columns(self) -> Tuple[ColumnSpec, ...]:
+        """Column table of the bytes :meth:`slice_cols` returns: encoded
+        columns with their stored dtype and lane count."""
+        if not self.encodings:
+            return self.spec.columns
+        enc = dict(self.encodings)
+        return tuple(
+            c if enc.get(c.name) is None else
+            ColumnSpec(c.name, enc[c.name].physical_dtype(), c.trailing,
+                       enc[c.name].lanes)
+            for c in self.spec.columns)
+
+    def step_slice_like(self, width: int) -> dict:
+        """{name: (shape, dtype name)} of one *physical* [P, width, ·] slice."""
+        s = self.spec
+        return ChunkSpec(s.P, s.C, s.L, self.physical_columns()).slice_like(width)
+
+    def mask_chunk_sums(self) -> np.ndarray:
+        """Per-(partition, chunk) live-tuple counts, float64 [P, C] (exact
+        integers), computed once."""
+        if getattr(self, "_mask_sums", None) is None:
+            self._mask_sums = _mask_sums(lambda lo, hi: self.slice_cols(lo, hi)["_mask"],
+                                         self.spec.P, self.spec.C)
+        return self._mask_sums
+
+    def fingerprint(self) -> str:
+        """The reference's content hash: sha256 over ``repr(spec)``, the
+        per-chunk ``_mask`` sums and strided samples ``[:, 0, ::stride]``
+        of every column at up to 8 evenly spaced chunks.  A function of
+        the logical data, not of the storage: equal across sources, and
+        across the two packages, for the same rows.  Best-effort (sampled),
+        as the reference's."""
+        if getattr(self, "_fingerprint", None) is None:
+            spec = self.spec
+            h = hashlib.sha256()
+            h.update(repr(spec).encode())
+            h.update(np.ascontiguousarray(self.mask_chunk_sums()).tobytes())
+            n_samp = min(spec.C, _SAMPLE_CHUNKS)
+            sample_chunks = sorted(
+                {int(i) for i in np.linspace(0, spec.C - 1, n_samp)})
+            stride = max(1, spec.L // _SAMPLE_ELEMS)
+            for c in sample_chunks:
+                sl = self._fingerprint_slice(c, c + 1)
+                for name in sorted(sl):
+                    v = sl[name][:, 0, ::stride]
+                    h.update(name.encode())
+                    h.update(np.ascontiguousarray(v).tobytes())
+            self._fingerprint = h.hexdigest()
+        return self._fingerprint
+
+    def _fingerprint_slice(self, lo: int, hi: int) -> dict:
+        """Host NumPy *logical* columns of [lo, hi): encoded columns are
+        decoded first (on the CPU), so an encoded copy fingerprints as the
+        plain data."""
+        sl = self.slice_cols(lo, hi)
+        if self.encodings:
+            sl = ENC.decode_cols({k: as_tensor(v).cpu() for k, v in sl.items()},
+                                 self.encodings)
+        return {k: _numpy(v) for k, v in sl.items()}
+
+
+def _spec_from_arrays(arrays: dict) -> ChunkSpec:
+    P, C, L = arrays["_mask"].shape[:3]
+    cols = tuple(
+        ColumnSpec(k, ENC.dtype_name(arrays[k].dtype),
+                   tuple(int(d) for d in arrays[k].shape[3:]))
+        for k in sorted(arrays))
+    return ChunkSpec(int(P), int(C), int(L), cols)
+
+
+class InMemorySource(ChunkSource):
+    """Resident ``[P, C, L]`` tensors (moved to ``device`` when given; a
+    no-op for tensors already there).  ``slice_cols`` is the lazy slicing
+    the session always did."""
+
+    resident = True
+
+    def __init__(self, shards: dict, device=None):
+        if "_mask" not in shards:
+            raise ValueError("shards dict must include a '_mask' column")
+        self.shards = {k: as_tensor(v) if device is None
+                       else as_tensor(v).to(device) for k, v in shards.items()}
+        self.spec = _spec_from_arrays(self.shards)
+
+    def slice_cols(self, lo: int, hi: int) -> dict:
+        return {k: v[:, lo:hi] for k, v in self.shards.items()}
+
+    def mask_chunk_sums(self) -> np.ndarray:
+        # one device-side reduction; only the [P, C] result crosses to host
+        if getattr(self, "_mask_sums", None) is None:
+            self._mask_sums = _numpy(
+                self.shards["_mask"].sum(dim=2, dtype=torch.float64))
+        return self._mask_sums
+
+
+class _HostColumns(ChunkSource):
+    """Shared by the file-backed sources: ``self._host`` maps each column
+    to a host [P, C, ·] array (usually a read-only mmap)."""
+
+    _host: Dict[str, np.ndarray]
+
+    def slice_cols(self, lo: int, hi: int) -> dict:
+        # only the slice is materialized on the host
+        return {k: np.ascontiguousarray(v[:, lo:hi]) for k, v in self._host.items()}
+
+    def read_into(self, lo: int, hi: int, out: Dict[str, np.ndarray]) -> None:
+        # each partition's rows [lo, hi) are contiguous on disk: one strided
+        # copy per column straight into the caller's buffer, no temporary
+        for k, v in self._host.items():
+            np.copyto(out[k], v[:, lo:hi])
+
+    def mask_chunk_sums(self) -> np.ndarray:
+        # only the mask column is read, in bounded steps
+        if getattr(self, "_mask_sums", None) is None:
+            mask = self._host["_mask"]
+            self._mask_sums = _mask_sums(lambda lo, hi: mask[:, lo:hi],
+                                         self.spec.P, self.spec.C)
+        return self._mask_sums
+
+
+class NpyMmapSource(_HostColumns):
+    """Memory-mapped columnar ``.npy`` files: ``<dir>/<column>.npy``, each
+    a [P, C, L] array, ``_mask.npy`` required — the reference's layout.
+    A slice read pages in only that chunk range."""
+
+    def __init__(self, directory):
+        self.directory = Path(directory)
+        paths = sorted(self.directory.glob("*.npy"))
+        if not paths:
+            raise FileNotFoundError(f"no .npy columns under {self.directory}")
+        self._host = {p.stem: np.load(p, mmap_mode="r") for p in paths}
+        if "_mask" not in self._host:
+            raise ValueError(f"{self.directory} lacks _mask.npy")
+        shape = self._host["_mask"].shape
+        for k, v in self._host.items():
+            if v.shape[:3] != shape[:3]:
+                raise ValueError(f"column {k!r} shape {v.shape} does not match "
+                                 f"_mask {shape}")
+        self.spec = _spec_from_arrays(self._host)
+
+    @staticmethod
+    def save(shards: dict, directory) -> Path:
+        """Write a [P, C, L] shards dict (tensors or arrays) as the
+        mmap-able column layout."""
+        directory = Path(directory)
+        directory.mkdir(parents=True, exist_ok=True)
+        for k, v in shards.items():
+            np.save(directory / f"{k}.npy", _numpy(v))
+        return directory
+
+
+class EncodedSource(_HostColumns):
+    """Dictionary-coded / bit-packed *physical* columns behind the plain
+    *logical* ``spec``: the streamed bytes shrink, the results do not
+    change (the decode is exact).  Built by :meth:`from_shards` (encode in
+    host memory) or :meth:`save` + ``EncodedSource(directory)`` (mmap'd
+    ``<column>.npy`` + ``encodings.json``, the reference's files).  Always
+    streaming; the fingerprint is the plain data's."""
+
+    def __init__(self, directory):
+        self.directory = Path(directory)
+        meta = json.loads((self.directory / "encodings.json").read_text())
+        encs = {}
+        for name, d in meta.items():
+            if d["kind"] == "dict":
+                encs[name] = ENC.DictEncoding(
+                    values=tuple(d["values"]), code_dtype=d["code_dtype"],
+                    logical_dtype=d["logical_dtype"])
+            else:
+                encs[name] = ENC.BitPackedEncoding(
+                    bits=int(d["bits"]), logical_dtype=d["logical_dtype"])
+        phys = {p.stem: np.load(p, mmap_mode="r")
+                for p in sorted(self.directory.glob("*.npy"))}
+        self._init_from(phys, ENC.normalize_encodings(encs))
+
+    def _init_from(self, phys, encodings):
+        if "_mask" not in phys:
+            raise ValueError("EncodedSource needs a plain '_mask' column")
+        enc = dict(encodings)
+        if "_mask" in enc:
+            raise ValueError("'_mask' must never be encoded")
+        self._host = phys
+        self.encodings = encodings
+        P, C, L = phys["_mask"].shape[:3]
+        cols = []
+        for name in sorted(phys):
+            e, v = enc.get(name), phys[name]
+            trailing = tuple(int(d) for d in v.shape[3:])
+            if e is None:
+                cols.append(ColumnSpec(name, np.dtype(v.dtype).name, trailing))
+                continue
+            if v.shape[2] * e.lanes != L:
+                raise ValueError(f"column {name!r}: physical chunk length "
+                                 f"{v.shape[2]} x {e.lanes} lanes != L={L}")
+            cols.append(ColumnSpec(name, e.logical_dtype, trailing))
+        self.spec = ChunkSpec(int(P), int(C), int(L), tuple(cols))
+
+    @classmethod
+    def from_shards(cls, shards: dict, encodings):
+        """Encode a [P, C, L] shards dict (tensors or arrays) on the host."""
+        encodings = ENC.normalize_encodings(encodings)
+        enc = dict(encodings)
+        phys = {}
+        for name, v in shards.items():
+            a = _numpy(v)
+            e = enc.get(name)
+            phys[name] = a if e is None else ENC.encode_array(a, e)
+        self = cls.__new__(cls)
+        self.directory = None
+        self._init_from(phys, encodings)
+        return self
+
+    @staticmethod
+    def save(shards: dict, directory, encodings) -> Path:
+        """Write the physical column layout + ``encodings.json``."""
+        encodings = ENC.normalize_encodings(encodings)
+        enc = dict(encodings)
+        directory = Path(directory)
+        directory.mkdir(parents=True, exist_ok=True)
+        meta = {}
+        for name, v in shards.items():
+            a = _numpy(v)
+            e = enc.get(name)
+            np.save(directory / f"{name}.npy",
+                    a if e is None else ENC.encode_array(a, e))
+            if isinstance(e, ENC.DictEncoding):
+                meta[name] = {"kind": "dict", "values": list(e.values),
+                              "code_dtype": e.code_dtype,
+                              "logical_dtype": e.logical_dtype}
+            elif e is not None:
+                meta[name] = {"kind": "bitpack", "bits": e.bits,
+                              "logical_dtype": e.logical_dtype}
+        (directory / "encodings.json").write_text(json.dumps(meta, indent=1))
+        return directory
+
+
+def as_source(data) -> ChunkSource:
+    """A ChunkSource passes through; a plain [P, C, L] shards dict wraps
+    into an :class:`InMemorySource`."""
+    if isinstance(data, ChunkSource):
+        return data
+    if isinstance(data, dict):
+        return InMemorySource(data)
+    raise TypeError(f"expected a ChunkSource or a [P, C, L] shards dict, got "
+                    f"{type(data).__name__}")

@@ -7,6 +7,9 @@ makes hundreds of millions of rows in seconds.  The draws are not the
 reference's numbers (the generators differ); the parity tests hand both
 packages the reference's numpy columns instead.
 
+``exact_answer`` is the float64 oracle over flat columns or any chunk
+source (``data/source.py``).
+
 Column encodings (all numeric, columnar):
   shipdate  int32  days in [0, 2526)   (1992-01-02 .. 1998-12-01)
   discount  float32 in {0.00 .. 0.10}
@@ -214,15 +217,41 @@ def q10_scenario(rows: int, *, num_orders: int | None = None, seed: int = 7,
                           estimator=estimator, device=device)
 
 
+def _exact_batches(cols, batch_rows: int, device):
+    """Bounded row batches ({name: [n]} with ``_mask``) of a flat columnar
+    dict or of a ``ChunkSource``.  A source is read one group of
+    ``batch_rows // (P·L)`` chunks at a time, moved to ``device`` (the
+    CPU by default), decoded and flattened, so the oracle never holds the
+    whole table."""
+    from repro_torch.data import encodings as _enc
+    from repro_torch.data import source as _source
+
+    if isinstance(cols, _source.ChunkSource):
+        P, C, L = cols.spec.P, cols.spec.C, cols.spec.L
+        step = max(1, batch_rows // max(1, P * L))
+        dev = torch.device("cpu") if device is None else resolve_device(device)
+        for lo in range(0, C, step):
+            sl = {k: _source.as_tensor(v).to(dev)
+                  for k, v in cols.slice_cols(lo, min(C, lo + step)).items()}
+            sl = _enc.decode_cols(sl, cols.encodings)
+            yield {k: v.reshape(-1, *v.shape[3:]) for k, v in sl.items()}
+        return
+    n = next(iter(cols.values())).shape[0]
+    for lo in range(0, n, batch_rows):
+        yield {k: v[lo:lo + batch_rows] for k, v in cols.items()}
+
+
 def exact_answer(cols, func, cond, group=None, num_groups: int | None = None, *,
                  batch_rows: int = 1 << 24, join_key=None, dim_group=None,
-                 dim_valid=None):
+                 dim_valid=None, device=None):
     """Ground truth in float64 — the oracle for every correctness check.
 
     ``cols`` is a flat columnar dict (``[N]`` tensors, optionally with a
-    ``_mask``).  The per-row values come from the query's own closures (in
-    float32, as the engine sees them) and are accumulated in float64 over
-    bounded row batches on the columns' device.
+    ``_mask``) or any ``repro_torch.data.source.ChunkSource``, read in
+    slice groups of about ``batch_rows`` rows that are decoded and moved
+    to ``device`` (CPU by default; a flat dict stays where it is).  The
+    per-row values come from the query's own closures (in float32, as the
+    engine sees them) and are accumulated in float64 batch by batch.
 
     Joins: pass ``join_key`` (chunk -> fact-side keys) with the replicated
     ``dim_group``/``dim_valid``; each batch gathers its keys' dimension
@@ -231,10 +260,8 @@ def exact_answer(cols, func, cond, group=None, num_groups: int | None = None, *,
     """
     if join_key is not None and (dim_group is None or dim_valid is None):
         raise ValueError("join oracle needs dim_group and dim_valid")
-    n = next(iter(cols.values())).shape[0]
     acc = None
-    for lo in range(0, n, batch_rows):
-        chunk = {k: v[lo:lo + batch_rows] for k, v in cols.items()}
+    for chunk in _exact_batches(cols, batch_rows, device):
         vals = func(chunk).to(torch.float64)
         w = cond(chunk).to(torch.float64)
         if "_mask" in chunk:

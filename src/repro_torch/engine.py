@@ -102,7 +102,9 @@ def _run_vmapped(gla: GLA, shards: dict, sched: np.ndarray, alive, *,
         raise ValueError("emit='kernel' runs single-lane")
 
     round_states = None
-    fused_ok = SC.fused_available(gla)
+    # the fused kernels take [P, C, L] columns: trailing dims route to the
+    # legacy kernels, as in the reference
+    fused_ok = SC.fused_available(gla) and all(v.ndim == 3 for v in shards.values())
     if kernel and (gla.kernel_num_groups is not None or gla.members):
         # group and bundle states follow the round emission discipline: one
         # launch per round-slice (one for the whole scan without snapshots)
@@ -153,10 +155,11 @@ def _run_vmapped(gla: GLA, shards: dict, sched: np.ndarray, alive, *,
 # plan resolution and the public entry point
 # ---------------------------------------------------------------------------
 
-def normalize_plan(qspec: QS.QuerySpec, shards: dict) -> QS.QuerySpec:
+def normalize_plan(qspec: QS.QuerySpec, source) -> QS.QuerySpec:
     """Validate the emit/kernel contracts and resolve the plan against the
     data's ``[P, C, L]`` shape: ``emit`` a concrete string, ``schedule`` a
-    [P, R+1] ndarray, ``rounds`` its R.
+    [P, R+1] ndarray, ``rounds`` its R.  ``source`` is a ``ChunkSource``,
+    whose ``spec`` gives the shape (no data is read).
 
     A multi-query spec is a TypeError: :func:`run_queries` bundles it first.
     Round-emission paths ("round", and group-by or bundle "kernel") emit at
@@ -170,7 +173,7 @@ def normalize_plan(qspec: QS.QuerySpec, shards: dict) -> QS.QuerySpec:
             "plan — run_queries bundles it before execution")
     gla, emit = qspec.gla, qspec.resolved_emit()
     rounds, schedule = qspec.rounds, qspec.schedule
-    P, C, _ = shards["_mask"].shape
+    P, C = source.spec.P, source.spec.C
     if emit not in ("chunk", "round", "kernel"):
         raise ValueError(f"unknown emit: {emit!r} (the port runs 'chunk', "
                          "'round' and 'kernel')")
@@ -228,7 +231,11 @@ def run_query(spec, data, *, device="cuda", **plan) -> QueryResult:
 
     Args:
       spec: a :class:`repro_torch.spec.QuerySpec` (or a bare GLA).
-      data: columnar dict, leaves [P, C, L] incl. "_mask".
+      data: columnar dict, leaves [P, C, L] incl. "_mask", or any
+        :class:`repro_torch.data.source.ChunkSource`; a streaming source
+        (``NpyMmapSource``, ``EncodedSource``) is scanned out of core, one
+        prefetched round-slice at a time, with finals bitwise those of
+        the resident run.
       device: where the query runs ("cuda" by default; "cpu" runs the
         kernels' plain versions).
     """

@@ -21,6 +21,9 @@ LAUNCHES = {
     "fused_prefix_states": 0,
     "group_agg": 0,
     "shard_chunk_partials": 0,
+    "chunk_agg": 0,
+    "q6_agg": 0,
+    "decode": 0,
 }
 
 F32, I32 = torch.float32, torch.int32

@@ -18,6 +18,11 @@ closures stay PyTorch: :func:`project` evaluates them on the round-slice on
 the device and the CUDA kernels do the chunk-ordered, carry-in
 accumulation.  The partition axis is a batch axis of one launch.
 
+Encoded columns (``data/encodings.py``) arrive physical and K1's decode
+stage — the reference's ``_decode_chunk``, in the Pallas body — is a
+launch of its own here (``kernels/decode.py``, ``pf_decode``) ahead of
+:func:`project`: the closures are PyTorch and read logical columns.
+
 Join GLAs publish probe tables (``FusedSpec.probe_tables``): :func:`project`
 puts them into the column dict under their keys before the closures run,
 where the reference injects them into the Pallas body.  Whether a plan may
@@ -39,6 +44,7 @@ import ctypes
 import torch
 
 from repro_torch import estimators as E
+from repro_torch.data import encodings as ENC
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import _runtime as RT
 from repro_torch.kernels._runtime import (  # noqa: F401 — re-exported
@@ -230,9 +236,13 @@ def probe_bytes(gla) -> int:
     return 0 if specs is None else sum(pt.nbytes for pt in unique_probes(specs))
 
 
-def fused_available(gla) -> bool:
-    """True when every member publishes a fused contract and their probe
-    tables fit :data:`REFERENCE_PROBE_BUDGET_BYTES` (the reference's rule)."""
+def fused_available(gla, columns=None) -> bool:
+    """The reference's rule: True when every member publishes a fused
+    contract, every column of the source's table (``columns``, a tuple of
+    ``ColumnSpec``) is kernel-decodable — no trailing dims — and the probe
+    tables fit :data:`REFERENCE_PROBE_BUDGET_BYTES`."""
+    if columns is not None and any(c.trailing for c in columns):
+        return False
     return (fused_members(gla) is not None
             and probe_bytes(gla) <= REFERENCE_PROBE_BUDGET_BYTES)
 
@@ -293,13 +303,17 @@ def _member_state(out, A: int, scanned) -> E.SumState:
     return E.SumState(sum=s, sumsq=q, scanned=scanned, matched=m)
 
 
-def fused_round_step(gla, state, cols: dict):
+def fused_round_step(gla, state, cols: dict, encodings=()):
     """K1: advance the per-partition ``state`` (leaves [P, ...]; a tuple of
     member states for a bundle) over one round-slice ``cols``
-    ({name: [P, C, L]}, incl. ``_mask``).  A bundle takes ONE
+    ({name: [P, C, L]}, incl. ``_mask``).  The columns named in
+    ``encodings`` arrive physical — [P, C, L/lanes], or int8/int16 codes —
+    and K1's decode stage turns them logical first, in ONE ``pf_decode``
+    launch for all of them and every bundle member.  A bundle takes ONE
     ``pf_bundle`` launch for every member; ``scanned`` is summed once,
     outside the kernel."""
     specs = _fused_specs(gla)
+    cols = ENC.decode_cols(cols, encodings)
     is_bundle = bool(gla.members)
     states = tuple(state) if is_bundle else (state,)
     delta = _live_counts(cols["_mask"]).sum(dim=1).to(_F32)
@@ -315,11 +329,13 @@ def fused_round_step(gla, state, cols: dict):
     return tuple(new) if is_bundle else new[0]
 
 
-def fused_prefix_states(gla, cols: dict):
-    """K2: whole-shard scalar scan of ``cols`` ({name: [P, C, L]}) emitting
+def fused_prefix_states(gla, cols: dict, encodings=()):
+    """K2: whole-shard scalar scan of ``cols`` ({name: [P, C, L]}, encoded
+    columns decoded first as in :func:`fused_round_step`) emitting
     per-chunk prefixes.  Returns ``(final, prefixes)``: leaves [P, ...] and
     [P, C + 1, ...] (row 0 is init(), row c+1 the state after chunk c)."""
     specs = _fused_specs(gla)
+    cols = ENC.decode_cols(cols, encodings)
     fs = specs[0]
     if gla.members or fs.group is not None:
         raise ValueError(f"fused_prefix_states needs a scalar GLA, got {gla.name!r}")

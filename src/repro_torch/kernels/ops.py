@@ -1,5 +1,5 @@
-"""The legacy ``kernel_cols`` kernels on Hopper — port of
-``repro/kernels/ops.py:64-95,113-149``.
+"""The ``kernel_cols`` and chunk-aggregate kernels on Hopper — port of
+``repro/kernels/ops.py:46-149``.
 
   K3 :func:`group_agg`             per-group sums of a round-slice's rows
                                    (``csrc/group_agg.cu``, ``pf_group_agg``).
@@ -13,6 +13,13 @@
                                    ``pf_shard_partials``).  Serves
                                    ``scan.kernel_prefix_states`` and
                                    ``scan.kernel_scalar_round_delta``.
+  K5 :func:`chunk_agg`             the same four sums over one flat chunk
+                                   (``pf_chunk_agg``, beside K4).
+  K6 :func:`q6_agg`                all of TPC-H Q6 from its raw columns, the
+                                   predicate evaluated in the kernel
+                                   (``pf_q6_agg``).  No entry point of
+                                   either package reaches K5 or K6: only
+                                   the tests and ``chip_smoke.py`` call them.
 
 The reference pads G to 128 and A to 8 for the TPU's matrix unit and
 launches once per partition; here the shapes stay as they are and one
@@ -33,7 +40,12 @@ def _group_lib():
 
 
 def _chunk_lib():
-    return RT.bind(_build.load("chunk_agg"), pf_shard_partials=(4, 3))
+    return RT.bind(_build.load("chunk_agg"), pf_shard_partials=(4, 3),
+                   pf_chunk_agg=(5, 1), pf_q6_agg=(8, 1))
+
+
+#: block totals K5 and K6 fold (csrc/chunk_agg.cu kFlatBlocks)
+_FLAT_BLOCKS = 1024
 
 
 def group_agg(vals: torch.Tensor, weight: torch.Tensor, gids: torch.Tensor, *,
@@ -92,3 +104,72 @@ def shard_chunk_partials(vals: torch.Tensor, weight: torch.Tensor,
     RT.launch(lib, lib.pf_shard_partials, RT.ptr(v), RT.ptr(w), RT.ptr(m),
               RT.ptr(out), P, C, L, device=dev, count="shard_chunk_partials")
     return out
+
+
+def _flat(name, t, dev):
+    if not isinstance(t, torch.Tensor) or t.ndim != 1:
+        raise ValueError(f"{name} must be a flat [N] tensor")
+    if t.device != dev:
+        raise ValueError(f"{name} is on {t.device}, expected {dev}")
+
+
+def chunk_agg(vals: torch.Tensor, weight: torch.Tensor,
+              mask: torch.Tensor) -> torch.Tensor:
+    """K5: flat ``[N]`` ``vals``, ``weight`` (the predicate), ``mask`` of
+    any numeric dtype -> ``[4]`` f32 (Σv·wm, Σ(v·v)·wm, Σm, Σwm) with
+    ``wm = weight·mask``.  Inputs that are not f32 are cast first."""
+    if not isinstance(mask, torch.Tensor):
+        raise ValueError("mask must be a flat [N] tensor")
+    dev = mask.device
+    for name, t in (("vals", vals), ("weight", weight), ("mask", mask)):
+        _flat(name, t, dev)
+    v, w, m = (x.to(RT.F32).contiguous() for x in (vals, weight, mask))
+    for name, t in (("vals", v), ("weight", w), ("mask", m)):
+        RT.check(name, t, RT.F32, mask.shape, dev)
+    if RT.route(dev) == "plain":
+        return ref.chunk_agg(v, w, m)
+    _check_rows(m.numel())
+    part = torch.empty(4 * _FLAT_BLOCKS, dtype=RT.F32, device=dev)
+    out = torch.empty(4, dtype=RT.F32, device=dev)
+    lib = _chunk_lib()
+    RT.launch(lib, lib.pf_chunk_agg, RT.ptr(v), RT.ptr(w), RT.ptr(m),
+              RT.ptr(part), RT.ptr(out), m.numel(), device=dev, count="chunk_agg")
+    return out
+
+
+def q6_agg(params: torch.Tensor, shipdate: torch.Tensor, discount: torch.Tensor,
+           quantity: torch.Tensor, extendedprice: torch.Tensor,
+           mask: torch.Tensor) -> torch.Tensor:
+    """K6: Q6 from raw flat ``[N]`` columns — shipdate int32, discount,
+    quantity, extendedprice and mask f32, as stored (no column is cast or
+    copied before the kernel) — with ``params`` f32 ``[>= 5]`` (date_lo,
+    date_hi, disc_lo, disc_hi, qty_eq) -> ``[4]`` f32 as :func:`chunk_agg`
+    of value ``ep·dc`` and weight ``cond·mask``."""
+    if not isinstance(mask, torch.Tensor):
+        raise ValueError("mask must be a flat [N] tensor")
+    dev = mask.device
+    RT.check("shipdate", shipdate, RT.I32, mask.shape, dev)
+    for name, t in (("discount", discount), ("quantity", quantity),
+                    ("extendedprice", extendedprice), ("mask", mask)):
+        _flat(name, t, dev)
+        RT.check(name, t, RT.F32, mask.shape, dev)
+    if not isinstance(params, torch.Tensor) or params.ndim != 1 or params.numel() < 5:
+        raise ValueError("params must be a [>= 5] tensor (date_lo, date_hi, "
+                         "disc_lo, disc_hi, qty_eq)")
+    RT.check("params", params, RT.F32, params.shape, dev)
+    if RT.route(dev) == "plain":
+        return ref.q6_agg(params, shipdate, discount, quantity, extendedprice, mask)
+    _check_rows(mask.numel())
+    part = torch.empty(4 * _FLAT_BLOCKS, dtype=RT.F32, device=dev)
+    out = torch.empty(4, dtype=RT.F32, device=dev)
+    lib = _chunk_lib()
+    RT.launch(lib, lib.pf_q6_agg, RT.ptr(params), RT.ptr(shipdate),
+              RT.ptr(discount), RT.ptr(quantity), RT.ptr(extendedprice),
+              RT.ptr(mask), RT.ptr(part), RT.ptr(out), mask.numel(), device=dev,
+              count="q6_agg")
+    return out
+
+
+def _check_rows(n: int) -> None:
+    if n >= 2**31:
+        raise ValueError(f"K5/K6 take fewer than 2**31 rows, got {n}")

@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the port's kernels.
 
-The wrappers in ``repro_torch.kernels.fused_agg`` (K1, K2) and
-``repro_torch.kernels.ops`` (K3, K4) run these on CPU tensors;
+The wrappers in ``repro_torch.kernels.fused_agg`` (K1, K2),
+``repro_torch.kernels.ops`` (K3-K6) and ``repro_torch.kernels.decode``
+(K1's column decode) run these on CPU tensors;
 the tests hold them against the JAX reference, and ``chip_smoke.py`` holds
 the CUDA kernels against them on the card.  They repeat the kernels'
 arithmetic — products formed as in the reference's ``acc_sum`` (``v·w``,
@@ -15,7 +16,8 @@ Layouts (P partitions, C chunks of L rows, A aggregates, G groups):
   scalar carry  float32 [P, 2A+1]   (sum[A] | sumsq[A] | matched)
   group carry   float32 [P, G, A], [P, G, A], [P, G]
 K3 takes the rows of a partition flat (``[P, N, A]``, ``N = C·L``), K4
-takes ``vals``/``weight``/``mask`` as ``[P, C, L]``.
+takes ``vals``/``weight``/``mask`` as ``[P, C, L]``, K5 and K6 flat
+``[N]`` columns.
 """
 from __future__ import annotations
 
@@ -102,3 +104,43 @@ def shard_chunk_partials(vals: torch.Tensor, w: torch.Tensor,
     wm = w * mask
     return torch.stack([(vals * wm).sum(dim=-1), ((vals * vals) * wm).sum(dim=-1),
                         mask.sum(dim=-1), wm.sum(dim=-1)], dim=-1)
+
+
+def chunk_agg(vals: torch.Tensor, weight: torch.Tensor,
+              mask: torch.Tensor) -> torch.Tensor:
+    """K5: (Σv·wm, Σ(v·v)·wm, Σm, Σwm) with ``wm = weight·mask`` over
+    flat ``[N]`` f32 columns -> ``[4]``, as the Pallas body forms it
+    (the reference's ``ref.py`` oracle takes ``v·w`` instead)."""
+    wm = weight * mask
+    return torch.stack([(vals * wm).sum(), ((vals * vals) * wm).sum(),
+                        mask.sum(), wm.sum()])
+
+
+def q6_agg(params: torch.Tensor, shipdate: torch.Tensor, discount: torch.Tensor,
+           quantity: torch.Tensor, extendedprice: torch.Tensor,
+           mask: torch.Tensor) -> torch.Tensor:
+    """K6: Q6 from raw columns — ``sd ∈ [lo, hi) ∧ dc ∈ [dlo, dhi] ∧
+    qt == q`` with shipdate converted to f32, value ``ep·dc``, weight
+    ``cond·mask`` — then K5's four sums."""
+    lo, hi, dlo, dhi, q = params[:5]
+    sd = shipdate.to(torch.float32)
+    cond = ((sd >= lo) & (sd < hi) & (discount >= dlo) & (discount <= dhi)
+            & (quantity == q)).to(torch.float32)
+    return chunk_agg(extendedprice * discount, cond * mask, mask)
+
+
+def decode_dict(codes: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Dictionary decode: ``table[code]``, codes widened to int64 (torch's
+    int8 is signed) and clamped to the table, as ``pf_decode`` reads it."""
+    idx = codes.to(torch.int64).clamp_(0, table.numel() - 1)
+    return table[idx]
+
+
+def decode_bitpacked(words: torch.Tensor, bits: int) -> torch.Tensor:
+    """Bit-packed decode: the ``32 // bits`` fields of each int32 word,
+    lowest first, as int32 — the trailing axis grows by that factor."""
+    lanes = 32 // bits
+    shifts = bits * torch.arange(lanes, dtype=torch.int32, device=words.device)
+    mask = -1 if bits >= 32 else (1 << bits) - 1
+    vals = (words.to(torch.int32)[..., None] >> shifts) & mask
+    return vals.reshape(*words.shape[:-1], words.shape[-1] * lanes)

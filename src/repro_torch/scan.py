@@ -133,22 +133,26 @@ def scan_rounds(gla: GLA, cols: dict, lanes: int, rounds: int):
 # fused-kernel paths (repro_torch/kernels/fused_agg.py)
 # ---------------------------------------------------------------------------
 
-def fused_available(gla: GLA) -> bool:
+def fused_available(gla: GLA, columns=None) -> bool:
     """True when ``gla`` (and every bundle member) publishes the fused
-    kernel contract and its probe tables fit the reference's budget."""
-    return fused_agg.fused_available(gla)
+    kernel contract, every source column (``columns``: the source's
+    ``ColumnSpec`` table) is kernel-decodable — no trailing dims — and its
+    probe tables fit the reference's budget."""
+    return fused_agg.fused_available(gla, columns)
 
 
-def fused_round_step(gla: GLA, state, slice_cols: dict):
+def fused_round_step(gla: GLA, state, slice_cols: dict, encodings=()):
     """K1 for ONE round-slice of every partition: (state, slice) -> state.
 
     Carry-style: the incoming state rides into the kernel and every chunk
     accumulates on top, so starting from ``gla.init`` keeps the
-    chunk-sequential association from round 0."""
-    return fused_agg.fused_round_step(gla, state, slice_cols)
+    chunk-sequential association from round 0.  ``encodings`` is the
+    source's (name, Encoding) tuple: those columns arrive physical and are
+    decoded first, in one launch."""
+    return fused_agg.fused_round_step(gla, state, slice_cols, encodings)
 
 
-def fused_rounds_states(gla: GLA, cols: dict, rounds: int):
+def fused_rounds_states(gla: GLA, cols: dict, rounds: int, encodings=()):
     """One K1 launch per round-slice with the carry threaded through (a
     bundle: one launch for every member).
 
@@ -158,15 +162,15 @@ def fused_rounds_states(gla: GLA, cols: dict, rounds: int):
     st = stack_init(gla, (P,), cols["_mask"].device)
     views = []
     for sl in _round_slices(cols, rounds, "the fused kernel path"):
-        st = fused_round_step(gla, st, sl)
+        st = fused_round_step(gla, st, sl, encodings)
         views.append(st)
     return st, tree_stack(views, dim=1)
 
 
-def fused_prefix_states(gla: GLA, cols: dict):
+def fused_prefix_states(gla: GLA, cols: dict, encodings=()):
     """K2: one launch for the whole data, emitting per-chunk prefixes.
     Returns ``(final [P, ...], prefixes [P, C+1, ...])``."""
-    return fused_agg.fused_prefix_states(gla, cols)
+    return fused_agg.fused_prefix_states(gla, cols, encodings)
 
 
 # ---------------------------------------------------------------------------

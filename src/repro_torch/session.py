@@ -17,12 +17,25 @@ first round's state IS the round's delta and whose later rounds add onto
 it.  Every path but ``"kernel_scalar"`` keeps the whole-scan program's
 association, so stepping round by round gives its states bit for bit.
 A bundle's stopping rule holds only when every member that estimates has
-converged.  Pause/resume, fault policies, streaming sources and meshes
-come in later slices.
+converged.
+
+The data is a shards dict or any ``repro_torch.data.source.ChunkSource``
+(port of ``repro/core/session.py:362-410,445-560,621-641,766-789``).  A
+resident source keeps the whole-scan program; a streaming one
+(``NpyMmapSource``, ``EncodedSource``) is scanned round by round, even
+without a stopping rule, through :class:`_SlicePrefetcher`: double
+buffering with pinned host staging buffers, a side CUDA stream and
+events, so at most two round-slices are on the card and finals,
+snapshots and bounds are bitwise the resident run's.  An encoded source's
+physical columns are decoded on the device — by the fused step on the
+``kernel_fused`` path, by :func:`repro_torch.data.encodings.decode_cols`
+before every other path.  Pause/resume, fault policies and meshes come in
+later slices.
 """
 from __future__ import annotations
 
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, List, NamedTuple, Optional
 
 import numpy as np
@@ -32,6 +45,8 @@ from repro_torch import engine as EN
 from repro_torch import scan as SC
 from repro_torch import spec as QS
 from repro_torch._device import resolve_device
+from repro_torch.data import encodings as ENC
+from repro_torch.data import source as DS
 from repro_torch.uda import GLA, Estimate, tree_map, tree_stack
 
 Pytree = Any
@@ -147,17 +162,24 @@ def all_of(*rules: StoppingRule) -> StoppingRule:
 
 def _step(gla: GLA, states, slice_shards: dict, w_r: torch.Tensor,
           d_local: torch.Tensor, d_total: torch.Tensor, *, path: str,
-          lanes: int, confidence: float, all_alive: bool, first: bool):
+          lanes: int, confidence: float, all_alive: bool, first: bool,
+          encodings: tuple = ()):
     """Advance one round-slice of every partition.
 
     ``first`` matters on the delta-style legacy paths only: the running
     sum starts from the first delta (not zero + delta), as
-    ``scan._fold_running_sum`` does.  Returns (new per-partition states,
-    per-partition round views, merged round state, round Estimate-or-None)."""
+    ``scan._fold_running_sum`` does.  ``encodings`` is the source's
+    (name, Encoding) tuple: the fused step decodes its physical columns,
+    every other path decodes the slice first (one decode launch either
+    way).  Returns (new per-partition states, per-partition round views,
+    merged round state, round Estimate-or-None)."""
+    if encodings and path != "kernel_fused":
+        slice_shards = ENC.decode_cols(slice_shards, encodings)
     if path == "scan":
         new_states, views = SC.scan_round_step(gla, states, slice_shards, lanes)
     elif path == "kernel_fused":  # carry-style, one K1 launch for every partition
-        new_states = views = SC.fused_round_step(gla, states, slice_shards)
+        new_states = views = SC.fused_round_step(gla, states, slice_shards,
+                                                 encodings)
     else:
         delta = SC.ROUND_DELTA_FNS[path](gla, slice_shards)
         new_states = views = (delta if first
@@ -174,19 +196,139 @@ def _step(gla: GLA, states, slice_shards: dict, w_r: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# host -> device slice prefetch (streaming sources)
+# ---------------------------------------------------------------------------
+
+class _SlicePrefetcher:
+    """Double-buffered host→device pipeline for streaming sources.
+
+    One worker thread reads round-slice r+1 while the caller computes
+    round r; :meth:`get` hands over slice r and schedules r+1 at once, so
+    at most two slices are alive on the device.  On a CUDA device the
+    worker copies the slice from the source straight into one of two
+    pinned staging buffers (``ChunkSource.read_into``) and issues the
+    host→device copy on a side stream, recording an event after it.  The
+    caller's stream waits on that event before using the slice (no
+    host-side synchronize, so copy and compute overlap), the device
+    buffers are ``record_stream``-ed onto it, and a staging buffer is
+    written again only after the event of the copy out of it has
+    completed.  On the CPU the worker reads the slice and nothing more.
+
+    ``stats()`` reports the bytes moved, the host seconds spent reading
+    into staging, the device milliseconds of the copies (CUDA events) and
+    the caller's seconds spent waiting for a slice.
+    """
+
+    def __init__(self, source: DS.ChunkSource, bounds, device: torch.device):
+        self._source = source
+        self._bounds = list(bounds)  # [(lo, hi)] per round
+        self._dev = device
+        self._ex = ThreadPoolExecutor(max_workers=1)
+        self._fut = self._next_r = None
+        self._cuda = device.type == "cuda"
+        self._staging = [None, None]  # pinned buffers per slot
+        self._copied = [None, None]  # event after the last copy out of a slot
+        self._timing = []  # (start, end) events per copy
+        self._fetched = self._bytes = 0
+        self._read_s = 0.0
+        self._wait_s = 0.0
+        if self._cuda:
+            self._stream = torch.cuda.Stream(device)
+
+    def _staging_for(self, slot: int, width: int) -> dict:
+        like = self._source.step_slice_like(width)
+        bufs = self._staging[slot]
+        if bufs is None or any(tuple(bufs[k].shape) != shape
+                               for k, (shape, _) in like.items()):
+            bufs = self._staging[slot] = {
+                k: torch.empty(shape, dtype=ENC.torch_dtype(dt), pin_memory=True)
+                for k, (shape, dt) in like.items()}
+        return bufs
+
+    def _fetch(self, r: int):
+        lo, hi = self._bounds[r]
+        t0 = time.perf_counter()
+        self._fetched += 1
+        if not self._cuda:
+            out = {k: DS.as_tensor(v)
+                   for k, v in self._source.slice_cols(lo, hi).items()}
+            self._read_s += time.perf_counter() - t0
+            self._bytes += sum(t.numel() * t.element_size() for t in out.values())
+            return out, None
+        slot = r % 2
+        if self._copied[slot] is not None:
+            self._copied[slot].synchronize()  # its last copy has left the buffer
+        t0 = time.perf_counter()
+        bufs = self._staging_for(slot, hi - lo)
+        self._source.read_into(lo, hi, {k: b.numpy() for k, b in bufs.items()})
+        self._read_s += time.perf_counter() - t0
+        with torch.cuda.device(self._dev), torch.cuda.stream(self._stream):
+            start = torch.cuda.Event(enable_timing=True)
+            done = torch.cuda.Event(enable_timing=True)
+            start.record(self._stream)
+            out = {k: b.to(self._dev, non_blocking=True) for k, b in bufs.items()}
+            done.record(self._stream)
+        self._copied[slot] = done
+        self._timing.append((start, done))
+        self._bytes += sum(b.numel() * b.element_size() for b in bufs.values())
+        return out, done
+
+    def get(self, r: int) -> dict:
+        """Device tensors of round r's slice, ready for the current
+        stream; the fetch of round r+1 is scheduled before this waits."""
+        if self._fut is not None and self._next_r == r:
+            fut = self._fut
+        else:
+            fut = self._ex.submit(self._fetch, r)
+        if r + 1 < len(self._bounds):
+            self._fut, self._next_r = self._ex.submit(self._fetch, r + 1), r + 1
+        else:
+            self._fut = self._next_r = None
+        t0 = time.perf_counter()
+        out, done = fut.result()
+        self._wait_s += time.perf_counter() - t0
+        if done is not None:
+            cur = torch.cuda.current_stream(self._dev)
+            cur.wait_event(done)
+            for t in out.values():
+                t.record_stream(cur)
+        return out
+
+    def close(self) -> dict:
+        """Retire the worker (waiting for a fetch in flight), free the
+        staging buffers and return :meth:`stats`."""
+        self._fut = self._next_r = None
+        self._ex.shutdown(wait=True, cancel_futures=True)
+        self._staging = [None, None]
+        return self.stats()
+
+    def stats(self) -> dict:
+        copy_ms = 0.0
+        for start, done in self._timing:
+            done.synchronize()
+            copy_ms += start.elapsed_time(done)
+        return {"slices": self._fetched, "bytes": self._bytes, "read_s": self._read_s,
+                "copy_ms": copy_ms if self._cuda else None,
+                "wait_s": self._wait_s}
+
+
+# ---------------------------------------------------------------------------
 # the session
 # ---------------------------------------------------------------------------
 
 class Session:
     """A long-lived OLA query: advance round by round, stop early.
 
-    ``data`` is a resident ``[P, C, L]`` shards dict; it is moved to
-    ``device`` ("cuda" by default, a no-op for tensors already there).
+    ``data`` is a resident ``[P, C, L]`` shards dict or any
+    :class:`repro_torch.data.source.ChunkSource`.  Resident data is moved
+    to ``device`` ("cuda" by default, a no-op for tensors already there);
+    a streaming source is read one prefetched round-slice at a time.
     Drive it with
 
       * :meth:`run` — to convergence (``stop`` rule) or completion.  With no
-        stopping rule and no prior :meth:`step` this runs the whole-scan
-        program of ``engine.run_query``.
+        stopping rule, no prior :meth:`step` and resident data this runs
+        the whole-scan program of ``engine.run_query``; a streaming source
+        always steps round by round.
       * :meth:`step` — one round-slice; returns the :class:`RoundProgress`
         the stopping rule saw.  Needs ``sync=False``, a partition-uniform
         schedule and no [R, P] alive schedule.
@@ -196,13 +338,17 @@ class Session:
     def __init__(self, spec, data, *, device="cuda", **plan):
         qspec = QS.coerce_spec(spec, plan, caller="Session")
         dev = resolve_device(device)
-        shards = {k: torch.as_tensor(v).to(dev) for k, v in data.items()}
-        qspec = EN.normalize_plan(qspec, shards)
+        source = DS.as_source(data)
+        if source.resident:
+            source = DS.InMemorySource(source.shards, device=dev)
+        qspec = EN.normalize_plan(qspec, source)
         self.spec = qspec  # the resolved plan, for introspection
         gla: GLA = qspec.gla
         self._gla = gla
         self._device = dev
-        self._shards = shards
+        self._source = source
+        self._resident = source.resident
+        self._shards = source.shards if source.resident else None
         self._sched = np.asarray(qspec.schedule, np.int32)
         self._rounds = self._sched.shape[1] - 1
         self._stop = qspec.stop
@@ -211,7 +357,7 @@ class Session:
         self._emit = qspec.emit
         self._lanes = qspec.lanes
         self._snapshots = qspec.snapshots
-        P, C, _ = shards["_mask"].shape
+        P = source.spec.P
         self._P = P
 
         alive_np = None if qspec.alive is None else np.asarray(qspec.alive)
@@ -226,10 +372,16 @@ class Session:
                 "stopping rules need an incrementally-steppable session: "
                 "sync=False with a partition-uniform schedule and no [R, P] "
                 "failure-injection alive mask")
+        if not self._resident and not self._incremental_ok:
+            raise ValueError(
+                "streaming sources scan incrementally and need an "
+                "incrementally-steppable config: sync=False with a "
+                "partition-uniform schedule and no [R, P] alive schedule "
+                "(whole-scan semantics require resident shards)")
         if self._emit == "kernel":
             if self._lanes != 1:
                 raise ValueError("emit='kernel' runs single-lane")
-            if SC.fused_available(gla):
+            if SC.fused_available(gla, source.spec.columns):
                 self._path = "kernel_fused"
             else:
                 self._path = ("kernel_bundle" if gla.members
@@ -237,6 +389,10 @@ class Session:
                               is not None else "kernel_scalar")
         else:
             self._path = "scan"
+        # an encoded source ships physical columns; _step decodes them
+        self._encodings = tuple(source.encodings or ())
+        self._prefetch: Optional[_SlicePrefetcher] = None
+        self._io_stats: Optional[dict] = None
 
         self._d_local = self._d_total = None
         self._w_pr = self._w_final = None
@@ -275,6 +431,17 @@ class Session:
     def elapsed_s(self) -> float:
         return self._elapsed
 
+    @property
+    def io_stats(self) -> Optional[dict]:
+        """What the prefetcher moved (streaming sources; None when
+        resident): ``bytes`` host→device, ``read_s`` host seconds reading
+        into staging, ``copy_ms`` device milliseconds of the copies (CUDA
+        events; None on the CPU), ``wait_s`` seconds the session waited
+        for a slice.  Final once the session is done."""
+        if self._prefetch is not None:
+            return self._prefetch.stats()
+        return self._io_stats
+
     # -- the incremental driver ----------------------------------------------
 
     def _init_states(self) -> Pytree:
@@ -284,12 +451,31 @@ class Session:
 
     def _ensure_stats(self) -> None:
         if self._d_local is None:
-            counts = self._shards["_mask"].sum(dim=2, dtype=torch.float64)  # [P, C]
-            self._d_local = counts.sum(dim=1).to(torch.float32)
+            # per-chunk live counts from the source (host float64, exact):
+            # no resident _mask needed
+            counts = self._source.mask_chunk_sums()  # [P, C]
+            self._d_local = torch.from_numpy(counts.sum(axis=1)).to(
+                self._device, torch.float32)
             self._d_total = self._d_local.sum()
-            self._mask_cum = np.cumsum(_np64(counts), axis=1)
+            self._mask_cum = np.cumsum(counts, axis=1)
             self._w_pr, self._w_final = SC.round_weights(
                 self._alive, self._rounds, self._device)
+
+    def _slice_shards(self, r: int, lo: int, hi: int) -> dict:
+        """Round r's slice: lazy slicing of resident shards, else the
+        prefetcher's device buffers."""
+        if self._resident:
+            return {k: v[:, lo:hi] for k, v in self._shards.items()}
+        if self._prefetch is None:
+            bounds = [(int(self._sched[0, i]), int(self._sched[0, i + 1]))
+                      for i in range(self._rounds)]
+            self._prefetch = _SlicePrefetcher(self._source, bounds, self._device)
+        return self._prefetch.get(r)
+
+    def _close_prefetch(self) -> None:
+        if self._prefetch is not None:
+            self._io_stats = self._prefetch.close()
+            self._prefetch = None
 
     def step(self) -> RoundProgress:
         """Advance one round-slice; evaluate the stopping rule; return what
@@ -306,13 +492,14 @@ class Session:
         self._ensure_stats()
         r = self._steps
         lo, hi = int(self._sched[0, r]), int(self._sched[0, r + 1])
-        slice_shards = {k: v[:, lo:hi] for k, v in self._shards.items()}
+        slice_shards = self._slice_shards(r, lo, hi)
         states = self._states if self._states is not None else self._init_states()
         new_states, views, merged, est = _step(
             self._gla, states, slice_shards, self._w_pr[:, r], self._d_local,
             self._d_total, path=self._path, lanes=self._lanes,
             confidence=self._confidence, all_alive=self._all_alive,
-            first=self._path not in ("scan", "kernel_fused") and r == 0)
+            first=self._path not in ("scan", "kernel_fused") and r == 0,
+            encodings=self._encodings)
         self._states, self._views = new_states, views
         if self._snapshots:
             self._merged.append(merged)
@@ -326,13 +513,18 @@ class Session:
             elapsed_s=self._elapsed)
         if self._stop is not None and self._stop(prog):
             self._converged = True
+        if self.done:
+            self._close_prefetch()
         return prog
 
     def run(self) -> EN.QueryResult:
-        """Drive to convergence or completion and return the result."""
+        """Drive to convergence or completion and return the result.
+        Resident data with no stopping rule runs the whole-scan program;
+        a streaming source always steps round by round."""
         if self._result is not None:
             return self._result
-        if self._steps == 0 and (self._stop is None or not self._incremental_ok):
+        if self._resident and self._steps == 0 and (
+                self._stop is None or not self._incremental_ok):
             t0 = time.perf_counter()
             self._result = EN._run_vmapped(
                 self._gla, self._shards, self._sched, self._alive,

@@ -38,7 +38,8 @@ def test_no_jax_or_reference_imports(path):
 def test_import_walk_sees_the_whole_port():
     names = {p.relative_to(PORT).as_posix() for p in FILES if PORT in p.parents}
     assert {"engine.py", "session.py", "kernels/fused_agg.py", "kernels/ops.py",
-            "kernels/_runtime.py", "data/tpch.py"} <= names
+            "kernels/_runtime.py", "kernels/decode.py", "data/tpch.py",
+            "data/source.py", "data/encodings.py"} <= names
     # the contract linter matches core/scan.py, core/estimators.py and
     # core/session.py by path suffix: the port keeps its modules flat
     assert not (PORT / "core").exists()
@@ -47,7 +48,8 @@ def test_import_walk_sees_the_whole_port():
 def test_import_repro_torch_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.convert, "
             "repro_torch.kernels.fused_agg, repro_torch.kernels.ops, "
-            "repro_torch.data.tpch; "
+            "repro_torch.kernels.decode, repro_torch.data.tpch, "
+            "repro_torch.data.source, repro_torch.data.encodings; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
             "if m.startswith('jax'))")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))

@@ -1,5 +1,6 @@
 """Port parity for the kernels (``repro_torch.kernels``): K1 (scalar, group
-and bundle), K2, K3 ``group_agg`` and K4 ``shard_chunk_partials``.
+and bundle, and its column decode), K2, K3 ``group_agg``, K4
+``shard_chunk_partials``, K5 ``chunk_agg`` and K6 ``q6_agg``.
 
 On the CPU the wrappers run their plain versions (``kernels/ref.py``); these
 are held against the reference's Pallas kernels in interpret mode
@@ -24,12 +25,15 @@ import torch
 
 from repro.core import gla as RG
 from repro.core import randomize as RR
+from repro.data import encodings as RE
 from repro.data import tpch as RT
 from repro.kernels import fused_agg as RFK
 from repro.kernels import ops as ROPS
 from repro_torch import convert
 from repro_torch import gla as TG
+from repro_torch.data import encodings as TE
 from repro_torch.data import tpch as TT
+from repro_torch.kernels import decode as TD
 from repro_torch.kernels import fused_agg as FK
 from repro_torch.kernels import ops, ref
 
@@ -327,3 +331,109 @@ def test_new_wrappers_check_their_inputs():
                                gids[:, :2].contiguous(), cs, cq, cm)])
     with pytest.raises(ValueError, match="shape"):
         FK.bundle_round_step([(vals, w, gids, cs, cq, cm[:, :2].contiguous())])
+
+
+def _q6_columns(n, seed):
+    """Flat Q6 columns as the reference's ``test_q6_fused_kernel`` draws
+    them, shipdate int32 as stored."""
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 2526, n).astype(np.int32),
+            (rng.integers(0, 11, n) / 100.0).astype(np.float32),
+            rng.integers(1, 51, n).astype(np.float32),
+            rng.uniform(1, 100, n).astype(np.float32),
+            rng.integers(0, 2, n).astype(np.float32))
+
+
+def _assert_sums(got, want):
+    """[4] (sum, sumsq, scanned, matched): counters exact, sums within RTOL."""
+    got, want = got.numpy(), np.asarray(want)
+    np.testing.assert_array_equal(got[2:], want[2:])
+    np.testing.assert_allclose(got[:2], want[:2], rtol=RTOL)
+
+
+@pytest.mark.parametrize("n", [128, 640, 5000])
+def test_chunk_agg_matches_reference_interpret(n):
+    rng = np.random.default_rng(n)
+    vals = rng.normal(size=n).astype(np.float32)
+    w = rng.integers(0, 2, n).astype(np.float32)
+    m = rng.integers(0, 2, n).astype(np.float32)
+    got = ops.chunk_agg(*(torch.from_numpy(x) for x in (vals, w, m)))
+    want = ROPS.chunk_agg(jnp.asarray(vals), jnp.asarray(w), jnp.asarray(m),
+                          interpret=True)
+    assert got.shape == (4,) and got.dtype == torch.float32
+    _assert_sums(got, want)
+
+
+def test_chunk_agg_casts_its_inputs():
+    vals = torch.arange(50, dtype=torch.int32)
+    got = ops.chunk_agg(vals, vals % 3 == 0, torch.ones(50, dtype=torch.float64))
+    want = ref.chunk_agg(vals.float(), (vals % 3 == 0).float(), torch.ones(50))
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [256, 2048, 3333])
+def test_q6_agg_matches_reference_interpret(n):
+    cols = _q6_columns(n, n)
+    cols[2][::3] = 1.0  # quantity == 1 often enough for rows to match
+    params = np.array([420, 785, 0.02, 0.03, 1.0], np.float32)
+    got = ops.q6_agg(torch.from_numpy(params), *(torch.from_numpy(c) for c in cols))
+    want = ROPS.q6_agg(jnp.asarray(params), *(jnp.asarray(c) for c in cols),
+                       interpret=True)
+    _assert_sums(got, want)
+    assert n < 1000 or got[3] > 0  # the predicate selects rows
+
+
+def test_q6_agg_is_the_q6_closures():
+    """K6 with the Q6 window's params is the port's q6_func/q6_cond."""
+    sd, dc, qt, ep, m = (torch.from_numpy(c) for c in _q6_columns(4000, 1))
+    qt[::7] = 1.0
+    lo, hi = TT.Q6_LOW_WINDOW
+    params = torch.tensor([lo, hi, 0.02 - 1e-6, 0.03 + 1e-6, 1.0])
+    chunk = {"shipdate": sd, "discount": dc, "quantity": qt, "extendedprice": ep}
+    cond = TT.q6_cond(TT.Q6_LOW_WINDOW)(chunk)
+    want = ref.chunk_agg(TT.q6_func(chunk), cond, m)
+    assert torch.equal(ops.q6_agg(params, sd, dc, qt, ep, m), want)
+    assert want[3] > 0
+
+
+def test_chunk_and_q6_agg_check_their_inputs():
+    sd, dc, qt, ep, m = (torch.from_numpy(c) for c in _q6_columns(64, 2))
+    params = torch.tensor([420.0, 785.0, 0.02, 0.03, 1.0])
+    with pytest.raises(ValueError, match="flat"):
+        ops.chunk_agg(ep.reshape(8, 8), m.reshape(8, 8), m.reshape(8, 8))
+    with pytest.raises(ValueError, match="shape"):
+        ops.chunk_agg(ep, m[:32], m)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.chunk_agg(*(t.to("meta") for t in (ep, m, m)))
+    with pytest.raises(ValueError, match="dtype"):
+        ops.q6_agg(params, sd.float(), dc, qt, ep, m)
+    with pytest.raises(ValueError, match="dtype"):
+        ops.q6_agg(params, sd, dc.double(), qt, ep, m)
+    with pytest.raises(ValueError, match="params"):
+        ops.q6_agg(params[:4], sd, dc, qt, ep, m)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.q6_agg(*(t.to("meta") for t in (params, sd, dc, qt, ep, m)))
+
+
+@pytest.mark.parametrize("enc", [
+    TE.DictEncoding((0.0, 0.01, 0.02, 0.05), code_dtype="int8"),
+    TE.DictEncoding(tuple(float(v) for v in range(-200, 300)), code_dtype="int16"),
+    TE.BitPackedEncoding(1), TE.BitPackedEncoding(2), TE.BitPackedEncoding(12),
+    TE.BitPackedEncoding(16)], ids=["dict-int8", "dict-int16", "bits-1", "bits-2",
+                                     "bits-12", "bits-16"])
+def test_decode_plain_version_matches_reference(enc):
+    """The plain decode (``ref.decode_dict``/``decode_bitpacked``, what
+    ``pf_decode`` is held to) against ``repro.data.encodings.decode_cols``."""
+    rng = np.random.default_rng(len(str(enc)))
+    shape = (P, 3, 96)
+    if isinstance(enc, TE.DictEncoding):
+        a = rng.choice(np.asarray(enc.values, np.float32), shape)
+        r = RE.DictEncoding(*enc)
+    else:
+        a = rng.integers(0, 1 << enc.bits, shape, dtype=np.int32)
+        r = RE.BitPackedEncoding(*enc)
+    phys = TE.encode_array(a, enc)
+    got = TD.decode([(torch.from_numpy(phys), enc)])[0]
+    want = RE.decode_cols({"c": jnp.asarray(phys)}, (("c", r),))["c"]
+    assert got.numpy().tobytes() == np.asarray(want).tobytes() == a.tobytes()
+    assert FK.LAUNCHES["decode"] == 0  # the plain route launches nothing

@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+"""The port's CUDA kernels against their plain PyTorch versions, on a card:
+K1 (scalar, group, bundle, and its column decode ``pf_decode``), K2, K3,
+K4, K5 ``chunk_agg`` and K6 ``q6_agg``, and a small streamed session.
 
 Every test here is marked ``gpu`` and skips without a CUDA device.  The file
 imports no JAX, so it runs on a machine that has a card but not the JAX
@@ -8,16 +10,21 @@ package's dependencies:
 
 Tolerances: counters (``scanned``, ``matched``) exact; f32 sums rtol=1e-5
 with atol=1e-5·max|plain| — the kernels sum in another order; repeat runs
-bitwise-equal (no atomics).
+bitwise-equal (no atomics).  The decode is exact: bitwise.
 """
+import numpy as np
 import pytest
 import torch
 
 import repro_torch as T
-from repro_torch import randomize
+from repro_torch import randomize, scan
+from repro_torch.data import encodings as ENC
+from repro_torch.data import source as DS
 from repro_torch.data import tpch
+from repro_torch.kernels import decode as KD
 from repro_torch.kernels import fused_agg as FK
 from repro_torch.kernels import ops, ref
+from repro_torch.uda import tree_map
 
 RTOL = 1e-5
 
@@ -266,3 +273,142 @@ def test_bundle_wider_than_one_member_table():
         else:
             assert all(torch.equal(x, y)
                        for x, y in zip(g, FK.group_round_step(*m)))
+
+
+# -- slice 3: decode, K5, K6, streaming ----------------------------------------
+
+def _encoded_cases():
+    rng = np.random.default_rng(7)
+    shape = (3, 5, 96)
+    cases = []
+    for n, logical in ((11, "float32"), (128, "float32"), (129, "float32"),
+                       (20000, "float32"), (300, "float64"), (40, "int16"),
+                       (200, "uint8")):
+        vals = np.unique(rng.normal(size=3 * n) * 1000).astype(logical)[:n]
+        a = rng.choice(vals, shape)
+        cases.append((a, ENC.dict_encoding_for(a)))
+    for bits in (1, 2, 4, 8, 12, 16, 32):
+        hi = np.iinfo(np.int32).max if bits == 32 else 1 << bits
+        a = rng.integers(0, hi, shape[:2] + (96,), dtype=np.int32)
+        cases.append((a, ENC.BitPackedEncoding(bits)))
+    a = rng.integers(0, 1 << 8, shape, dtype=np.int32).astype(np.int16)
+    cases.append((a, ENC.BitPackedEncoding(8, logical_dtype="int16")))
+    return cases
+
+
+@pytest.mark.gpu
+def test_decode_matches_plain_version_bitwise():
+    """Every code dtype (int8, int16; tables in shared memory and past it,
+    1- to 8-byte logical values) and bit width, all in ONE launch."""
+    dev = _cuda()
+    cases = _encoded_cases()
+    phys = [torch.from_numpy(ENC.encode_array(a, e)) for a, e in cases]
+    before = FK.launch_counts()
+    got = KD.decode([(x.to(dev), e) for x, (_, e) in zip(phys, cases)])
+    again = KD.decode([(x.to(dev), e) for x, (_, e) in zip(phys, cases)])
+    torch.cuda.synchronize()
+    assert _delta(before) == {"decode": 2}
+    want = KD.decode([(x, e) for x, (_, e) in zip(phys, cases)])
+    for g, h, w, (a, e) in zip(got, again, want, cases):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w), e
+        assert torch.equal(g, h)
+        assert g.cpu().numpy().tobytes() == a.tobytes(), e
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 1000, 3 * 2**20 + 17])
+def test_chunk_and_q6_agg_match_plain_versions(n):
+    dev = _cuda()
+    g = torch.Generator().manual_seed(n)
+    sd = torch.randint(0, 2526, (n,), generator=g, dtype=torch.int32)
+    dc = torch.randint(0, 11, (n,), generator=g).float() / 100
+    qt = torch.randint(1, 4, (n,), generator=g).float()
+    ep = torch.rand((n,), generator=g) * 1e5
+    m = (torch.rand((n,), generator=g) < 0.9).float()
+    params = torch.tensor([420.0, 1500.0, 0.02 - 1e-6, 0.03 + 1e-6, 1.0])
+    w = (torch.rand((n,), generator=g) < 0.3).float()
+    before = FK.launch_counts()
+    for fn, args in ((ops.chunk_agg, (ep, w, m)),
+                     (ops.q6_agg, (params, sd, dc, qt, ep, m))):
+        on_card = [t.to(dev) for t in args]
+        got, again = fn(*on_card), fn(*on_card)
+        want = fn(*args)
+        assert torch.equal(got, again)
+        assert torch.equal(got[2:].cpu(), want[2:])  # counters exact (n < 2**24)
+        _close(got[:2].cpu(), want[:2])
+    assert _delta(before) == {"chunk_agg": 2, "q6_agg": 2}
+
+
+def _enc_slice(dev, P=4, C=6, L=256, seed=3):
+    cols = tpch.generate_lineitem(P * C * L - 300, seed=seed, device="cpu")
+    shards = randomize.pack_partitions(
+        randomize.randomize_global(cols, torch.Generator().manual_seed(seed), P),
+        chunk_len=L)
+    encs = ENC.normalize_encodings({
+        "discount": ENC.dict_encoding_for(shards["discount"].numpy()),
+        "quantity": ENC.dict_encoding_for(shards["quantity"].numpy()),
+        "tax": ENC.dict_encoding_for(shards["tax"].numpy()),
+        "shipdate": ENC.BitPackedEncoding(16), "rfls": ENC.BitPackedEncoding(2)})
+    return shards, encs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["scalar", "group", "bundle"])
+def test_fused_step_with_encodings_equals_step_on_decoded_columns(kind):
+    dev = _cuda()
+    shards, encs = _enc_slice(dev)
+    src = DS.EncodedSource.from_shards(shards, encs)
+    phys = {k: torch.from_numpy(v).to(dev) for k, v in src.slice_cols(0, 6).items()}
+    plain = {k: v.to(dev) for k, v in shards.items()}
+    d = float(shards["_mask"].sum())
+    q6 = T.make_sum_gla(tpch.q6_func, tpch.q6_cond((0, 2000)), d_total=d)
+    q1 = T.make_groupby_gla(tpch.q1_func, tpch.q1_cond, tpch.q1_group_small,
+                            num_groups=4, d_total=d, num_aggs=4)
+    gla = {"scalar": q6, "group": q1, "bundle": T.GLABundle([q6, q1])}[kind]
+    st = scan.stack_init(gla, (4,), dev)
+    before = FK.launch_counts()
+    got = FK.fused_round_step(gla, st, phys, encs)
+    assert _delta(before) == {"decode": 1, f"fused_round_step/{kind}": 1}
+    want = FK.fused_round_step(gla, st, plain)
+    assert _same(got, want)
+
+
+def _same(a, b):
+    """Every leaf of two states (tensors, NamedTuples, tuples) bitwise-equal."""
+    la, lb = [], []
+    tree_map(la.append, a)
+    tree_map(lb.append, b)
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+@pytest.mark.gpu
+def test_streamed_session_on_the_card_bitwise_resident(tmp_path):
+    """npy and encoded sources through the pinned-staging prefetcher on the
+    card: every final, snapshot and estimate bitwise the resident run's,
+    one decode launch per round on the encoded source."""
+    dev = _cuda()
+    shards, encs = _enc_slice(dev, C=16)
+    d = float(shards["_mask"].sum())
+    q6 = T.make_sum_gla(tpch.q6_func, tpch.q6_cond((0, 2000)), d_total=d)
+    q1 = T.make_groupby_gla(tpch.q1_func, tpch.q1_cond, tpch.q1_group_small,
+                            num_groups=4, d_total=d, num_aggs=4)
+    npy = DS.NpyMmapSource(DS.NpyMmapSource.save(shards, tmp_path / "npy"))
+    enc = DS.EncodedSource(DS.EncodedSource.save(shards, tmp_path / "enc", encs))
+    for gla in (q6, q1, T.GLABundle([q6, q1])):
+        spec = T.QuerySpec(gla, rounds=8, emit="kernel")
+        base = T.Session(spec, shards, device=dev)
+        while not base.done:
+            base.step()
+        want = base.result()
+        for src, decodes in ((npy, 0), (enc, 8)):
+            before = FK.launch_counts()
+            sess = T.Session(spec, src, device=dev)
+            got = sess.run()
+            torch.cuda.synchronize()
+            delta = _delta(before)
+            assert delta.pop("decode", 0) == decodes
+            assert list(delta.values()) == [8]
+            assert _same(got.final, want.final)
+            assert _same(got.snapshots, want.snapshots)
+            assert _same(got.estimates, want.estimates)
+            assert sess.io_stats["slices"] == 8 and sess.io_stats["copy_ms"] > 0
