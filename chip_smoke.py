@@ -68,6 +68,12 @@ STREAM_COLS = ("shipdate", "discount", "quantity", "extendedprice", "tax",
 #: peak device memory of a streamed session above what was allocated
 #: before it, in round-slices of those columns (the data is 16 of them)
 STREAM_PEAK_SLICES = 4
+#: the group-step kernels' times in PR 14's final run (PERF.md; NVIDIA H100
+#: 80GB HBM3, 700.00 W), printed beside this run's as `pr14_ms`
+PR14_MS = {"fused_round_step/group[G=4]": 165.432549,
+           "fused_round_step/group[G=8192]": 24.818497,
+           "fused_round_step/bundle": 172.925888,
+           "group_agg[Q3]": 71.799133, "group_agg[stack]": 626.407654}
 
 
 def fail(msg: str):
@@ -249,9 +255,11 @@ def run(work: Path) -> None:
         max_abs_err=checks["fused_round_step/scalar"], repeat="bitwise-equal")
 
     group_inputs = {}
-    for label, gla in (("G=4", q1s), ("G=8192", q1l)):
+    for label, gla in (("G=4", q1s), ("G=8192", q1l), ("G=1", q1s)):
         vals, w, gids = FK.project(gla.fused, sl)
         G = gla.fused.num_groups
+        if label == "G=1":  # every row in one group: one run of L rows per chunk
+            gids, G = torch.zeros_like(gids), 1
         cs = torch.rand((P, G, 4), generator=g, device=dev) * 1e3
         cq = torch.rand((P, G, 4), generator=g, device=dev) * 1e6
         cm = torch.randint(0, 1000, (P, G), generator=g, device=dev).float()
@@ -645,6 +653,42 @@ def run(work: Path) -> None:
             ts.append(a.elapsed_time(b))
         return statistics.median(ts)
 
+    def phases(fn, grids, reps=3):
+        """Device ms per call of the group step's two grids (phase 1
+        ``group_partials_kernel``, phase 2 ``group_fold_kernel``, each
+        launched ``grids`` times per call: once per tile of chunks) and of
+        the other kernels the call launches, from a torch.profiler trace of
+        ``reps`` calls.  A phase's time is the mean of its kernels in the
+        trace times ``grids`` (the trace may miss a launch: ``captured``
+        counts the kernels it holds of the ``grids * reps`` launched); "not
+        measured" where it holds none."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        tot = {"phase1_ms": 0.0, "phase2_ms": 0.0, "other_ms": 0.0}
+        n = dict.fromkeys(tot, 0)
+        for ev in prof.key_averages():
+            if ev.self_device_time_total <= 0:
+                continue  # host-side events
+            key = ("phase1_ms" if "group_partials" in ev.key else
+                   "phase2_ms" if "group_fold" in ev.key else "other_ms")
+            tot[key] += ev.self_device_time_total / 1e3
+            n[key] += ev.count
+        out = {k: (f"{tot[k] / n[k] * grids:.6f}" if n[k] else "not measured")
+               for k in ("phase1_ms", "phase2_ms")}
+        out["other_ms"] = f"{tot['other_ms'] / reps:.6f}"
+        return {**out, "tiles": grids,
+                "captured": f"{n['phase1_ms']}+{n['phase2_ms']}/{2 * grids * reps}"}
+
+    def tiles(C_, members):
+        """Tiles of chunks the group step takes (``ops.group_step_tile``)."""
+        return -(-C_ // ops.group_step_tile(C_, L, members))
+
     def bound(nbytes, flops):
         tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
         return (tb, "bytes") if tb >= tf else (tf, "operations")
@@ -684,10 +728,11 @@ def run(work: Path) -> None:
            {"with_closures_ms": f"{median_ms(lambda: FK.fused_round_step(q6, st6, sl), 10):.6f}"})
     del x
 
-    # K1 group on one round-slice, both group shapes of the main path
-    for label in ("G=4", "G=8192"):
+    # K1 group on one round-slice, both group shapes of the main path and
+    # the one-group table
+    for label in ("G=4", "G=8192", "G=1"):
         gla, vals, w, gids, cs, cq, cm = group_inputs[label]
-        G = gla.fused.num_groups
+        G = cm.shape[-1]
         N = w.numel()
         src = stacked(vals, w)
         idx = (gids.long() + torch.arange(P, device=dev)[:, None, None] * G).reshape(-1)
@@ -696,16 +741,20 @@ def run(work: Path) -> None:
         ms = median_ms(lambda: FK.group_round_step(vals, w, gids, cs, cq, cm), 10)
         plain = median_ms(lambda: ref.group_round_step(vals, w, gids, cs, cq, cm), 3)
         lib = median_ms(lambda: acc.index_add_(0, idx, src), 10)
-        withc = median_ms(lambda: FK.fused_round_step(gla, st, sl), 5)
+        withc = (None if label == "G=1"  # no GLA has this table: kernel alone
+                 else f"{median_ms(lambda: FK.fused_round_step(gla, st, sl), 5):.6f}")
         nbytes = 4 * (vals.numel() + 2 * N + 2 * (cs.numel() + cq.numel() + cm.numel()))
+        pr14 = PR14_MS.get(f"fused_round_step/group[{label}]")
+        ph = phases(lambda: FK.group_round_step(vals, w, gids, cs, cq, cm),
+                    tiles(per, [(vals.shape[-1], G)]))
         if label == "G=8192":
             record("fused_round_step/group", K1, ms, plain, nbytes, 17 * N, lib,
-                   {"shape": label, "with_closures_ms": f"{withc:.6f}"})
+                   {"shape": label, "with_closures_ms": withc, "pr14_ms": pr14, **ph})
         else:
             b, by = bound(nbytes, 17 * N)
             say("time", kernel=f"fused_round_step/group[{label}]", ms=f"{ms:.6f}",
                 plain_ms=f"{plain:.6f}", bound_ms=f"{b:.6f}", bound_by=by,
-                library_ms=lib, with_closures_ms=f"{withc:.6f}")
+                library_ms=lib, with_closures_ms=withc, pr14_ms=pr14, **ph)
         del src, idx, acc
 
     # K2 on the whole shard
@@ -754,7 +803,10 @@ def run(work: Path) -> None:
                 median_ms(lambda: ref.group_agg(v, w, gi, G, L), 2),
                 4 * (v.numel() + 2 * N + P * G * (2 * A + 1)), (4 * A + 1) * N,
                 median_ms(lib, 5), {"with_closures_ms": f"{median_ms(withc, 2):.6f}",
-                                    "groups": G})
+                                    "groups": G, "pr14_ms": PR14_MS[f"group_agg[{label}]"],
+                                    **phases(lambda: ops.group_agg(v, w, gi, num_groups=G,
+                                                                   block_rows=L),
+                                             tiles(w.shape[1] // L, [(A, G)]))})
         del lib
         if label == "Q3":
             record("group_agg", *args[1:])
@@ -784,7 +836,10 @@ def run(work: Path) -> None:
            median_ms(lambda: FK.bundle_round_step(bundle_args), 10),
            median_ms(lambda: ref.bundle_round_step(bundle_args), 2),
            nbytes, flops, lib_ms,
-           {"members": len(bundle_args),
+           {"members": len(bundle_args), "pr14_ms": PR14_MS["fused_round_step/bundle"],
+            **phases(lambda: FK.bundle_round_step(bundle_args),
+                     tiles(per, [(m[0].shape[-1], m[5].shape[-1])
+                                 for m in bundle_args if m[2] is not None])),
             "with_closures_ms": f"{median_ms(lambda: FK.fused_round_step(bf, stb, sl), 5):.6f}"})
 
     # K1's decode stage on one encoded round-slice (all five encoded columns,

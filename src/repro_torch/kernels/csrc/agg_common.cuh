@@ -1,11 +1,111 @@
 // Device code shared by the port's aggregate kernels (fused_agg.cu,
-// group_agg.cu, chunk_agg.cu): fixed-order block sums, the chunk sort and
-// the run walk of the group step.  Every sum has one fixed order — a fixed
-// shuffle tree within a block, and in the group step exactly one writer
-// per (group, column) per chunk — so two runs on the same inputs give
-// bitwise-equal outputs.  Products and sums use __fmul_rn/__fadd_rn so that
-// no multiply-add is contracted into an FMA: the plain PyTorch versions
-// round the product before the add.
+// group_agg.cu, chunk_agg.cu): fixed-order block sums, and the group step.
+// Every sum has one fixed order, so two runs on the same inputs give
+// bitwise-equal outputs; no atomics are used, on floats or otherwise.
+// Products and sums use __fmul_rn/__fadd_rn so that no multiply-add is
+// contracted into an FMA: the plain PyTorch versions round the product
+// before the add.
+//
+// The group step
+// --------------
+// Replaces the scatter of the Pallas kernels K1 (fused_round_step, group
+// and bundle modes; src/repro/kernels/fused_agg.py, pallas_call at l.363)
+// and K3 (group_agg_kernel, src/repro/kernels/group_agg.py:61, pallas_call
+// at l.76).  Launched by pf_group and pf_bundle (fused_agg.cu) and by
+// pf_group_agg (group_agg.cu), all through run_group_step below.  For one
+// partition p of vals [P, C, L, A], w and gids [P, C, L] and the carries
+// [P, G, A], [P, G, A], [P, G] (zero where in_* is null):
+//
+//   per chunk c and group g in [0, G): S = sum v*w, Q = sum v*(v*w),
+//   M = sum w over the chunk's rows whose id is g, each from zero; ids
+//   outside [0, G) drop out; each chunk's (S, Q, M) is added onto the
+//   carry once, in chunk order, as the reference's fused_round_step adds
+//   segment_sum results to its state (fused_agg.py:357-360).  K3 is the
+//   same step from a zero carry, with block_rows rows as a chunk.
+//
+// Two phases, each a grid of its own, over tiles of chunks (below):
+//
+// Phase 1, chunk-parallel partials (group_partials_kernel): one block of
+// kStepThreads threads per (member, partition, chunk).  It stages the
+// chunk's ids (clamped: G for an id outside [0, G)), w and a tile of the
+// value columns in shared memory with coalesced loads (16 bytes a thread
+// where aligned), then sorts the row indices ONCE for all 2A+1 sums: a
+// stable LSD radix sort with two bits per pass over the bit width of G
+// (2 passes for 4 groups, 7 for 2^13 buckets, 1 for one group), each
+// pass's ranks from a block-wide scan of four per-thread digit counters
+// packed into 64 bits.  Valid rows end up first, grouped into runs of
+// equal ids in row order.  Every run is then reduced by the whole block
+// (seg_scan, kSegSums of the 2A+1 sums per pass): thread t owns KI
+// consecutive sorted positions [t*KI, t*KI+KI) (KI = the power of two at
+// least ceil(L / kStepThreads)).
+//
+//   Summation order within a run of one chunk, fixed by L alone: each
+//   thread folds its positions of the run left to right; those thread
+//   partials are combined by a segmented Hillis-Steele scan across the
+//   lanes of a warp (shuffle distances 1, 2, 4, 8, 16, the earlier partial
+//   always on the left); a run that spans warps gets the partial of the
+//   warps before it (the same scan over the warp totals) added on the
+//   left of its warp's partial.  This within-run order is the only
+//   association the step chooses: each chunk total still reaches the
+//   carry once, in chunk order, as in the reference.  The plain versions
+//   (kernels/ref.py) sum a run with index_add_ in another order, so the
+//   card check holds the sums to SUM_RTOL and the counters (sums of 0/1
+//   weights, exact in any order) bit for bit.
+//
+// Each chunk writes a compacted table to the scratch: its runs' ids in
+// ascending order, (S[A] | Q[A] | M) per run, and the offsets off[w] =
+// number of runs with id < 32*w for the W + 1 windows of 32 ids.  A table
+// holds at most E = min(L, G) entries.
+//
+// Phase 2, the ordered fold (group_fold_kernel): one warp per (member,
+// partition, window of 32 ids, group of columns of the 2A+1); lane j owns
+// carry elements (p, 32*w + j, k) of its columns in registers and walks
+// the tile's chunks in order, taking chunk c's entries of its window
+// (off[w] to off[w+1], at most 32 distinct ids) with one coalesced load
+// per column and a shuffle that hands each lane its id's value.  One
+// writer per element, the chunks added in chunk order; an id absent from
+// a chunk is skipped.  A warp loads the entries of U chunks at once, and
+// the offsets of the next U while it adds them.  The shape follows the
+// input: with many (partition, window, column) triples (2^13 buckets) a
+// warp takes 9 columns and U = 8, so that the ids and offsets are read
+// once for all of them and every warp stays resident; with few (a handful
+// of groups) a warp takes 1 column and U = 32, so that the few warps keep
+// more loads in flight.  Neither changes the order of any sum.
+//
+// Scratch and tiles: the wrapper allocates the scratch with torch.empty
+// (a table of `words` floats per chunk and member, words passed with the
+// scratch and checked against group_step_words) for at most Ct chunks of
+// every partition, Ct chosen so that the scratch does not exceed the
+// round-slice's own input bytes; run_group_step runs both phases once per
+// tile of Ct chunks, each tile's fold starting from the previous tile's
+// output.  Tiling changes no arithmetic.
+//
+// Bundles and stacks: a bundle's group members are the grid's y index of
+// both phases (the member table is a __grid_constant__ parameter), and a
+// member's arithmetic depends only on its own rows, A, G and L, so it
+// equals its solo launch bit for bit.  In a K3 stack each member's rows
+// are whole chunks of their own with offset ids: the same rows sort into
+// the same positions and a chunk of another member holds none of its ids,
+// so each member also equals its solo launch.
+//
+// What bounds it on an H100: bytes.  Per row it reads 4(A+2) bytes and
+// does about 5A+1 float operations; the scratch adds a write and a read
+// of at most the input's size (168 bytes per chunk of 2048 rows for 4
+// groups and 4 aggregates, 82,948 for 2^13 buckets, against 49,152 bytes
+// of input: those take two tiles).
+//
+// Choices made for simplicity, each measured in PERF.md: one block per
+// chunk rather than a persistent grid that prefetches its next chunk with
+// cp.async or TMA (a chunk's loads overlap the other resident blocks'
+// work instead); one compacted table layout for every G, also where G <= L
+// would allow a dense one (absent ids are skipped, not added as zeros);
+// the window offsets that phase 1 writes take the place of a binary
+// search in phase 2.
+//
+// Tensor cores are not used: the TPU's one-hot matrix-unit variant
+// (use_mxu) is called only statistically interchangeable by the
+// reference itself, and wgmma takes float32 only as TF32, which keeps
+// about 3 decimal digits and would fail SUM_RTOL = 1e-5.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -15,13 +115,12 @@ namespace pfola {
 
 constexpr int kScalarThreads = 256;
 constexpr int kFoldThreads = 128;
-constexpr int kGroupThreads = 1024;
-constexpr unsigned long long kNoKey = ~0ull;
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
-    x = __fadd_rn(x, __shfl_down_sync(0xffffffffu, x, o));
+    x = __fadd_rn(x, __shfl_down_sync(kFull, x, o));
   return x;
 }
 
@@ -38,102 +137,547 @@ __device__ __forceinline__ float block_sum(float x, float* smem) {
   return x;
 }
 
-// Ascending bitonic sort of n (a power of two) keys in shared memory.
-__device__ __forceinline__ void bitonic_sort(unsigned long long* keys, int n) {
-  for (int k = 2; k <= n; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        const int ixj = i ^ j;
-        if (ixj > i) {
-          const unsigned long long x = keys[i], y = keys[ixj];
-          if ((x > y) == ((i & k) == 0)) {
-            keys[i] = y;
-            keys[ixj] = x;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
+// -- the group step ----------------------------------------------------------
+
+constexpr int kStepThreads = 512;   // phase 1 block
+constexpr int kMaxStepRows = 4096;  // L limit (_runtime.MAX_GROUP_ROWS)
+constexpr int kStepValFloats = 16384;  // 64 KB of staged value columns
+constexpr int kSegSums = 5;         // sums per segmented-scan pass
+constexpr int kFoldWarps = 8;       // phase 2 block: 8 warps
+constexpr int kFoldWide = 4096;     // (p, window, column) triples past which
+                                    // one phase 2 warp takes 9 columns
+constexpr int kMaxMembers = 16;     // group members in one launch
+
+// One member of a group-step launch.  The carries in_* may be null (zero).
+struct GroupMember {
+  const float* vals;
+  const float* w;
+  const int* gids;
+  const float* in_s;
+  const float* in_q;
+  const float* in_m;
+  float* out_s;
+  float* out_q;
+  float* out_m;
+  float* scratch;  // P * min(Ct, C) chunk tables of `words` floats each
+  int A;
+  int G;
+  long long words;  // at least group_step_words(L, A, G), else refused
+};
+
+struct GroupSet {
+  GroupMember m[kMaxMembers];
+  int n;
+};
+
+__host__ __device__ __forceinline__ int step_entries(int L, int G) {
+  return L < G ? L : G;
+}
+__host__ __device__ __forceinline__ int step_windows(int G) {
+  return (G + 31) / 32;
+}
+// Scratch words of one chunk's table: W + 1 offsets, E ids, E * (2A+1) sums
+// (the least GroupMember::words run_group_step accepts).
+__host__ __device__ __forceinline__ long long group_step_words(int L, int A,
+                                                               int G) {
+  const long long E = step_entries(L, G);
+  return step_windows(G) + 1 + E * (2LL * A + 2);
+}
+// Value columns staged in shared memory at once.
+__host__ __device__ __forceinline__ int step_val_cols(int L, int A) {
+  const int t = kStepValFloats / L;
+  return t < 1 ? 1 : (t < A ? t : A);
 }
 
-// The group step of one block: it owns column a of partition p's tables
-// (a == A is the matched column) and walks the C chunks of L rows in order.
-// The tables start from in_* (zero where in_* is null).  Per chunk it sorts
-// the keys (gid << 32 | row) in shared memory — a stable sort by gid — and
-// one thread per run of equal gids sums that run's rows in row order from
-// zero and adds the total to the table once, as the reference adds each
-// chunk's segment sums to its state: rows added straight onto a large total
-// would round at its ulp.  Ids outside [0, G) drop out.  The tables stay in
-// global memory (2**13 buckets x 4 aggregates x 2 + matched is 288 KiB,
-// more than a block's 227 KB of shared memory), where each element has
-// exactly one writer.  keys holds Lp (L rounded up to a power of two)
-// entries; layouts: vals [P, C, L, A], w and gids [P, C, L], tables
-// [P, G, A] and [P, G].
-__device__ __forceinline__ void group_step(
-    const float* __restrict__ vals, const float* __restrict__ w,
-    const int* __restrict__ gids, const float* __restrict__ in_s,
-    const float* __restrict__ in_q, const float* __restrict__ in_m,
-    float* __restrict__ out_s, float* __restrict__ out_q,
-    float* __restrict__ out_m, int p, int a, int C, int L, int Lp, int A,
-    int G, unsigned long long* keys) {
-  const bool matched = (a == A);
-  const long long row0 = (long long)p * G;
-  for (int g = threadIdx.x; g < G; g += blockDim.x) {
-    if (matched) {
-      out_m[row0 + g] = in_m ? in_m[row0 + g] : 0.f;
-    } else {
-      const long long o = (row0 + g) * A + a;
-      out_s[o] = in_s ? in_s[o] : 0.f;
-      out_q[o] = in_q ? in_q[o] : 0.f;
-    }
+// Block-wide exclusive scan of one value per thread (int, or four 16-bit
+// counters packed into an unsigned long long); *total gets the sum.  sbuf
+// holds 32 values.  Begins with a barrier, so consecutive calls may reuse
+// sbuf.
+template <typename T>
+__device__ __forceinline__ T block_scan_excl(T x, T* sbuf, T* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  T inc = x;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const T y = __shfl_up_sync(kFull, inc, o);
+    if (lane >= o) inc += y;
   }
   __syncthreads();
-  for (int c = 0; c < C; ++c) {
-    const long long base = ((long long)p * C + c) * L;
-    for (int i = threadIdx.x; i < Lp; i += blockDim.x) {
-      unsigned long long key = kNoKey;
-      if (i < L) {
-        const int g = gids[base + i];
-        if (g >= 0 && g < G)
-          key = ((unsigned long long)(unsigned)g << 32) | (unsigned)i;
-      }
-      keys[i] = key;
+  if (lane == 31) sbuf[warp] = inc;
+  __syncthreads();
+  const T wv = lane < nw ? sbuf[lane] : T(0);
+  T winc = wv;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const T y = __shfl_up_sync(kFull, winc, o);
+    if (lane >= o) winc += y;
+  }
+  *total = __shfl_sync(kFull, winc, nw - 1);
+  return __shfl_sync(kFull, winc - wv, warp) + inc - x;
+}
+
+// Segmented inclusive scan, block-wide, of the NQ sums x[i][*] at sorted
+// positions t*KI + i (each sum on its own, all in the same order); a
+// position whose bit in `head` is set starts a new segment.  On return
+// x[i] holds the segment's running sums at that position (its totals at
+// the segment's last position), in the order the header states.  sf holds
+// 32 * NQ floats, sh 32 ints.
+template <int KI, int NQ>
+__device__ __forceinline__ void seg_scan(float (&x)[KI][NQ], unsigned head,
+                                         float* sf, int* sh) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  // each thread: a left fold over its positions
+#pragma unroll
+  for (int i = 1; i < KI; ++i)
+    if (!((head >> i) & 1))
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) x[i][q] = __fadd_rn(x[i - 1][q], x[i][q]);
+  // the lanes of a warp: Hillis-Steele over (has a head, trailing partial)
+  float a[NQ];
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) a[q] = x[KI - 1][q];
+  int f = head != 0;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int uf = __shfl_up_sync(kFull, f, o);
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      const float u = __shfl_up_sync(kFull, a[q], o);
+      if (lane >= o && !f) a[q] = __fadd_rn(u, a[q]);
     }
-    __syncthreads();
-    bitonic_sort(keys, Lp);
-    for (int i = threadIdx.x; i < Lp; i += blockDim.x) {
-      const unsigned long long key = keys[i];
-      if (key == kNoKey) continue;
-      const unsigned g = (unsigned)(key >> 32);
-      if (i > 0 && (unsigned)(keys[i - 1] >> 32) == g) continue;  // not a run start
-      if (matched) {
-        float acc = 0.f;
-        for (int j = i; j < Lp && (unsigned)(keys[j] >> 32) == g; ++j)
-          acc = __fadd_rn(acc, w[base + (unsigned)keys[j]]);
-        out_m[row0 + g] = __fadd_rn(out_m[row0 + g], acc);
-      } else {
-        const long long o = (row0 + g) * A + a;
-        float s = 0.f, q = 0.f;
-        for (int j = i; j < Lp && (unsigned)(keys[j] >> 32) == g; ++j) {
-          const long long r = base + (unsigned)keys[j];
-          const float v = vals[r * A + a];
-          const float vw = __fmul_rn(v, w[r]);
-          s = __fadd_rn(s, vw);
-          q = __fadd_rn(q, __fmul_rn(v, vw));
-        }
-        out_s[o] = __fadd_rn(out_s[o], s);
-        out_q[o] = __fadd_rn(out_q[o], q);
-      }
+    if (lane >= o) f |= uf;
+  }
+  // the warps of the block: the same scan over the warp totals
+  __syncthreads();
+  if (lane == 31) {
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) sf[warp * NQ + q] = a[q];
+    sh[warp] = f;
+  }
+  __syncthreads();
+  float wa[NQ];
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) wa[q] = lane < nw ? sf[lane * NQ + q] : 0.f;
+  int wf = lane < nw ? sh[lane] : 1;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int uf = __shfl_up_sync(kFull, wf, o);
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      const float u = __shfl_up_sync(kFull, wa[q], o);
+      if (lane >= o && !wf) wa[q] = __fadd_rn(u, wa[q]);
     }
-    __syncthreads();  // table writes visible, keys free for the next chunk
+    if (lane >= o) wf |= uf;
+  }
+  // this thread's carry-in: the running sum just before its first position
+  const int src = warp > 0 ? warp - 1 : 0;
+  const int ef = __shfl_up_sync(kFull, f, 1);
+  float carry[NQ];
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    carry[q] = __shfl_sync(kFull, wa[q], src);
+    const float e = __shfl_up_sync(kFull, a[q], 1);
+    if (lane > 0) carry[q] = ef ? e : __fadd_rn(carry[q], e);
+  }
+  if (warp == 0 && lane == 0) return;  // position 0 always starts a segment
+#pragma unroll
+  for (int i = 0; i < KI; ++i) {
+    if ((head >> i) & 1) break;
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) x[i][q] = __fadd_rn(carry[q], x[i][q]);
   }
 }
 
-inline int pow2_at_least(int n) {
-  int p = 1;
-  while (p < n) p <<= 1;
-  return p;
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// Phase 1 for one chunk: sort, reduce every run, write the chunk's table.
+// slot is the chunk's table index within the tile, row0 its first row.
+template <int KI>
+__device__ void group_partials(const GroupMember& m, long long row0,
+                               long long slot, int L, char* smem) {
+  const int A = m.A, G = m.G;
+  const int E = step_entries(L, G), W = step_windows(G);
+  const int AT = step_val_cols(L, A);
+  float* sf = reinterpret_cast<float*>(smem);      // 32 * kSegSums floats
+  unsigned long long* s64 = reinterpret_cast<unsigned long long*>(smem);
+  int* sh = reinterpret_cast<int*>(smem + 768);    // 32 ints
+  int* last = sh + 32;                             // the last run's id
+  int* key = reinterpret_cast<int*>(smem + 1024);  // [L]
+  float* ws = reinterpret_cast<float*>(key + L);   // [L]
+  float* vs = ws + L;                              // [L, AT | 1]
+  const int VS = AT | 1;  // odd row stride: permuted rows spread over banks
+  unsigned short* pa = reinterpret_cast<unsigned short*>(vs + (long long)L * VS);
+  unsigned short* pb = pa + L;                     // [L] each
+  float* stg = reinterpret_cast<float*>(pb + L);   // [kSegSums, L]
+
+  float* tab = m.scratch + slot * m.words;
+  int* off = reinterpret_cast<int*>(tab);          // [W + 1]
+  int* ids = off + W + 1;                          // [E]
+  float* sums = tab + W + 1 + E;                   // [2A+1, E]
+
+  const int* gid = m.gids + row0;
+  const float* wr = m.w + row0;
+  const float* vr = m.vals + row0 * A;
+  if ((L & 3) == 0 && aligned16(gid) && aligned16(wr)) {
+    for (int i = threadIdx.x; i < L / 4; i += blockDim.x) {
+      const int4 g = reinterpret_cast<const int4*>(gid)[i];
+      reinterpret_cast<int4*>(key)[i] = make_int4(
+          (g.x >= 0 && g.x < G) ? g.x : G, (g.y >= 0 && g.y < G) ? g.y : G,
+          (g.z >= 0 && g.z < G) ? g.z : G, (g.w >= 0 && g.w < G) ? g.w : G);
+      reinterpret_cast<float4*>(ws)[i] = reinterpret_cast<const float4*>(wr)[i];
+    }
+  } else {
+    for (int i = threadIdx.x; i < L; i += blockDim.x) {
+      const int g = gid[i];
+      key[i] = (g >= 0 && g < G) ? g : G;
+      ws[i] = wr[i];
+    }
+  }
+  for (int i = threadIdx.x; i < L; i += blockDim.x) pa[i] = (unsigned short)i;
+
+  // stable LSD radix sort of the row indices by key, two bits per pass:
+  // four counters per thread, packed 16 bits each, scanned block-wide
+  const int base = threadIdx.x * KI;
+  const int bits = 32 - __clz(G);
+  for (int b = 0; b < bits; b += 2) {
+    __syncthreads();  // the previous pass's (or the load's) writes are done
+    unsigned short r[KI];
+    unsigned dig = 0;
+    unsigned long long cnt = 0;
+#pragma unroll
+    for (int i = 0; i < KI; ++i) {
+      r[i] = 0;
+      if (base + i < L) {
+        r[i] = pa[base + i];
+        const unsigned d = (key[r[i]] >> b) & 3;
+        dig |= d << (2 * i);
+        cnt += 1ull << (16 * d);
+      }
+    }
+    unsigned long long tot;
+    unsigned long long ex = block_scan_excl(cnt, s64, &tot);
+    const int t0 = (int)(tot & 0xffff), t1 = (int)((tot >> 16) & 0xffff);
+    const int t2 = (int)((tot >> 32) & 0xffff);
+    const int start[4] = {0, t0, t0 + t1, t0 + t1 + t2};
+#pragma unroll
+    for (int i = 0; i < KI; ++i) {
+      if (base + i < L) {
+        const unsigned d = (dig >> (2 * i)) & 3;
+        pb[start[d] + (int)((ex >> (16 * d)) & 0xffff)] = r[i];
+        ex += 1ull << (16 * d);
+      }
+    }
+    unsigned short* t = pa;
+    pa = pb;
+    pb = t;
+  }
+  __syncthreads();
+
+  // runs: heads, ends, the run index of every position
+  int k_[KI];
+  unsigned head = 0, end = 0;
+  int heads = 0;
+#pragma unroll
+  for (int i = 0; i < KI; ++i) {
+    const int j = base + i;
+    const int kj = j < L ? key[pa[j]] : G;
+    k_[i] = kj;
+    if (kj < G) {
+      if (j == 0 || key[pa[j - 1]] != kj) {
+        head |= 1u << i;
+        ++heads;
+      }
+      if (j + 1 == L || key[pa[j + 1]] != kj) end |= 1u << i;
+    } else {
+      head |= 1u << i;  // past the valid rows: a segment of its own
+    }
+  }
+  int runs;
+  int e = block_scan_excl(heads, sh, &runs) - 1;
+  int rank[KI];
+#pragma unroll
+  for (int i = 0; i < KI; ++i) {
+    if (k_[i] < G && ((head >> i) & 1)) {
+      ++e;
+      ids[e] = k_[i];
+      // the windows whose first id lies in (previous id, this id]
+      const int wlo = e == 0 ? 0 : (key[pa[base + i - 1]] >> 5) + 1;
+      for (int w = wlo; w <= (k_[i] >> 5); ++w) off[w] = e;
+    }
+    rank[i] = e;
+    if (k_[i] < G && ((end >> i) & 1) && e == runs - 1) *last = k_[i];
+  }
+  __syncthreads();
+  {  // the windows past the last run
+    const int wlo = runs == 0 ? 0 : (*last >> 5) + 1;
+    for (int w = wlo + threadIdx.x; w <= W; w += blockDim.x) off[w] = runs;
+  }
+
+  // every run reduced by the block, four sums per pass, in the order
+  // (S[a], Q[a]) for the staged value columns, then M
+  for (int a0 = 0; a0 < A; a0 += AT) {
+    const int at = A - a0 < AT ? A - a0 : AT;
+    __syncthreads();  // the previous tile's readers are done with vs
+    if (at == A && ((L * A) & 3) == 0 && aligned16(vr)) {
+      for (int i = threadIdx.x; i < L * A / 4; i += blockDim.x) {
+        const float4 v = reinterpret_cast<const float4*>(vr)[i];
+        const float c[4] = {v.x, v.y, v.z, v.w};
+        int r = 4 * i / A, a = 4 * i - r * A;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          vs[r * VS + a] = c[u];
+          if (++a == A) a = 0, ++r;
+        }
+      }
+    } else {
+      for (int i = threadIdx.x; i < L * at; i += blockDim.x)
+        vs[(i / at) * VS + i % at] = vr[(long long)(i / at) * A + a0 + i % at];
+    }
+    __syncthreads();
+    const int nq = 2 * at + (a0 + at == A);  // M with the last tile
+    for (int q0 = 0; q0 < nq; q0 += kSegSums) {
+      float x[KI][kSegSums];
+#pragma unroll
+      for (int i = 0; i < KI; ++i) {
+        const int r = pa[base + i < L ? base + i : 0];
+#pragma unroll
+        for (int u = 0; u < kSegSums; ++u) {
+          const int q = q0 + u;
+          float c = 0.f;
+          if (k_[i] < G) {
+            if (q == 2 * at) {
+              c = ws[r];
+            } else if (q < 2 * at) {
+              const float v = vs[r * VS + (q >> 1)];
+              const float vw = __fmul_rn(v, ws[r]);
+              c = (q & 1) ? __fmul_rn(v, vw) : vw;
+            }
+          }
+          x[i][u] = c;
+        }
+      }
+      seg_scan<KI, kSegSums>(x, head, sf, sh);
+      // the run totals, staged by run index, then written out coalesced
+#pragma unroll
+      for (int i = 0; i < KI; ++i) {
+        if (!((end >> i) & 1)) continue;
+#pragma unroll
+        for (int u = 0; u < kSegSums; ++u) stg[u * L + rank[i]] = x[i][u];
+      }
+      __syncthreads();
+      const int nu = nq - q0 < kSegSums ? nq - q0 : kSegSums;
+      for (int t = threadIdx.x; t < nu * runs; t += blockDim.x) {
+        const int u = t / runs, e = t - u * runs, q = q0 + u;
+        const int k = q == 2 * at ? 2 * A : (q & 1) ? A + a0 + (q >> 1) : a0 + (q >> 1);
+        sums[(long long)k * E + e] = stg[u * L + e];
+      }
+    }
+  }
+}
+
+// Phase 1 grid: blockIdx.x = p * ct + (chunk - c0), blockIdx.y = member.
+template <int KI>
+__global__ void __launch_bounds__(kStepThreads, KI <= 4 ? 2 : 1)
+group_partials_kernel(const __grid_constant__ GroupSet set, int C, int c0,
+                      int ct, int L) {
+  extern __shared__ __align__(16) char step_smem[];
+  const GroupMember& m = set.m[blockIdx.y];
+  const int p = blockIdx.x / ct, c = c0 + blockIdx.x % ct;
+  group_partials<KI>(m, ((long long)p * C + c) * L, blockIdx.x, L, step_smem);
+}
+
+// Carry element (p, g, k) of a member: where the fold reads it (null: zero)
+// and writes it.
+__device__ __forceinline__ void carry_at(const GroupMember& m, int p, int g,
+                                         int k, bool first, const float** in,
+                                         float** out, long long* idx) {
+  const int A = m.A, G = m.G;
+  if (k < A) {
+    *in = m.in_s, *out = m.out_s, *idx = ((long long)p * G + g) * A + k;
+  } else if (k < 2 * A) {
+    *in = m.in_q, *out = m.out_q, *idx = ((long long)p * G + g) * A + k - A;
+  } else {
+    *in = m.in_m, *out = m.out_m, *idx = (long long)p * G + g;
+  }
+  if (!first) *in = *out;
+}
+
+// Phase 2 for one warp: carry elements (p, 32*w + lane, k) for the KG
+// columns k of group kg, over the tile's ct chunk tables in chunk order.
+// `first` reads the carry from in_* (zero when null), later tiles from
+// out_*.  The warp loads the entries of U chunks at once, and the offsets
+// of the next U chunks while it adds them.
+template <int U, int KG>
+__device__ void group_fold(const GroupMember& m, long long warp_id, int P,
+                           int ct, int L, bool first) {
+  const int A = m.A, G = m.G, K = 2 * A + 1, NKG = (K + KG - 1) / KG;
+  const int E = step_entries(L, G), W = step_windows(G);
+  if (warp_id >= (long long)P * W * NKG) return;
+  const int kg = (int)(warp_id % NKG);
+  const int w = (int)((warp_id / NKG) % W);
+  const int p = (int)(warp_id / ((long long)NKG * W));
+  const int lane = threadIdx.x & 31;
+  const int g = 32 * w + lane;
+  float acc[KG];
+#pragma unroll
+  for (int j = 0; j < KG; ++j) {
+    const int k = kg * KG + j;
+    const float* in;
+    float* out;
+    long long idx;
+    acc[j] = 0.f;
+    if (k < K && g < G) {
+      carry_at(m, p, g, k, first, &in, &out, &idx);
+      if (in) acc[j] = in[idx];
+    }
+  }
+  const long long words = m.words;
+  const float* tabs = m.scratch + (long long)p * ct * words;
+  const unsigned below = (1u << lane) - 1;
+  int o0 = 0, o1 = 0;
+  if (lane < U && lane < ct) {
+    const int* off = reinterpret_cast<const int*>(tabs + lane * words);
+    o0 = off[w];
+    o1 = off[w + 1];
+  }
+  for (int c0 = 0; c0 < ct; c0 += U) {
+    int n0 = 0, n1 = 0;  // the next group's offsets
+    if (lane < U && c0 + U + lane < ct) {
+      const int* off = reinterpret_cast<const int*>(tabs + (c0 + U + lane) * words);
+      n0 = off[w];
+      n1 = off[w + 1];
+    }
+    int id[U];
+    float v[U][KG];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int s = __shfl_sync(kFull, o0, u);
+      const int n = __shfl_sync(kFull, o1, u) - s;
+      id[u] = -1;
+#pragma unroll
+      for (int j = 0; j < KG; ++j) v[u][j] = 0.f;
+      if (lane < n) {
+        const float* tab = tabs + (c0 + u) * words + W + 1;
+        id[u] = reinterpret_cast<const int*>(tab)[s + lane];
+#pragma unroll
+        for (int j = 0; j < KG; ++j)
+          if (kg * KG + j < K) v[u][j] = tab[E + (long long)(kg * KG + j) * E + s + lane];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const unsigned mask =
+          __reduce_or_sync(kFull, id[u] >= 0 ? 1u << (id[u] - 32 * w) : 0u);
+      const int src = __popc(mask & below);
+      const bool mine = (mask >> lane) & 1;
+#pragma unroll
+      for (int j = 0; j < KG; ++j) {
+        const float x = __shfl_sync(kFull, v[u][j], src);
+        if (mine) acc[j] = __fadd_rn(acc[j], x);
+      }
+    }
+    o0 = n0;
+    o1 = n1;
+  }
+#pragma unroll
+  for (int j = 0; j < KG; ++j) {
+    const int k = kg * KG + j;
+    const float* in;
+    float* out;
+    long long idx;
+    if (k < K && g < G) {
+      carry_at(m, p, g, k, first, &in, &out, &idx);
+      out[idx] = acc[j];
+    }
+  }
+}
+
+// Phase 2 grid: blockIdx.x * kFoldWarps + warp, blockIdx.y = member.
+template <int U, int KG>
+__global__ void __launch_bounds__(kFoldWarps * 32)
+group_fold_kernel(const __grid_constant__ GroupSet set, int P, int ct, int L,
+                  int first) {
+  const long long warp_id =
+      (long long)blockIdx.x * kFoldWarps + (threadIdx.x >> 5);
+  group_fold<U, KG>(set.m[blockIdx.y], warp_id, P, ct, L, first != 0);
+}
+
+// Phase 1's shared memory: scan buffers, key and w [L], the value columns
+// [L, AT | 1], two index buffers [L] and the staged run totals
+// [kSegSums, L] (group_partials' layout).
+inline size_t step_smem_bytes(int L, int A_max) {
+  const size_t pairs = (size_t)2 * L * sizeof(unsigned short);
+  return 1024 + (size_t)L * 4 * (2 + (step_val_cols(L, A_max) | 1) + kSegSums) +
+         pairs;
+}
+
+template <int KI>
+inline int launch_partials(const GroupSet& set, int P, int C, int c0, int ct,
+                           int L, size_t smem, cudaStream_t s) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      group_partials_kernel<KI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  group_partials_kernel<KI><<<dim3((unsigned)(P * ct), set.n), kStepThreads,
+                              smem, s>>>(set, C, c0, ct, L);
+  return (int)cudaGetLastError();
+}
+
+// The group step of every member of `set` over the same [P, C, L] rows, in
+// tiles of Ct chunks: phase 1 then phase 2 per tile.  Each member's scratch
+// holds P * min(Ct, C) chunk tables of m.words floats; a member whose
+// m.words is below group_step_words(L, A, G) is refused before either phase,
+// so a wrapper that sizes the scratch from another formula fails loudly
+// instead of letting phase 1 write past the buffer.
+inline int run_group_step(const GroupSet& set, int P, int C, int L, int Ct,
+                          cudaStream_t s) {
+  if (set.n < 1 || set.n > kMaxMembers || L < 1 || L > kMaxStepRows ||
+      Ct < 1 || P < 1 || C < 0)
+    return (int)cudaErrorInvalidValue;
+  int A_max = 0;
+  long long cols = 0, wide_warps = 0;  // phase 2 warps at 1 and 9 columns
+  for (int i = 0; i < set.n; ++i) {
+    const GroupMember& m = set.m[i];
+    if (m.A < 1 || m.G < 1 || m.words < group_step_words(L, m.A, m.G))
+      return (int)cudaErrorInvalidValue;
+    A_max = m.A > A_max ? m.A : A_max;
+    const long long n = (long long)P * step_windows(m.G);
+    cols = n * (2 * m.A + 1) > cols ? n * (2 * m.A + 1) : cols;
+    wide_warps = n * ((2 * m.A + 9) / 9) > wide_warps ? n * ((2 * m.A + 9) / 9)
+                                                      : wide_warps;
+  }
+  // many (p, window, column) triples: a warp takes 9 columns and overlaps
+  // the loads of 8 chunks; few: a warp takes 1 column and 32 chunks
+  const bool wide = cols >= kFoldWide;
+  const long long warps = wide ? wide_warps : cols;
+  const size_t smem = step_smem_bytes(L, A_max);
+  const int ki = (L + kStepThreads - 1) / kStepThreads;
+  const dim3 fold_grid((unsigned)((warps + kFoldWarps - 1) / kFoldWarps), set.n);
+  int c0 = 0;
+  do {
+    const int ct = C - c0 < Ct ? C - c0 : Ct;
+    if (ct > 0) {
+      const int e = ki <= 1   ? launch_partials<1>(set, P, C, c0, ct, L, smem, s)
+                    : ki <= 2 ? launch_partials<2>(set, P, C, c0, ct, L, smem, s)
+                    : ki <= 4 ? launch_partials<4>(set, P, C, c0, ct, L, smem, s)
+                              : launch_partials<8>(set, P, C, c0, ct, L, smem, s);
+      if (e != 0) return e;
+    }
+    if (wide)
+      group_fold_kernel<8, 9><<<fold_grid, kFoldWarps * 32, 0, s>>>(
+          set, P, ct, L, c0 == 0);
+    else
+      group_fold_kernel<32, 1><<<fold_grid, kFoldWarps * 32, 0, s>>>(
+          set, P, ct, L, c0 == 0);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    c0 += ct;
+  } while (c0 < C);
+  return 0;
 }
 
 }  // namespace pfola

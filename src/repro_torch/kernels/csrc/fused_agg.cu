@@ -20,10 +20,19 @@
 // against 67 TFLOP/s (f32, no tensor cores) that is memory-bound by two
 // orders of magnitude.
 //
+// The group modes (pf_group, and the group members of pf_bundle) run the
+// group step of agg_common.cuh, whose header states its design: per chunk
+// one block sorts the rows by id once (a stable radix sort in shared
+// memory) and reduces every run of equal ids with the whole block in a
+// fixed shuffle order; a second grid then adds the chunks' compacted tables
+// onto the carry in chunk order, one warp per 32 ids and column, one writer
+// per element.  Within one run of one chunk the rows are summed in that
+// fixed tree order; the chunk totals reach the carry once each, in chunk
+// order.
+//
 // Determinism: no atomics (agg_common.cuh).  A bundle member runs its solo
-// kernel's body with the solo block size and the solo (partition, chunk) or
-// (partition, column) mapping, so its result is bitwise-equal to its solo
-// launch.
+// kernel's body with the solo block size and the solo (partition, chunk)
+// mapping, so its result is bitwise-equal to its solo launch.
 #include "agg_common.cuh"
 
 namespace {
@@ -98,25 +107,11 @@ __global__ void scalar_fold_kernel(const float* __restrict__ part,
   scalar_fold(part, carry, out, prefix, t, C, K);
 }
 
-// Group step: block (p, a) owns column a of partition p's carry.
-__global__ void __launch_bounds__(kGroupThreads)
-group_step_kernel(const float* __restrict__ vals, const float* __restrict__ w,
-                  const int* __restrict__ gids, const float* __restrict__ in_s,
-                  const float* __restrict__ in_q,
-                  const float* __restrict__ in_m, float* __restrict__ out_s,
-                  float* __restrict__ out_q, float* __restrict__ out_m, int C,
-                  int L, int Lp, int A, int G) {
-  extern __shared__ unsigned long long keys[];
-  group_step(vals, w, gids, in_s, in_q, in_m, out_s, out_q, out_m,
-             blockIdx.x / (A + 1), blockIdx.x % (A + 1), C, L, Lp, A, G, keys);
-}
-
 // -- bundles ----------------------------------------------------------------
 // The member table travels as the kernels' parameter (__grid_constant__: it
 // stays in the parameter bank on the device, indexed by blockIdx.y).
 
-constexpr int kMaxMembers = 16;
-constexpr int kTableCols = 13;  // int64 slots per member in pf_bundle's table
+constexpr int kTableCols = 14;  // int64 slots per member in pf_bundle's table
 
 struct ScalarMember {
   const float* vals;
@@ -127,24 +122,9 @@ struct ScalarMember {
   int A;
 };
 
-struct GroupMember {
-  const float* vals;
-  const float* w;
-  const int* gids;
-  const float* in_s;
-  const float* in_q;
-  const float* in_m;
-  float* out_s;
-  float* out_q;
-  float* out_m;
-  int A;
-  int G;
-};
-
 struct Bundle {
   ScalarMember s[kMaxMembers];
-  GroupMember g[kMaxMembers];
-  int ns, ng;
+  int ns;
 };
 
 __global__ void __launch_bounds__(kScalarThreads)
@@ -161,19 +141,6 @@ __global__ void bundle_fold_kernel(const __grid_constant__ Bundle b, int P,
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= P * K) return;
   scalar_fold(m.part, m.carry, m.out, nullptr, t, C, K);
-}
-
-// blockIdx.x = p * (A_max + 1) + a; blocks past a member's own A + 1
-// columns have nothing to do.
-__global__ void __launch_bounds__(kGroupThreads)
-bundle_group_kernel(const __grid_constant__ Bundle b, int C, int L, int Lp,
-                    int A_max) {
-  extern __shared__ unsigned long long keys[];
-  const GroupMember& m = b.g[blockIdx.y];
-  const int p = blockIdx.x / (A_max + 1), a = blockIdx.x % (A_max + 1);
-  if (a > m.A) return;
-  group_step(m.vals, m.w, m.gids, m.in_s, m.in_q, m.in_m, m.out_s, m.out_q,
-             m.out_m, p, a, C, L, Lp, m.A, m.G, keys);
 }
 
 }  // namespace
@@ -200,31 +167,37 @@ int pf_scalar(const float* vals, const float* w, float* part,
   return (int)cudaGetLastError();
 }
 
-// K1 group: carries in (in_*) and out (out_*), [P, G, A] and [P, G].
+// K1 group: carries in (in_*) and out (out_*), [P, G, A] and [P, G];
+// scratch holds P * min(Ct, C) chunk tables of `words` floats, words at
+// least group_step_words(L, A, G) (agg_common.cuh, checked), and the step
+// runs in tiles of Ct chunks.
 int pf_group(const float* vals, const float* w, const int* gids,
              const float* in_s, const float* in_q, const float* in_m,
-             float* out_s, float* out_q, float* out_m, int P, int C, int L,
-             int A, int G, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int Lp = pow2_at_least(L);
-  const size_t smem = (size_t)Lp * sizeof(unsigned long long);
-  group_step_kernel<<<P * (A + 1), kGroupThreads, smem, s>>>(
-      vals, w, gids, in_s, in_q, in_m, out_s, out_q, out_m, C, L, Lp, A, G);
-  return (int)cudaGetLastError();
+             float* out_s, float* out_q, float* out_m, float* scratch, int P,
+             int C, int L, int A, int G, int Ct, int words, void* stream) {
+  GroupSet set = {};
+  set.m[0] = {vals, w, gids, in_s, in_q, in_m, out_s, out_q, out_m, scratch,
+              A, G, words};
+  set.n = 1;
+  return run_group_step(set, P, C, L, Ct, static_cast<cudaStream_t>(stream));
 }
 
 // K1 bundle: M members over the same [P, C, L] round-slice.  table is a
 // host array of M rows of kTableCols int64: kind (0 scalar, 1 group), A, G,
 // then the addresses vals, w, gids, in_s (scalar: carry), in_q, in_m,
-// out_s (scalar: out), out_q, out_m, part (scalar: [P, C, 2A+1] scratch).
-// One call launches the scalar members' partials, the group members' steps
-// and the scalar members' fold — three grids, however many members.
-int pf_bundle(const long long* table, int M, int P, int C, int L,
+// out_s (scalar: out), out_q, out_m, part (scalar: [P, C, 2A+1] partials;
+// group: the group step's scratch for tiles of Ct chunks, as pf_group's),
+// words (group: the scratch's floats per chunk table, as pf_group's).
+// One call launches the scalar members' partials, the group members' step
+// (both phases per tile, every group member in the same grids) and the
+// scalar members' fold, however many members.
+int pf_bundle(const long long* table, int M, int P, int C, int L, int Ct,
               void* stream) {
   if (M < 1 || M > kMaxMembers) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Bundle b = {};
-  int A_scalar = 0, A_group = 0;
+  GroupSet g = {};
+  int A_scalar = 0;
   for (int i = 0; i < M; ++i) {
     const long long* r = table + (long long)i * kTableCols;
     const int A = (int)r[1];
@@ -236,16 +209,16 @@ int pf_bundle(const long long* table, int M, int P, int C, int L,
            reinterpret_cast<float*>(r[9]), reinterpret_cast<float*>(r[12]), A};
       A_scalar = A > A_scalar ? A : A_scalar;
     } else {
-      GroupMember& m = b.g[b.ng++];
-      m = {reinterpret_cast<const float*>(r[3]),
-           reinterpret_cast<const float*>(r[4]),
-           reinterpret_cast<const int*>(r[5]),
-           reinterpret_cast<const float*>(r[6]),
-           reinterpret_cast<const float*>(r[7]),
-           reinterpret_cast<const float*>(r[8]),
-           reinterpret_cast<float*>(r[9]), reinterpret_cast<float*>(r[10]),
-           reinterpret_cast<float*>(r[11]), A, (int)r[2]};
-      A_group = A > A_group ? A : A_group;
+      g.m[g.n++] = {reinterpret_cast<const float*>(r[3]),
+                    reinterpret_cast<const float*>(r[4]),
+                    reinterpret_cast<const int*>(r[5]),
+                    reinterpret_cast<const float*>(r[6]),
+                    reinterpret_cast<const float*>(r[7]),
+                    reinterpret_cast<const float*>(r[8]),
+                    reinterpret_cast<float*>(r[9]),
+                    reinterpret_cast<float*>(r[10]),
+                    reinterpret_cast<float*>(r[11]),
+                    reinterpret_cast<float*>(r[12]), A, (int)r[2], r[13]};
     }
   }
   const long long blocks = (long long)P * C;
@@ -255,13 +228,9 @@ int pf_bundle(const long long* table, int M, int P, int C, int L,
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  if (b.ng > 0) {
-    const int Lp = pow2_at_least(L);
-    const size_t smem = (size_t)Lp * sizeof(unsigned long long);
-    bundle_group_kernel<<<dim3(P * (A_group + 1), b.ng), kGroupThreads, smem,
-                          s>>>(b, C, L, Lp, A_group);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
+  if (g.n > 0) {
+    const int e = run_group_step(g, P, C, L, Ct, s);
+    if (e != 0) return e;
   }
   if (b.ns > 0) {
     const int n = P * (2 * A_scalar + 1);

@@ -9,50 +9,45 @@
 //
 // The TPU turns the scatter into a one-hot matrix product on its matrix
 // unit, with the tables resident in VMEM across the sequential grid.  Here
-// the scatter stays a scatter: the group step of K1 (agg_common.cuh) from a
-// zero start, with each block of rows taking the place of a chunk — per
-// block a stable sort by gid, one thread per run of equal ids summing the
-// run in row order from zero and adding it to the table once.  One writer
-// per table element, no atomics: repeat runs are bitwise-equal, and a
-// bundle member's rows (whole blocks of their own) leave the other members'
-// table rows untouched, so each group member equals its solo launch bit for
-// bit.  No G->128 / A->8 padding: that is the TPU matrix unit's shape.
+// the scatter stays a scatter: the group step of K1 (agg_common.cuh, whose
+// header states the design) from a zero start, with each block of rows
+// taking the place of a chunk.  Phase 1 runs one thread block per block of
+// rows: a stable radix sort by id in shared memory, then every run of equal
+// ids reduced by the whole thread block in a fixed shuffle order (the
+// within-run order is stated in agg_common.cuh; a one-group table, such as
+// a scalar member of a bundle stack, is one run per block and takes the
+// same path).  Phase 2 adds the blocks' compacted tables to the totals in
+// block order, one warp per 32 ids and column, one writer per element.
+// No atomics: repeat runs are bitwise-equal, and a bundle member's rows
+// (whole blocks of their own, ids offset) sort and sum exactly as in its
+// own launch, while the other members' blocks hold none of its ids, so
+// each group member equals its solo launch bit for bit.  No G->128 / A->8
+// padding: that is the TPU matrix unit's shape.
 //
 // What bounds it on an H100: bytes — 4(A+2) bytes per row against about
-// 5A+1 float operations.  The serial run walk keeps it far above that
-// bound (a one-group table walks a whole block in one thread); speed is
-// later work.
+// 5A+1 float operations, plus a scratch table per block of rows (at most
+// min(block_rows, G) entries) written once and read once.
 #include "agg_common.cuh"
-
-namespace {
-
-using namespace pfola;
-
-__global__ void __launch_bounds__(kGroupThreads)
-group_agg_kernel(const float* __restrict__ vals, const float* __restrict__ w,
-                 const int* __restrict__ gids, float* __restrict__ sums,
-                 float* __restrict__ sumsqs, float* __restrict__ matched,
-                 int C, int L, int Lp, int A, int G) {
-  extern __shared__ unsigned long long keys[];
-  group_step(vals, w, gids, nullptr, nullptr, nullptr, sums, sumsqs, matched,
-             blockIdx.x / (A + 1), blockIdx.x % (A + 1), C, L, Lp, A, G, keys);
-}
-
-}  // namespace
 
 extern "C" {
 
 // vals [P, N, A], w and gids [P, N] (N a multiple of L = block_rows) ->
-// sums and sumsqs [P, G, A], matched [P, G], written from zero.
+// sums and sumsqs [P, G, A], matched [P, G], written from zero.  scratch
+// holds P * min(Ct, N / L) tables of `words` floats, one per block of rows,
+// words at least pfola::group_step_words(L, A, G) (checked); the step runs
+// in tiles of Ct blocks.
 int pf_group_agg(const float* vals, const float* w, const int* gids,
-                 float* sums, float* sumsqs, float* matched, int P, int N,
-                 int L, int A, int G, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int Lp = pow2_at_least(L);
-  const size_t smem = (size_t)Lp * sizeof(unsigned long long);
-  group_agg_kernel<<<P * (A + 1), kGroupThreads, smem, s>>>(
-      vals, w, gids, sums, sumsqs, matched, N / L, L, Lp, A, G);
-  return (int)cudaGetLastError();
+                 float* sums, float* sumsqs, float* matched, float* scratch,
+                 int P, int N, int L, int A, int G, int Ct, int words,
+                 void* stream) {
+  if (L < 1 || N % L) return (int)cudaErrorInvalidValue;
+  pfola::GroupSet set = {};
+  set.m[0] = {vals,   w,      gids,    nullptr, nullptr, nullptr,
+              sums,   sumsqs, matched, scratch, A,       G,
+              words};
+  set.n = 1;
+  return pfola::run_group_step(set, P, N / L, L, Ct,
+                               static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

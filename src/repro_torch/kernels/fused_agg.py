@@ -16,7 +16,11 @@ Two kernels carry the main path's device work (``csrc/fused_agg.cu``):
 The TPU kernels run the ``FusedSpec`` closures inside their body.  Here the
 closures stay PyTorch: :func:`project` evaluates them on the round-slice on
 the device and the CUDA kernels do the chunk-ordered, carry-in
-accumulation.  The partition axis is a batch axis of one launch.
+accumulation.  The partition axis is a batch axis of one launch.  The
+group modes run the group step of ``csrc/agg_common.cuh`` — per-chunk
+partials into a scratch that the wrapper allocates (``ops.group_step_*``),
+then an ordered fold onto the carry — in tiles of chunks; a call counts as
+one launch however many tiles and grids it takes.
 
 Encoded columns (``data/encodings.py``) arrive physical and K1's decode
 stage — the reference's ``_decode_chunk``, in the Pallas body — is a
@@ -45,7 +49,7 @@ import torch
 
 from repro_torch import estimators as E
 from repro_torch.data import encodings as ENC
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import _runtime as RT
 from repro_torch.kernels._runtime import (  # noqa: F401 — re-exported
     LAUNCHES,
@@ -54,7 +58,7 @@ from repro_torch.kernels._runtime import (  # noqa: F401 — re-exported
 )
 
 MAX_BUNDLE_MEMBERS = 16  # members in one pf_bundle launch (csrc kMaxMembers)
-_TABLE_COLS = 13  # int64 slots per member row of pf_bundle's table (csrc kTableCols)
+_TABLE_COLS = 14  # int64 slots per member row of pf_bundle's table (csrc kTableCols)
 
 #: The reference's routing rule (``repro/kernels/fused_agg.py:63``,
 #: ``PROBE_VMEM_BUDGET_BYTES``): a join whose probe tables exceed 4 MiB
@@ -70,7 +74,7 @@ _check, _route, _ptr = RT.check, RT.route, RT.ptr
 
 def _lib() -> ctypes.CDLL:
     return RT.bind(_build.load("fused_agg"), pf_scalar=(6, 4),
-                   pf_group=(9, 5), pf_bundle=(1, 4))
+                   pf_group=(10, 7), pf_bundle=(1, 5))
 
 
 def _scalar(vals, w, carry, prefix: bool):
@@ -140,10 +144,13 @@ def group_round_step(vals, w, gids, carry_s, carry_q, carry_m):
     G = carry_m.shape[-1]
     out_s, out_q = torch.empty_like(carry_s), torch.empty_like(carry_q)
     out_m = torch.empty_like(carry_m)
+    tile = ops.group_step_tile(C, L, [(A, G)])
+    scratch = ops.group_step_scratch(P, C, L, A, G, tile, dev)
     lib = _lib()
     RT.launch(lib, lib.pf_group, _ptr(vals), _ptr(w), _ptr(gids), _ptr(carry_s),
               _ptr(carry_q), _ptr(carry_m), _ptr(out_s), _ptr(out_q),
-              _ptr(out_m), P, C, L, A, G, device=dev,
+              _ptr(out_m), _ptr(scratch), P, C, L, A, G, tile,
+              ops.group_step_words(L, A, G), device=dev,
               count="fused_round_step/group")
     return out_s, out_q, out_m
 
@@ -185,25 +192,31 @@ def _bundle_launch(members, P, C, L, dev):
     """One ``pf_bundle`` launch over at most MAX_BUNDLE_MEMBERS members."""
     table = torch.zeros((len(members), _TABLE_COLS), dtype=torch.int64)
     outs = []
-    keep = []  # the partials scratch: the table holds only its address
+    keep = []  # the scratch: the table holds only its address
+    tile = ops.group_step_tile(C, L, [(m[0].shape[3], m[5].shape[-1])
+                                      for m in members if m[2] is not None])
     for i, m in enumerate(members):
         A = m[0].shape[3]
         if m[2] is None:  # kind 0: carry in, out and [P, C, 2A+1] partials
             out = torch.empty_like(m[3])
             part = torch.empty((P, C, 2 * A + 1), dtype=_F32, device=dev)
             ptrs = (m[0], m[1], None, m[3], None, None, out, None, None, part)
-            row = [0, A, 1]
+            row, words = [0, A, 1], 0
             outs.append(out)
             keep.append(part)
-        else:  # kind 1: group carries in and out
+        else:  # kind 1: group carries in and out, the group step's scratch
+            G = m[5].shape[-1]
             out = tuple(torch.empty_like(c) for c in m[3:])
-            ptrs = (m[0], m[1], m[2], *m[3:], *out, None)
-            row = [1, A, m[5].shape[-1]]
+            scratch = ops.group_step_scratch(P, C, L, A, G, tile, dev)
+            ptrs = (m[0], m[1], m[2], *m[3:], *out, scratch)
+            row, words = [1, A, G], ops.group_step_words(L, A, G)
             outs.append(out)
-        table[i] = torch.tensor(row + [0 if t is None else t.data_ptr() for t in ptrs])
+            keep.append(scratch)
+        table[i] = torch.tensor(row + [0 if t is None else t.data_ptr() for t in ptrs]
+                                + [words])
     lib = _lib()
     RT.launch(lib, lib.pf_bundle, ctypes.c_void_p(table.data_ptr()),
-              len(members), P, C, L, device=dev,
+              len(members), P, C, L, tile, device=dev,
               count="fused_round_step/bundle")
     return outs
 

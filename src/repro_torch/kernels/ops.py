@@ -23,9 +23,12 @@
 
 The reference pads G to 128 and A to 8 for the TPU's matrix unit and
 launches once per partition; here the shapes stay as they are and one
-launch covers every partition.  On CPU tensors the wrappers run the plain
-versions in ``kernels/ref.py``; on CUDA tensors they launch the kernel or
-raise (``kernels/_runtime.py``).
+call covers every partition.  K3 runs the group step of K1
+(``csrc/agg_common.cuh``): per-chunk partials into a scratch table, then
+an ordered fold, in tiles of chunks sized by :func:`group_step_tile`; one
+call counts as one launch however many tiles and grids it takes.  On CPU
+tensors the wrappers run the plain versions in ``kernels/ref.py``; on
+CUDA tensors they launch the kernel or raise (``kernels/_runtime.py``).
 """
 from __future__ import annotations
 
@@ -36,7 +39,34 @@ from repro_torch.kernels import _runtime as RT
 
 
 def _group_lib():
-    return RT.bind(_build.load("group_agg"), pf_group_agg=(6, 5))
+    return RT.bind(_build.load("group_agg"), pf_group_agg=(7, 7))
+
+
+def group_step_words(L: int, A: int, G: int) -> int:
+    """Scratch floats of one chunk's table in the group step: an offset per
+    window of 32 ids and one more, then ``min(L, G)`` ids and
+    ``(2A+1)·min(L, G)`` sums.  The wrappers pass it to the kernel as the
+    tables' stride, and the kernel refuses one below its own layout's size
+    (``csrc/agg_common.cuh`` ``group_step_words``) before either phase."""
+    return -(-G // 32) + 1 + min(L, G) * (2 * A + 2)
+
+
+def group_step_tile(C: int, L: int, members) -> int:
+    """Chunks per tile of the group step over ``C`` chunks of ``L`` rows for
+    ``members`` ((A, G) each): as many as keep the scratch
+    (:func:`group_step_words` per chunk and member) within the members' own
+    input bytes (vals, w and gids: ``L·(4A + 8)`` per chunk), at least 1 and
+    at most ``C`` (1 when there is no member)."""
+    inp = sum(L * (4 * A + 8) for A, _ in members)
+    scratch = sum(4 * group_step_words(L, A, G) for A, G in members)
+    return max(1, min(C, C * inp // scratch)) if members else 1
+
+
+def group_step_scratch(P: int, C: int, L: int, A: int, G: int, tile: int,
+                       device) -> torch.Tensor:
+    """One member's group-step scratch for tiles of ``tile`` chunks."""
+    n = P * min(tile, C) * group_step_words(L, A, G)
+    return torch.empty(n, dtype=RT.F32, device=device)
 
 
 def _chunk_lib():
@@ -77,10 +107,15 @@ def group_agg(vals: torch.Tensor, weight: torch.Tensor, gids: torch.Tensor, *,
     sums = torch.empty((P, num_groups, A), dtype=RT.F32, device=dev)
     sumsqs = torch.empty_like(sums)
     matched = torch.empty((P, num_groups), dtype=RT.F32, device=dev)
+    C = N // block_rows
+    tile = group_step_tile(C, block_rows, [(A, num_groups)])
+    scratch = group_step_scratch(P, C, block_rows, A, num_groups, tile, dev)
     lib = _group_lib()
     RT.launch(lib, lib.pf_group_agg, RT.ptr(vals), RT.ptr(weight), RT.ptr(gids),
-              RT.ptr(sums), RT.ptr(sumsqs), RT.ptr(matched), P, N, block_rows, A,
-              num_groups, device=dev, count="group_agg")
+              RT.ptr(sums), RT.ptr(sumsqs), RT.ptr(matched), RT.ptr(scratch), P,
+              N, block_rows, A, num_groups, tile,
+              group_step_words(block_rows, A, num_groups), device=dev,
+              count="group_agg")
     return sums, sumsqs, matched
 
 

@@ -7,7 +7,11 @@ the tests hold them against the JAX reference, and ``chip_smoke.py`` holds
 the CUDA kernels against them on the card.  They repeat the kernels'
 arithmetic — products formed as in the reference's ``acc_sum`` (``v·w``,
 ``(v·v)·w``; the group path ``v·(v·w)``), per-chunk totals folded onto the
-carry in chunk order — and are no yardstick of speed.
+carry in chunk order — and are no yardstick of speed.  Within one run of
+equal ids in a chunk the group kernels add the rows in a fixed tree order
+(``csrc/agg_common.cuh``), which differs from ``index_add_``'s here: that is
+why the card check holds their sums to ``SUM_RTOL`` and their counters
+bit for bit.
 
 Layouts (P partitions, C chunks of L rows, A aggregates, G groups):
   vals  float32 [P, C, L, A]

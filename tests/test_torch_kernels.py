@@ -229,6 +229,39 @@ def test_group_agg_is_the_group_step_from_zero():
     assert torch.equal(one[0][..., 0], got[0][..., 0])
 
 
+@pytest.mark.parametrize("P, C, L, members", [
+    (8, 896, 2048, [(4, 4)]),  # Q1-small round-slice: one tile
+    (8, 896, 2048, [(4, 8192)]),  # Q1-large: tables past the input bytes
+    (8, 2688, 2048, [(4, 10)]),  # the [Q6, Q1-small, Q3] K3 stack
+    (8, 896, 2048, [(4, 4), (4, 8192), (4, 25)]),  # a K1 bundle's group members
+    (3, 23, 2048, [(4, 8192)]),  # tiles of 13 chunks, the last one ragged
+    (2, 5, 1000, [(2, 5000)]),  # G > L
+    (4, 0, 2048, [(1, 5)]),  # no chunks
+], ids=["q1-small", "q1-large", "k3-stack", "bundle", "ragged-tiles", "g-past-l",
+        "no-chunks"])
+def test_group_step_scratch_stays_within_the_input_bytes(P, C, L, members):
+    """The group step's scratch (one compacted table per chunk and member)
+    takes as many chunks per tile as keep it within the members' own input
+    bytes, and no more; a chunk's table holds W + 1 offsets and min(L, G)
+    ids and (2A+1)-sum entries."""
+    assert ops.group_step_words(2048, 4, 4) == 1 + 1 + 4 * 10
+    assert ops.group_step_words(2048, 4, 8192) == 256 + 1 + 2048 * 10
+    tile = ops.group_step_tile(C, L, members)
+    assert 1 <= tile <= max(C, 1)
+    inp = P * C * sum(L * (4 * A + 8) for A, _ in members)
+    per_chunk = 4 * P * sum(ops.group_step_words(L, A, G) for A, G in members)
+    if tile > 1:
+        assert per_chunk * min(tile, C) <= inp
+    if tile < C:
+        assert per_chunk * (tile + 1) > inp
+    A, G = members[0]
+    got = ops.group_step_scratch(P, C, L, A, G, tile, torch.device("cpu"))
+    assert got.dtype == torch.float32
+    assert got.numel() == P * min(tile, C) * ops.group_step_words(L, A, G)
+    if (P, C) == (3, 23):
+        assert (tile, C % tile) == (13, 10)
+
+
 def test_shard_chunk_partials_matches_reference_interpret(shards):
     """K4 on the Q6 projection of every partition (weight = the bare
     predicate, the mask separate) against the reference's Pallas kernel."""

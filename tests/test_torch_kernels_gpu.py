@@ -103,6 +103,108 @@ def test_group_kernel_adds_each_chunk_total_to_the_carry():
         assert torch.equal(x, want)
 
 
+def _edge_inputs(case, dev):
+    """Inputs for the cases the chunk-parallel group step makes risky."""
+    shape = {"one-group": dict(A=2, G=1, C=6, L=2048),
+             "distinct-ids": dict(A=2, G=5000, C=4, L=1000),
+             "out-of-range": dict(A=3, G=37, C=5, L=512),
+             "rows-1000": dict(A=4, G=4, C=7, L=1000),
+             "rows-max": dict(A=4, G=8192, C=3, L=4096),
+             "tiled": dict(A=4, G=8192, C=23, L=2048)}[case]
+    vals, w, gids, _, cs, cq, cm = _random_inputs(30, dev, P=3, **shape)
+    P, C, L, A = vals.shape
+    G = shape["G"]
+    g = torch.Generator().manual_seed(31)
+    if case == "one-group":  # one run of L rows per chunk, across every warp
+        gids = torch.zeros_like(gids)
+    elif case == "distinct-ids":  # every id of a chunk distinct, G > L
+        gids = torch.stack([torch.randperm(G, generator=g)[:L] for _ in range(P * C)])
+        gids = gids.reshape(P, C, L).to(torch.int32).to(dev)
+    elif case == "out-of-range":  # a third of the ids below 0 or at/above G
+        gids = torch.randint(-G, 2 * G, (P, C, L), generator=g, dtype=torch.int32).to(dev)
+    return vals, w, gids, cs, cq, cm
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["one-group", "distinct-ids", "out-of-range",
+                                  "rows-1000", "rows-max", "tiled"])
+def test_group_step_edge_cases_match_plain_versions(case):
+    """K1 group and K3 against their plain versions (counters exact, sums
+    within RTOL), repeats bitwise-equal, one launch per call."""
+    dev = _cuda()
+    vals, w, gids, cs, cq, cm = _edge_inputs(case, dev)
+    P, C, L, A = vals.shape
+    G = cm.shape[-1]
+    if case == "tiled":  # the scratch takes tiles, the last one ragged
+        tile = ops.group_step_tile(C, L, [(A, G)])
+        assert tile < C and C % tile
+    before = FK.launch_counts()
+    got = FK.group_round_step(vals, w, gids, cs, cq, cm)
+    again = FK.group_round_step(vals, w, gids, cs, cq, cm)
+    want = ref.group_round_step(vals, w, gids, cs, cq, cm)
+    flat = (vals.reshape(P, C * L, A), w.reshape(P, -1), gids.reshape(P, -1))
+    got3 = ops.group_agg(*flat, num_groups=G, block_rows=L)
+    again3 = ops.group_agg(*flat, num_groups=G, block_rows=L)
+    want3 = ref.group_agg(*flat, G, L)
+    assert _delta(before) == {"fused_round_step/group": 2, "group_agg": 2}
+    for g_, a_, r_ in ((got, again, want), (got3, again3, want3)):
+        assert all(torch.equal(x, y) for x, y in zip(g_, a_))
+        _close(g_[0], r_[0])
+        _close(g_[1], r_[1])
+        assert torch.equal(g_[2], r_[2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry", ["pf_group", "pf_group_agg", "pf_bundle"])
+def test_group_step_refuses_a_scratch_table_below_its_layout(entry, monkeypatch):
+    """A wrapper whose chunk-table stride is one float short of the kernel's
+    layout gets an error before either phase of the group step launches,
+    and the call counts no launch."""
+    dev = _cuda()
+    vals, w, gids, carry, cs, cq, cm = _random_inputs(50, dev, P=2, A=2, G=40,
+                                                      C=6, L=512)
+    good = ops.group_step_words
+    monkeypatch.setattr(ops, "group_step_words", lambda L, A, G: good(L, A, G) - 1)
+    before = FK.launch_counts()
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        if entry == "pf_group":
+            FK.group_round_step(vals, w, gids, cs, cq, cm)
+        elif entry == "pf_group_agg":
+            P, C, L, A = vals.shape
+            ops.group_agg(vals.reshape(P, C * L, A), w.reshape(P, -1),
+                          gids.reshape(P, -1), num_groups=40, block_rows=L)
+        else:
+            FK.bundle_round_step([(vals, w, None, carry),
+                                  (vals, w, gids, cs, cq, cm)])
+    torch.cuda.synchronize()
+    assert _delta(before) == {}
+
+
+@pytest.mark.gpu
+def test_bundle_with_a_one_group_member_equals_solo_launches():
+    """K1 bundle holding a G=1 member (one run per chunk) beside 2^13
+    buckets and a scalar member: every member bitwise its solo launch."""
+    dev = _cuda()
+    members = []
+    for seed, A, G in ((40, 3, 1), (41, 4, 8192), (42, 1, None), (43, 2, 6)):
+        vals, w, gids, carry, cs, cq, cm = _random_inputs(
+            seed, dev, P=2, A=A, G=G or 3, C=12, L=2048)
+        if G == 1:
+            gids = torch.zeros_like(gids)
+        members.append((vals, w, None, carry) if G is None
+                       else (vals, w, gids, cs, cq, cm))
+    got = FK.bundle_round_step(members)
+    want = ref.bundle_round_step(members)
+    for m, g, r in zip(members, got, want):
+        if m[2] is None:
+            assert torch.equal(g, FK.scalar_round_step(m[0], m[1], m[3]))
+            continue
+        assert all(torch.equal(x, y) for x, y in zip(g, FK.group_round_step(*m)))
+        _close(g[0], r[0])
+        _close(g[1], r[1])
+        assert torch.equal(g[2], r[2])
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("query", ["q6", "q1-small", "q1-buckets"])
 def test_query_on_the_card_matches_the_plain_route(query):
