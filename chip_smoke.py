@@ -74,6 +74,12 @@ PR14_MS = {"fused_round_step/group[G=4]": 165.432549,
            "fused_round_step/group[G=8192]": 24.818497,
            "fused_round_step/bundle": 172.925888,
            "group_agg[Q3]": 71.799133, "group_agg[stack]": 626.407654}
+#: the times of pf_scalar (K1 scalar, K2) and pf_decode before their
+#: redesign, and of the bundle that runs pf_scalar's bodies (PERF.md's kernel
+#: table; NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's as
+#: `pr16_ms`
+PR16_MS = {"fused_round_step/scalar": 0.144752, "fused_prefix_states": 1.777168,
+           "decode": 0.337696, "fused_round_step/bundle": 2.549664}
 
 
 def fail(msg: str):
@@ -251,8 +257,16 @@ def run(work: Path) -> None:
     checks["fused_round_step/scalar"] = compare(
         "K1 scalar", (got[0][:, :2 * A], got[0][:, 2 * A]),
         (want[0][:, :2 * A], want[0][:, 2 * A]), {1})
+    # a view one float past a 16-byte boundary takes the 4-byte loads, the
+    # aligned tensors the 16-byte ones: the same rows per thread, same bits
+    mis = [torch.empty(t.numel() + 1, device=dev)[1:].view(t.shape).copy_(t)
+           for t in (vals6, w6)]
+    check(torch.equal(FK.scalar_round_step(*mis, carry), got[0]),
+          "K1 scalar: a misaligned view differs from the aligned tensors")
+    del mis
     say("check", kernel="fused_round_step/scalar", shape=tuple(vals6.shape),
-        max_abs_err=checks["fused_round_step/scalar"], repeat="bitwise-equal")
+        max_abs_err=checks["fused_round_step/scalar"], repeat="bitwise-equal",
+        misaligned_view="bitwise-equal")
 
     group_inputs = {}
     for label, gla in (("G=4", q1s), ("G=8192", q1l), ("G=1", q1s)):
@@ -653,37 +667,52 @@ def run(work: Path) -> None:
             ts.append(a.elapsed_time(b))
         return statistics.median(ts)
 
-    def phases(fn, grids, reps=3):
-        """Device ms per call of the group step's two grids (phase 1
-        ``group_partials_kernel``, phase 2 ``group_fold_kernel``, each
-        launched ``grids`` times per call: once per tile of chunks) and of
-        the other kernels the call launches, from a torch.profiler trace of
-        ``reps`` calls.  A phase's time is the mean of its kernels in the
-        trace times ``grids`` (the trace may miss a launch: ``captured``
-        counts the kernels it holds of the ``grids * reps`` launched); "not
-        measured" where it holds none."""
+    def phases(fn, split, reps=3):
+        """Device ms per call of the grids named in ``split`` ({key:
+        (a part of the grid's kernel name, launches per call)}) and of the
+        other kernels the call launches (``other_ms``), from a
+        torch.profiler trace of ``reps`` calls.  A grid's time is the mean
+        of its kernels in the trace times its launches per call (the trace
+        may miss a launch: ``captured`` counts, grid by grid, the kernels it
+        holds of those launched); "not measured" where it holds none."""
         from torch.profiler import ProfilerActivity, profile
 
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:  # kernels only:
+            for _ in range(reps):  # a CPU op would count its kernels again
                 fn()
             torch.cuda.synchronize()
-        tot = {"phase1_ms": 0.0, "phase2_ms": 0.0, "other_ms": 0.0}
-        n = dict.fromkeys(tot, 0)
+        tot, n = dict.fromkeys(split, 0.0), dict.fromkeys(split, 0)
+        other = 0.0
         for ev in prof.key_averages():
             if ev.self_device_time_total <= 0:
                 continue  # host-side events
-            key = ("phase1_ms" if "group_partials" in ev.key else
-                   "phase2_ms" if "group_fold" in ev.key else "other_ms")
+            key = next((k for k, (part, _) in split.items() if part in ev.key), None)
+            if key is None:
+                other += ev.self_device_time_total / 1e3
+                continue
             tot[key] += ev.self_device_time_total / 1e3
             n[key] += ev.count
-        out = {k: (f"{tot[k] / n[k] * grids:.6f}" if n[k] else "not measured")
-               for k in ("phase1_ms", "phase2_ms")}
-        out["other_ms"] = f"{tot['other_ms'] / reps:.6f}"
-        return {**out, "tiles": grids,
-                "captured": f"{n['phase1_ms']}+{n['phase2_ms']}/{2 * grids * reps}"}
+        out = {k: (f"{tot[k] / n[k] * per:.6f}" if n[k] else "not measured")
+               for k, (_, per) in split.items()}
+        out["other_ms"] = f"{other / reps:.6f}"
+        out["captured"] = ("+".join(str(n[k]) for k in split) + "/"
+                           + "+".join(str(per * reps) for _, per in split.values()))
+        return out
+
+    def device_ms(fn):
+        """Device ms per call of every kernel ``fn`` launches (a trace)."""
+        return phases(fn, {})["other_ms"]
+
+    def group_split(grids):
+        """The group step's two grids, each launched ``grids`` times per
+        call (once per tile of chunks): phase 1 ``group_partials_kernel``,
+        phase 2 ``group_fold_kernel``."""
+        return {"phase1_ms": ("group_partials", grids), "phase2_ms": ("group_fold", grids)}
+
+    #: pf_scalar's two grids (K1 scalar, K2), once per call each
+    scalar_split = {"partials_ms": ("scalar_partials", 1), "fold_ms": ("scalar_fold", 1)}
 
     def tiles(C_, members):
         """Tiles of chunks the group step takes (``ops.group_step_tile``)."""
@@ -725,7 +754,10 @@ def run(work: Path) -> None:
            median_ms(lambda: ref.scalar_round_step(vals6, w6, carry), 3),
            4 * (2 * N + 2 * carry.numel()), 6 * N,
            median_ms(lambda: torch.sum(x, dim=-1), 20),
-           {"with_closures_ms": f"{median_ms(lambda: FK.fused_round_step(q6, st6, sl), 10):.6f}"})
+           {"with_closures_ms": f"{median_ms(lambda: FK.fused_round_step(q6, st6, sl), 10):.6f}",
+            "pr16_ms": PR16_MS["fused_round_step/scalar"],
+            "library_device_ms": device_ms(lambda: torch.sum(x, dim=-1)),
+            **phases(lambda: FK.scalar_round_step(vals6, w6, carry), scalar_split)})
     del x
 
     # K1 group on one round-slice, both group shapes of the main path and
@@ -745,8 +777,9 @@ def run(work: Path) -> None:
                  else f"{median_ms(lambda: FK.fused_round_step(gla, st, sl), 5):.6f}")
         nbytes = 4 * (vals.numel() + 2 * N + 2 * (cs.numel() + cq.numel() + cm.numel()))
         pr14 = PR14_MS.get(f"fused_round_step/group[{label}]")
-        ph = phases(lambda: FK.group_round_step(vals, w, gids, cs, cq, cm),
-                    tiles(per, [(vals.shape[-1], G)]))
+        nt = tiles(per, [(vals.shape[-1], G)])
+        ph = {"tiles": nt, **phases(lambda: FK.group_round_step(vals, w, gids, cs, cq, cm),
+                                    group_split(nt))}
         if label == "G=8192":
             record("fused_round_step/group", K1, ms, plain, nbytes, 17 * N, lib,
                    {"shape": label, "with_closures_ms": withc, "pr14_ms": pr14, **ph})
@@ -765,7 +798,10 @@ def run(work: Path) -> None:
            median_ms(lambda: ref.scalar_prefix(valsK2, wK2), 3),
            4 * (2 * N + P * C * 3), 6 * N,
            median_ms(lambda: torch.cumsum(x, dim=-1), 5),
-           {"with_closures_ms": f"{median_ms(lambda: FK.fused_prefix_states(q6, shards), 5):.6f}"})
+           {"with_closures_ms": f"{median_ms(lambda: FK.fused_prefix_states(q6, shards), 5):.6f}",
+            "pr16_ms": PR16_MS["fused_prefix_states"],
+            "library_device_ms": device_ms(lambda: torch.cumsum(x, dim=-1)),
+            **phases(lambda: FK.scalar_prefix(valsK2, wK2), scalar_split)})
     del x
 
     # K4 on the whole shard
@@ -796,6 +832,7 @@ def run(work: Path) -> None:
         v, w, gi, G = k3_inputs[label]
         N, A = w.numel(), v.shape[-1]
         lib = index_add_call(v, w, gi, G)
+        nt = tiles(w.shape[1] // L, [(A, G)])
         withc = (lambda: scan.bundle_round_deltas(gla, sl)) if gla.members else (
             lambda: scan.kernel_round_delta(gla, sl))
         args = (label, K3, median_ms(lambda: ops.group_agg(v, w, gi, num_groups=G,
@@ -804,9 +841,10 @@ def run(work: Path) -> None:
                 4 * (v.numel() + 2 * N + P * G * (2 * A + 1)), (4 * A + 1) * N,
                 median_ms(lib, 5), {"with_closures_ms": f"{median_ms(withc, 2):.6f}",
                                     "groups": G, "pr14_ms": PR14_MS[f"group_agg[{label}]"],
+                                    "tiles": nt,
                                     **phases(lambda: ops.group_agg(v, w, gi, num_groups=G,
                                                                    block_rows=L),
-                                             tiles(w.shape[1] // L, [(A, G)]))})
+                                             group_split(nt))})
         del lib
         if label == "Q3":
             record("group_agg", *args[1:])
@@ -832,14 +870,16 @@ def run(work: Path) -> None:
             lib_ms += median_ms(index_add_call(m[0], m[1], m[2], m[5].shape[-1]), 5)
         x = None
     stb = scan.stack_init(bf, (P,), dev)
+    nt = tiles(per, [(m[0].shape[-1], m[5].shape[-1]) for m in bundle_args if m[2] is not None])
     record("fused_round_step/bundle", K1,
            median_ms(lambda: FK.bundle_round_step(bundle_args), 10),
            median_ms(lambda: ref.bundle_round_step(bundle_args), 2),
            nbytes, flops, lib_ms,
            {"members": len(bundle_args), "pr14_ms": PR14_MS["fused_round_step/bundle"],
+            "pr16_ms": PR16_MS["fused_round_step/bundle"], "tiles": nt,
             **phases(lambda: FK.bundle_round_step(bundle_args),
-                     tiles(per, [(m[0].shape[-1], m[5].shape[-1])
-                                 for m in bundle_args if m[2] is not None])),
+                     {**group_split(nt), "scalar_partials_ms": ("bundle_partials", 1),
+                      "scalar_fold_ms": ("bundle_fold", 1)}),
             "with_closures_ms": f"{median_ms(lambda: FK.fused_round_step(bf, stb, sl), 5):.6f}"})
 
     # K1's decode stage on one encoded round-slice (all five encoded columns,
@@ -848,18 +888,22 @@ def run(work: Path) -> None:
     outs = KD.decode(dec_in)
     nbytes = sum(x.numel() * x.element_size() for x, _ in dec_in) + sum(
         y.numel() * y.element_size() for y in outs)
-    lib_ms = 0.0
+    lib_calls = []
     for x, e in dec_in:
         if isinstance(e, ENC.DictEncoding):
             tab, idx = e.table(dev), x.long()
-            lib_ms += median_ms(lambda: torch.take(tab, idx), 20)
+            lib_calls.append(lambda tab=tab, idx=idx: torch.take(tab, idx))
         else:
             sh = e.bits * torch.arange(e.lanes, dtype=torch.int32, device=dev)
-            lib_ms += median_ms(lambda: (x[..., None] >> sh) & ((1 << e.bits) - 1), 20)
+            lib_calls.append(lambda x=x, sh=sh, m=(1 << e.bits) - 1: (x[..., None] >> sh) & m)
+    lib_ms = sum(median_ms(f, 20) for f in lib_calls)
     record("decode", DECODE, median_ms(lambda: KD.decode(dec_in), 20),
            median_ms(plain_decode, 5), nbytes, 0, lib_ms,
            {"columns": len(dec_in), "rows": phys["_mask"].numel(),
-            "with_closures_ms": f"{median_ms(lambda: FK.fused_round_step(q6, st6, phys, enc_src.encodings), 10):.6f}"})
+            "with_closures_ms": f"{median_ms(lambda: FK.fused_round_step(q6, st6, phys, enc_src.encodings), 10):.6f}",
+            "pr16_ms": PR16_MS["decode"],
+            "library_device_ms": device_ms(lambda: [f() for f in lib_calls]),
+            **phases(lambda: KD.decode(dec_in), {"decode_ms": ("decode_kernel", 1)})})
     del outs
 
     # K5 and K6 on the whole shard flattened (234,881,024 rows); the library

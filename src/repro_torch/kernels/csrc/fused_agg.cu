@@ -20,6 +20,56 @@
 // against 67 TFLOP/s (f32, no tensor cores) that is memory-bound by two
 // orders of magnitude.
 //
+// The scalar mode (pf_scalar, and the scalar members of pf_bundle)
+// ----------------------------------------------------------------
+// For each partition p: per chunk c the totals (sum v*w [A] | sum (v*v)*w
+// [A] | sum w), each from zero, then added onto the carry (zero for K2)
+// once each, in chunk order, as the reference adds each block's
+// contribution to its state (fused_agg.py:357-360); K2 writes every running
+// value.  Two grids per call:
+//
+// Pass 1, the partials (scalar_partials_kernel): one block of
+// kScalarThreads threads per (partition, chunk).  Thread t owns the
+// contiguous rows [t*R, t*R + R) of the chunk, R = ceil(L / kScalarThreads)
+// rounded up to a multiple of 4 (8 rows for L = 2048), and reads each row's
+// w and vals[A] once: 16 bytes a load (one float4 of w and A float4s of
+// vals per 4 rows) when the launch allows it (L a multiple of 4, vals and w
+// 16-byte aligned; then every chunk and every thread's range starts on 16
+// bytes), else 4 bytes a load.  It keeps all 2A+1 sums in registers for A
+// <= kRegA (8); a wider A takes column groups of kRegA aggregates, each a
+// pass over the rows with 4-byte loads.  The block then reduces them in ONE
+// exchange: each sum through the warp's shuffle tree, the warp totals into
+// a [warps][2A+1] table in shared memory, one barrier, and thread k adds
+// column k's warp totals in a fixed pairwise tree.
+//
+//   Summation order within one chunk, fixed by L alone: each thread folds
+//   its rows left to right; the thread sums meet in the shuffle tree of
+//   warp_sum (agg_common.cuh: distances 16, 8, 4, 2, 1, lane 0 keeps the
+//   total), and the 8 warp totals in the pairwise tree ((w0+w1)+(w2+w3)) +
+//   ((w4+w5)+(w6+w7)).  A thread owns the same rows on both load paths, so
+//   a misaligned view gives the bits of an aligned copy; which path runs is
+//   chosen per launch, not by the data.  The plain version (kernels/ref.py)
+//   sums a chunk in torch's order, so the card check holds the sums to
+//   SUM_RTOL and the counter (a sum of 0/1 weights, exact in any order) bit
+//   for bit.
+//
+// Pass 2, the fold (scalar_fold_kernel): one block per partition.  It
+// stages the partition's [C, 2A+1] chunk totals through shared memory in
+// tiles of Ct chunks (kFoldTile floats, Ct a multiple of 4), double-buffered
+// with cp.async (16-byte copies where aligned): tile t+1 is in flight while
+// thread k adds column k of tile t in chunk order onto its running value,
+// which starts at the carry.  For K2 the running values go back into the
+// tile and the block stores it coalesced.  The fold's one dependent chain
+// per column (C adds) is the only serial part; it reads shared memory in
+// batches of kFoldBatch chunks, so that one wait on shared memory serves 32
+// dependent adds.  2A+1 is limited to kFoldTile / 4 (A <= 639) so that
+// a tile holds 4 chunks.
+//
+// No atomics, on floats or integers.  Products are rounded before the add
+// (__fmul_rn/__fadd_rn): nvcc contracts nothing into an FMA.  Two grids and
+// not a chained single-pass scan: a chain would serialise the chunks'
+// blocks.
+//
 // The group modes (pf_group, and the group members of pf_bundle) run the
 // group step of agg_common.cuh, whose header states its design: per chunk
 // one block sorts the rows by id once (a stable radix sort in shared
@@ -31,7 +81,7 @@
 // order.
 //
 // Determinism: no atomics (agg_common.cuh).  A bundle member runs its solo
-// kernel's body with the solo block size and the solo (partition, chunk)
+// kernel's bodies with the solo block size and the solo (partition, chunk)
 // mapping, so its result is bitwise-equal to its solo launch.
 #include "agg_common.cuh"
 
@@ -39,72 +89,291 @@ namespace {
 
 using namespace pfola;
 
-// One (partition, chunk) pc of the scalar partials: part[pc, :] =
-// (sum v*w [A] | sum (v*v)*w [A] | sum w) over the chunk's L rows.
-__device__ __forceinline__ void scalar_partials(const float* __restrict__ vals,
-                                                const float* __restrict__ w,
-                                                float* __restrict__ part,
-                                                long long pc, int L, int A,
-                                                float* smem) {
-  const float* wr = w + pc * L;
-  const float* vr = vals + pc * L * A;
-  float* out = part + pc * (2 * A + 1);
-  for (int a = 0; a < A; ++a) {
-    float s = 0.f, q = 0.f;
-    for (int l = threadIdx.x; l < L; l += blockDim.x) {
-      const float v = vr[(long long)l * A + a];
-      const float ww = wr[l];
-      s = __fadd_rn(s, __fmul_rn(v, ww));
-      q = __fadd_rn(q, __fmul_rn(__fmul_rn(v, v), ww));
-    }
-    s = block_sum(s, smem);
-    if (threadIdx.x == 0) out[a] = s;
-    q = block_sum(q, smem);
-    if (threadIdx.x == 0) out[A + a] = q;
-  }
-  float m = 0.f;
-  for (int l = threadIdx.x; l < L; l += blockDim.x) m = __fadd_rn(m, wr[l]);
-  m = block_sum(m, smem);
-  if (threadIdx.x == 0) out[2 * A] = m;
+constexpr int kRegA = 8;  // aggregates whose sums one pass keeps in registers
+constexpr int kWarps = kScalarThreads / 32;
+constexpr int kRedCols = 2 * kRegA + 1;  // columns of the exchange table
+constexpr int kFoldTile = 5120;  // floats of one fold tile; two are staged
+constexpr int kFoldBlock = 256;
+constexpr int kFoldBatch = 32;  // chunk totals a fold thread reads at once
+constexpr int kMaxScalarK = kFoldTile / 4;  // 2A+1 limit: 4 chunks a tile
+
+// Rows of a chunk that one pass-1 thread owns.
+__host__ __device__ __forceinline__ int scalar_rows(int L) {
+  const int r = (L + kScalarThreads - 1) / kScalarThreads;
+  return (r + 3) & ~3;
 }
 
-// Column t = (p, k) of the scalar fold: the chunk totals in chunk order onto
-// the carry (zero when carry is null), every running value to prefix when
-// it is not null.
+__host__ __device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// Whether pass 1 reads with 16-byte loads: every chunk's rows and every
+// thread's range then start on 16 bytes.  Chosen per launch.
+bool scalar_vec(const float* vals, const float* w, int L) {
+  return L % 4 == 0 && aligned16(vals) && aligned16(w);
+}
+
+// One row onto a thread's sums acc = (s[A] | q[A] | m).
+template <int A>
+__device__ __forceinline__ void fold_row(float (&acc)[2 * A + 1],
+                                         const float* v, float wr) {
+#pragma unroll
+  for (int a = 0; a < A; ++a) {
+    acc[a] = __fadd_rn(acc[a], __fmul_rn(v[a], wr));
+    acc[A + a] = __fadd_rn(acc[A + a], __fmul_rn(__fmul_rn(v[a], v[a]), wr));
+  }
+  acc[2 * A] = __fadd_rn(acc[2 * A], wr);
+}
+
+// The block's one exchange of K sums: the warp shuffle tree, the warp
+// totals through red [kWarps][K] and one barrier, then thread k < K adds
+// column k's warp totals in a fixed pairwise tree and returns the total
+// (other threads return 0).
+template <int K>
+__device__ __forceinline__ float block_exchange(float (&acc)[K], float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < K; ++k) acc[k] = warp_sum(acc[k]);
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) red[warp * K + k] = acc[k];
+  }
+  __syncthreads();
+  if (threadIdx.x >= K) return 0.f;
+  float x[kWarps];
+#pragma unroll
+  for (int i = 0; i < kWarps; ++i) x[i] = red[i * K + threadIdx.x];
+#pragma unroll
+  for (int h = 1; h < kWarps; h <<= 1) {
+#pragma unroll
+    for (int i = 0; i + h < kWarps; i += 2 * h) x[i] = __fadd_rn(x[i], x[i + h]);
+  }
+  return x[0];
+}
+
+// Pass 1 for A <= kRegA: chunk pc's 2A+1 totals into part[pc, :].
+template <int A>
+__device__ __forceinline__ void partials_reg(const float* __restrict__ vals,
+                                             const float* __restrict__ w,
+                                             float* __restrict__ part,
+                                             long long pc, int L, bool vec,
+                                             float* red) {
+  constexpr int K = 2 * A + 1;
+  const int R = scalar_rows(L);
+  const int r0 = min((int)threadIdx.x * R, L), r1 = min(r0 + R, L);
+  const float* wr = w + pc * L;
+  const float* vr = vals + pc * L * A;
+  float acc[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) acc[k] = 0.f;
+  if (vec) {
+#pragma unroll 2
+    for (int r = r0; r < r1; r += 4) {
+      const float4 w4 = __ldg(reinterpret_cast<const float4*>(wr + r));
+      const float4* v4 = reinterpret_cast<const float4*>(vr + (long long)r * A);
+      float v[4 * A];
+#pragma unroll
+      for (int j = 0; j < A; ++j) {
+        const float4 x = __ldg(v4 + j);
+        v[4 * j] = x.x;
+        v[4 * j + 1] = x.y;
+        v[4 * j + 2] = x.z;
+        v[4 * j + 3] = x.w;
+      }
+      fold_row<A>(acc, v, w4.x);
+      fold_row<A>(acc, v + A, w4.y);
+      fold_row<A>(acc, v + 2 * A, w4.z);
+      fold_row<A>(acc, v + 3 * A, w4.w);
+    }
+  } else {
+    for (int r = r0; r < r1; ++r) {
+      float v[A];
+#pragma unroll
+      for (int a = 0; a < A; ++a) v[a] = vr[(long long)r * A + a];
+      fold_row<A>(acc, v, wr[r]);
+    }
+  }
+  const float t = block_exchange<K>(acc, red);
+  if (threadIdx.x < K) part[pc * K + threadIdx.x] = t;
+}
+
+// Pass 1 for A > kRegA: column groups of kRegA aggregates, one pass over
+// the rows (4-byte loads) and one exchange each; sum w is written once.
+__device__ __forceinline__ void partials_wide(const float* __restrict__ vals,
+                                              const float* __restrict__ w,
+                                              float* __restrict__ part,
+                                              long long pc, int L, int A,
+                                              float* red) {
+  const int K = 2 * A + 1, R = scalar_rows(L);
+  const int r0 = min((int)threadIdx.x * R, L), r1 = min(r0 + R, L);
+  const float* wr = w + pc * L;
+  const float* vr = vals + pc * L * A;
+  for (int a0 = 0; a0 < A; a0 += kRegA) {
+    const int na = min(kRegA, A - a0);
+    float acc[kRedCols];
+#pragma unroll
+    for (int k = 0; k < kRedCols; ++k) acc[k] = 0.f;
+    for (int r = r0; r < r1; ++r) {
+      float v[kRegA];
+#pragma unroll
+      for (int j = 0; j < kRegA; ++j)
+        v[j] = j < na ? vr[(long long)r * A + a0 + j] : 0.f;
+      fold_row<kRegA>(acc, v, wr[r]);
+    }
+    if (a0 > 0) __syncthreads();  // the last group's readers are done with red
+    const float t = block_exchange<kRedCols>(acc, red);
+    const int k = threadIdx.x;
+    if (k < na) part[pc * K + a0 + k] = t;
+    else if (k >= kRegA && k < kRegA + na) part[pc * K + A + a0 + k - kRegA] = t;
+    else if (k == 2 * kRegA && a0 == 0) part[pc * K + 2 * A] = t;
+  }
+}
+
+// Pass 1 of chunk pc (partition-major), for any A: the bundle's body.
+__device__ __forceinline__ void scalar_partials(const float* vals,
+                                                const float* w, float* part,
+                                                long long pc, int L, int A,
+                                                bool vec, float* red) {
+  switch (A) {
+    case 1: partials_reg<1>(vals, w, part, pc, L, vec, red); break;
+    case 2: partials_reg<2>(vals, w, part, pc, L, vec, red); break;
+    case 3: partials_reg<3>(vals, w, part, pc, L, vec, red); break;
+    case 4: partials_reg<4>(vals, w, part, pc, L, vec, red); break;
+    case 5: partials_reg<5>(vals, w, part, pc, L, vec, red); break;
+    case 6: partials_reg<6>(vals, w, part, pc, L, vec, red); break;
+    case 7: partials_reg<7>(vals, w, part, pc, L, vec, red); break;
+    case 8: partials_reg<8>(vals, w, part, pc, L, vec, red); break;
+    default: partials_wide(vals, w, part, pc, L, A, red);
+  }
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// n floats from g into shared s, as one cp.async group per thread (16-byte
+// copies where vec: s and g both 16-byte aligned).
+__device__ __forceinline__ void stage(float* s, const float* g, int n,
+                                      bool vec) {
+  int i0 = 0;
+  if (vec) {
+    const int n4 = n >> 2;
+    for (int i = threadIdx.x; i < n4; i += blockDim.x)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                       smem_addr(s + 4 * i)), "l"(g + 4 * i) : "memory");
+    i0 = n4 << 2;
+  }
+  for (int i = i0 + threadIdx.x; i < n; i += blockDim.x)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                     smem_addr(s + i)), "l"(g + i) : "memory");
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void stage_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Pass 2 of partition p: part[p] is [C, K] chunk totals; column k starts at
+// carry[p, k] (zero when carry is null), adds chunk c's total for c = 0 ..
+// C-1, writes every running value to prefix[p] when prefix is non-null, and
+// the last one to out[p, k].  tile holds 2 * kFoldTile floats, accs K.
 __device__ __forceinline__ void scalar_fold(const float* __restrict__ part,
                                             const float* __restrict__ carry,
                                             float* __restrict__ out,
-                                            float* __restrict__ prefix, int t,
-                                            int C, int K) {
-  const int p = t / K, k = t % K;
-  const long long base = (long long)p * C * K + k;
-  float acc = carry ? carry[t] : 0.f;
-#pragma unroll 8
-  for (int c = 0; c < C; ++c) {
-    acc = __fadd_rn(acc, part[base + (long long)c * K]);
-    if (prefix) prefix[base + (long long)c * K] = acc;
+                                            float* __restrict__ prefix, int p,
+                                            int C, int K, float* tile,
+                                            float* accs) {
+  const long long base = (long long)p * C * K;
+  const float* g = part + base;
+  float* pre = prefix ? prefix + base : nullptr;
+  const bool vec = aligned16(g) && (!pre || aligned16(pre));
+  const int Ct = (kFoldTile / K) & ~3;  // chunks a tile, a multiple of 4
+  const int nt = (C + Ct - 1) / Ct;
+  for (int k = threadIdx.x; k < K; k += blockDim.x)
+    accs[k] = carry ? carry[(long long)p * K + k] : 0.f;
+  if (nt > 0) stage(tile, g, min(Ct, C) * K, vec);
+  for (int t = 0; t < nt; ++t) {
+    float* buf = tile + (t & 1) * kFoldTile;
+    const int c0 = t * Ct, ct = min(Ct, C - c0), n = ct * K;
+    if (t + 1 < nt) {
+      const int c1 = c0 + Ct;
+      stage(tile + ((t + 1) & 1) * kFoldTile, g + (long long)c1 * K,
+            min(Ct, C - c1) * K, vec);
+      stage_wait<1>();
+    } else {
+      stage_wait<0>();
+    }
+    __syncthreads();  // tile t has landed for every thread
+    for (int k = threadIdx.x; k < K; k += blockDim.x) {
+      float acc = accs[k];
+      int c = 0;
+      for (; c + kFoldBatch <= ct; c += kFoldBatch) {
+        float y[kFoldBatch];
+#pragma unroll
+        for (int j = 0; j < kFoldBatch; ++j) y[j] = buf[(c + j) * K + k];
+#pragma unroll
+        for (int j = 0; j < kFoldBatch; ++j) {
+          acc = __fadd_rn(acc, y[j]);
+          if (pre) buf[(c + j) * K + k] = acc;
+        }
+      }
+      for (; c < ct; ++c) {
+        acc = __fadd_rn(acc, buf[c * K + k]);
+        if (pre) buf[c * K + k] = acc;
+      }
+      accs[k] = acc;
+    }
+    if (pre) {
+      __syncthreads();  // every running value of the tile is in buf
+      float* d = pre + (long long)c0 * K;
+      int i0 = 0;
+      if (vec) {
+        const int n4 = n >> 2;
+        for (int i = threadIdx.x; i < n4; i += blockDim.x)
+          reinterpret_cast<float4*>(d)[i] = reinterpret_cast<const float4*>(buf)[i];
+        i0 = n4 << 2;
+      }
+      for (int i = i0 + threadIdx.x; i < n; i += blockDim.x) d[i] = buf[i];
+    }
+    __syncthreads();  // buf is read before tile t+2 is staged into it
   }
-  out[t] = acc;
+  for (int k = threadIdx.x; k < K; k += blockDim.x)
+    out[(long long)p * K + k] = accs[k];
 }
 
-// Pass 1 (scalar): one block per (partition, chunk).
+// Pass 1 (scalar): one block per (partition, chunk), instantiated per
+// A <= kRegA (NA = A) so that each A gets its own registers; NA = 0 runs
+// the column groups of a wider A.
+template <int NA>
 __global__ void __launch_bounds__(kScalarThreads)
 scalar_partials_kernel(const float* __restrict__ vals,
                        const float* __restrict__ w, float* __restrict__ part,
-                       int L, int A) {
-  __shared__ float smem[32];
-  scalar_partials(vals, w, part, blockIdx.x, L, A, smem);
+                       int L, int A, int vec) {
+  __shared__ float red[kWarps * kRedCols];
+  if constexpr (NA == 0)
+    partials_wide(vals, w, part, blockIdx.x, L, A, red);
+  else
+    partials_reg<NA>(vals, w, part, blockIdx.x, L, vec != 0, red);
 }
 
-// Pass 2 (scalar): one thread per (partition, column).
-__global__ void scalar_fold_kernel(const float* __restrict__ part,
-                                   const float* __restrict__ carry,
-                                   float* __restrict__ out,
-                                   float* __restrict__ prefix, int P, int C,
-                                   int K) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= P * K) return;
-  scalar_fold(part, carry, out, prefix, t, C, K);
+using PartialsKernel = void (*)(const float*, const float*, float*, int, int,
+                                int);
+const PartialsKernel kPartials[kRegA + 1] = {
+    scalar_partials_kernel<0>, scalar_partials_kernel<1>,
+    scalar_partials_kernel<2>, scalar_partials_kernel<3>,
+    scalar_partials_kernel<4>, scalar_partials_kernel<5>,
+    scalar_partials_kernel<6>, scalar_partials_kernel<7>,
+    scalar_partials_kernel<8>};
+
+// Pass 2 (scalar): one block per partition.
+__global__ void __launch_bounds__(kFoldBlock)
+scalar_fold_kernel(const float* __restrict__ part,
+                   const float* __restrict__ carry, float* __restrict__ out,
+                   float* __restrict__ prefix, int C, int K) {
+  __shared__ __align__(16) float tile[2 * kFoldTile];
+  __shared__ float accs[kMaxScalarK];
+  scalar_fold(part, carry, out, prefix, blockIdx.x, C, K, tile, accs);
 }
 
 // -- bundles ----------------------------------------------------------------
@@ -120,6 +389,7 @@ struct ScalarMember {
   float* out;
   float* part;
   int A;
+  int vec;  // pass 1 reads with 16-byte loads (scalar_vec)
 };
 
 struct Bundle {
@@ -129,18 +399,18 @@ struct Bundle {
 
 __global__ void __launch_bounds__(kScalarThreads)
 bundle_partials_kernel(const __grid_constant__ Bundle b, int L) {
-  __shared__ float smem[32];
+  __shared__ float red[kWarps * kRedCols];
   const ScalarMember& m = b.s[blockIdx.y];
-  scalar_partials(m.vals, m.w, m.part, blockIdx.x, L, m.A, smem);
+  scalar_partials(m.vals, m.w, m.part, blockIdx.x, L, m.A, m.vec != 0, red);
 }
 
-__global__ void bundle_fold_kernel(const __grid_constant__ Bundle b, int P,
-                                   int C) {
+__global__ void __launch_bounds__(kFoldBlock)
+bundle_fold_kernel(const __grid_constant__ Bundle b, int C) {
+  __shared__ __align__(16) float tile[2 * kFoldTile];
+  __shared__ float accs[kMaxScalarK];
   const ScalarMember& m = b.s[blockIdx.y];
-  const int K = 2 * m.A + 1;
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= P * K) return;
-  scalar_fold(m.part, m.carry, m.out, nullptr, t, C, K);
+  scalar_fold(m.part, m.carry, m.out, nullptr, blockIdx.x, C, 2 * m.A + 1,
+              tile, accs);
 }
 
 }  // namespace
@@ -152,18 +422,17 @@ extern "C" {
 int pf_scalar(const float* vals, const float* w, float* part,
               const float* carry, float* out, float* prefix, int P, int C,
               int L, int A, void* stream) {
+  const int K = 2 * A + 1;
+  if (P < 1 || A < 1 || K > kMaxScalarK) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long blocks = (long long)P * C;
   if (blocks > 0) {
-    scalar_partials_kernel<<<(unsigned)blocks, kScalarThreads, 0, s>>>(
-        vals, w, part, L, A);
+    kPartials[A <= kRegA ? A : 0]<<<(unsigned)blocks, kScalarThreads, 0, s>>>(
+        vals, w, part, L, A, scalar_vec(vals, w, L));
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  const int K = 2 * A + 1;
-  const int n = P * K;
-  scalar_fold_kernel<<<(n + kFoldThreads - 1) / kFoldThreads, kFoldThreads,
-                       0, s>>>(part, carry, out, prefix, P, C, K);
+  scalar_fold_kernel<<<P, kFoldBlock, 0, s>>>(part, carry, out, prefix, C, K);
   return (int)cudaGetLastError();
 }
 
@@ -197,17 +466,18 @@ int pf_bundle(const long long* table, int M, int P, int C, int L, int Ct,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Bundle b = {};
   GroupSet g = {};
-  int A_scalar = 0;
   for (int i = 0; i < M; ++i) {
     const long long* r = table + (long long)i * kTableCols;
     const int A = (int)r[1];
     if (r[0] == 0) {
+      if (A < 1 || 2 * A + 1 > kMaxScalarK) return (int)cudaErrorInvalidValue;
       ScalarMember& m = b.s[b.ns++];
       m = {reinterpret_cast<const float*>(r[3]),
            reinterpret_cast<const float*>(r[4]),
            reinterpret_cast<const float*>(r[6]),
-           reinterpret_cast<float*>(r[9]), reinterpret_cast<float*>(r[12]), A};
-      A_scalar = A > A_scalar ? A : A_scalar;
+           reinterpret_cast<float*>(r[9]), reinterpret_cast<float*>(r[12]), A,
+           0};
+      m.vec = scalar_vec(m.vals, m.w, L);
     } else {
       g.m[g.n++] = {reinterpret_cast<const float*>(r[3]),
                     reinterpret_cast<const float*>(r[4]),
@@ -232,11 +502,8 @@ int pf_bundle(const long long* table, int M, int P, int C, int L, int Ct,
     const int e = run_group_step(g, P, C, L, Ct, s);
     if (e != 0) return e;
   }
-  if (b.ns > 0) {
-    const int n = P * (2 * A_scalar + 1);
-    bundle_fold_kernel<<<dim3((n + kFoldThreads - 1) / kFoldThreads, b.ns),
-                         kFoldThreads, 0, s>>>(b, P, C);
-  }
+  if (b.ns > 0 && P > 0)
+    bundle_fold_kernel<<<dim3(P, b.ns), kFoldBlock, 0, s>>>(b, C);
   return (int)cudaGetLastError();
 }
 

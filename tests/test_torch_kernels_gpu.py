@@ -56,7 +56,8 @@ def _random_inputs(seed, dev, P=4, A=3, G=37, C=5, L=100):
     dict(A=3, G=37, C=5, L=100),  # ragged: L not a power of two
     dict(A=1, G=4, C=64, L=2048),  # Q6 / Q1-small widths
     dict(A=4, G=8192, C=16, L=2048),  # Q1 with 2^13 buckets
-], ids=["ragged", "small-groups", "buckets"])
+    dict(A=2, G=7, C=3, L=1001),  # L odd: the scalar kernels' 4-byte loads
+], ids=["ragged", "small-groups", "buckets", "odd-rows"])
 def test_kernels_match_plain_versions(shape):
     dev = _cuda()
     vals, w, gids, carry, cs, cq, cm = _random_inputs(0, dev, **shape)
@@ -514,3 +515,140 @@ def test_streamed_session_on_the_card_bitwise_resident(tmp_path):
             assert _same(got.snapshots, want.snapshots)
             assert _same(got.estimates, want.estimates)
             assert sess.io_stats["slices"] == 8 and sess.io_stats["copy_ms"] > 0
+
+
+# -- pf_scalar's two load paths and fold tiles; pf_decode's vectors and tails --
+
+def _shifted(t):
+    """A copy of ``t`` whose first element sits 4 bytes past a 16-byte
+    boundary: a contiguous view one element into a larger buffer."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    v = buf[1:].view(t.shape).copy_(t)
+    assert v.data_ptr() % 16 == t.element_size()
+    return v
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("A", [1, 3, 9])
+def test_scalar_kernels_on_a_misaligned_view_equal_an_aligned_copy(A):
+    """vals and w one float past a 16-byte boundary take the 4-byte loads,
+    an aligned copy the 16-byte ones (A = 9: column groups): the same rows
+    per thread, so K1 scalar and K2 give the same bits."""
+    dev = _cuda()
+    vals, w, _, carry, *_ = _random_inputs(40, dev, P=3, A=A, C=7, L=2048)
+    mv, mw = _shifted(vals), _shifted(w)
+    assert vals.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    assert torch.equal(FK.scalar_round_step(mv, mw, carry),
+                       FK.scalar_round_step(vals, w, carry))
+    assert torch.equal(FK.scalar_prefix(mv, mw), FK.scalar_prefix(vals, w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("A,C", [(1, 14336), (3, 14401), (1, 1), (9, 300)],
+                         ids=["q6-shard-chunks", "A3-ragged-tile", "one-chunk", "A9"])
+def test_scalar_fold_across_tiles_matches_plain_versions(A, C):
+    """K2 and K1 scalar with the partition's chunk totals taking several
+    fold tiles (the last one ragged), one tile, and one chunk: counters
+    exact, sums within RTOL, repeats bitwise."""
+    dev = _cuda()
+    vals, w, _, carry, *_ = _random_inputs(41, dev, P=2, A=A, C=C, L=64)
+    k2, r2 = FK.scalar_prefix(vals, w), ref.scalar_prefix(vals, w)
+    _close(k2[..., :2 * A], r2[..., :2 * A])
+    assert torch.equal(k2[..., 2 * A], r2[..., 2 * A])
+    k1, r1 = FK.scalar_round_step(vals, w, carry), ref.scalar_round_step(vals, w, carry)
+    _close(k1[:, :2 * A], r1[:, :2 * A])
+    assert torch.equal(k1[:, 2 * A], r1[:, 2 * A])
+    assert torch.equal(k2, FK.scalar_prefix(vals, w))
+    assert torch.equal(k1, FK.scalar_round_step(vals, w, carry))
+
+
+@pytest.mark.gpu
+def test_scalar_carry_is_added_before_the_chunk_totals():
+    """Each chunk total (1) added onto a carry of 2**24 rounds away; added
+    to each other first, they would not."""
+    dev = _cuda()
+    P, C, L = 2, 4, 64
+    big = float(2 ** 24)
+    vals = torch.ones((P, C, L, 1), device=dev)
+    w = torch.zeros((P, C, L), device=dev)
+    w[..., 0] = 1.0
+    carry = torch.full((P, 3), big, device=dev)
+    got = FK.scalar_round_step(vals, w, carry)
+    assert torch.equal(got, torch.full_like(carry, big))
+    assert torch.equal(got, ref.scalar_round_step(vals, w, carry))
+
+
+def _raw_decode_cases():
+    """(physical, encoding) pairs for every code dtype and value size (codes
+    past both ends of the table, which clamp; tables in shared memory and
+    past it) and every bit width 1-32 (any word bits), with lengths that
+    are no multiple of a 16-byte vector."""
+    rng = np.random.default_rng(17)
+    cases = []
+    for code, n_values in (("int8", 11), ("int8", 128), ("int16", 300),
+                           ("int16", 9000)):
+        lim = np.iinfo(code)
+        codes = rng.integers(-n_values // 4, n_values + n_values // 4, (3, 5, 97))
+        codes = torch.from_numpy(codes.clip(lim.min, lim.max).astype(code))
+        for logical in ("uint8", "int16", "float32", "float64"):
+            if logical.startswith("float"):
+                values = (rng.normal(size=n_values) * 1e4).astype(logical)
+            else:
+                lo = np.iinfo(logical)
+                values = rng.integers(lo.min, lo.max + 1, n_values).astype(logical)
+            enc = ENC.DictEncoding(values=tuple(values.tolist()), code_dtype=code,
+                                   logical_dtype=logical)
+            cases.append((codes, enc))
+    for bits in range(1, 33):
+        words = rng.integers(-2 ** 31, 2 ** 31, (3, 5, 7)).astype(np.int32)
+        cases.append((torch.from_numpy(words), ENC.BitPackedEncoding(bits)))
+    return cases
+
+
+def _decode_into(columns, outs):
+    """One pf_decode launch of ``columns`` into the given outputs (any
+    alignment), with the table layout of ``decode._launch``."""
+    import ctypes
+
+    from repro_torch.kernels import _runtime as RT
+
+    table = np.zeros((len(columns), KD._TABLE_COLS), np.int64)
+    keep = []
+    for i, ((x, enc), y) in enumerate(zip(columns, outs)):
+        if isinstance(enc, ENC.DictEncoding):
+            tab = enc.table(x.device)
+            keep.append(tab)
+            table[i] = (0, x.element_size(), tab.element_size(), tab.numel(), y.numel(),
+                        x.data_ptr(), y.data_ptr(), tab.data_ptr(),
+                        int(tab.numel() * tab.element_size() <= KD.SMEM_TABLE_BYTES))
+        else:
+            table[i] = (1, enc.bits, 4, 0, y.numel(), x.data_ptr(), y.data_ptr(), 0, 0)
+    lib = KD._lib()
+    RT.launch(lib, lib.pf_decode, ctypes.c_void_p(table.ctypes.data), len(columns),
+              device=columns[0][0].device, count="decode")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("src,dst", [(0, 0), (1, 0), (0, 1), (1, 1)],
+                         ids=["aligned", "src+1", "dst+1", "both+1"])
+def test_decode_vectors_tails_and_misaligned_columns_bitwise(src, dst):
+    """Every code dtype, value size and bit width, n no multiple of a
+    vector, codes or words (src) and outputs (dst) one element past a
+    16-byte boundary: bitwise the plain version, and repeat-bitwise."""
+    dev = _cuda()
+    cases = _raw_decode_cases()
+    want = KD.decode(cases)
+    cols = [(_shifted(x.to(dev)) if src else x.to(dev), e) for x, e in cases]
+    runs = []
+    for _ in range(2):
+        if dst:
+            outs = [_shifted(torch.zeros_like(y, device=dev)) for y in want]
+            for i in range(0, len(cols), KD.MAX_COLUMNS):
+                _decode_into(cols[i:i + KD.MAX_COLUMNS], outs[i:i + KD.MAX_COLUMNS])
+        else:
+            outs = KD.decode(cols)
+        runs.append(outs)
+    torch.cuda.synchronize()
+    for g, h, w_, (_, e) in zip(*runs, want, cases):
+        assert g.dtype == w_.dtype and torch.equal(g.cpu(), w_), e
+        assert torch.equal(g, h), e
