@@ -80,6 +80,12 @@ PR14_MS = {"fused_round_step/group[G=4]": 165.432549,
 #: `pr16_ms`
 PR16_MS = {"fused_round_step/scalar": 0.144752, "fused_prefix_states": 1.777168,
            "decode": 0.337696, "fused_round_step/bundle": 2.549664}
+#: the [fault] and [fault-stream] phases lose partition 2 at round 5
+FAIL_P, FAIL_R = 2, 5
+#: the [straggler] phase's relative partition speeds: the last one at 1/4
+SPEEDS = [1.0] * (P - 1) + [0.25]
+#: argument that runs the [pause] phase's resume in a fresh process
+RESUME_CHILD = "--resume-child"
 
 
 def fail(msg: str):
@@ -103,6 +109,9 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
+    if sys.argv[1:2] == [RESUME_CHILD]:  # the [pause] phase's fresh process
+        resume_child(Path(sys.argv[2]))
+        return
     work = ROOT / "build" / "chip_smoke_sources"  # git-ignored; deleted at the end
     try:
         run(work)
@@ -110,12 +119,79 @@ def main() -> None:
         shutil.rmtree(work, ignore_errors=True)
 
 
+def make_data(dev):
+    """TPC-H lineitem with the orders foreign key, generated, globally
+    randomized and packed into [P, C, L] on the device from SEED — the
+    same tensors in every process."""
+    import torch
+
+    from repro_torch import randomize
+    from repro_torch.data import tpch
+
+    cols = tpch.generate_lineitem(ROWS, num_suppliers=tpch.Q1_LARGE_SUPPLIERS,
+                                  seed=SEED, device=dev)
+    cols["orderkey"] = tpch.generate_orders_fk(ROWS, seed=SEED, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+    parts = randomize.randomize_global(cols, gen, P)
+    del cols
+    return randomize.pack_partitions(parts, chunk_len=L)
+
+
+def q1_large(d: float):
+    import repro_torch as T
+    from repro_torch.data import tpch
+
+    return T.make_groupby_gla(
+        tpch.q1_func, tpch.q1_cond, tpch.q1_group_large,
+        num_groups=tpch.Q1_LARGE_SUPPLIERS,
+        bucket_bits=tpch.Q1_LARGE_BUCKET_BITS, d_total=d, num_aggs=4)
+
+
+def digest(tree) -> str:
+    """sha256 over the bytes of every tensor leaf, in tree order."""
+    import hashlib
+
+    from repro_torch.uda import tree_map
+
+    h = hashlib.sha256()
+    tree_map(lambda x: h.update(x.detach().cpu().contiguous().numpy().tobytes()), tree)
+    return h.hexdigest()
+
+
+def resume_child(ckpt_path: Path) -> None:
+    """Resume the paused Q1-large session in this fresh process over the
+    same data made again from SEED (the kernels built by the parent are
+    reused from build/), drive it to the end and print its result's digest."""
+    import torch
+
+    import repro_torch as T
+
+    dev = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    shards = make_data(dev)
+    torch.cuda.synchronize()
+    t_data = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sess = T.Session.resume(ckpt_path, q1_large(float(ROWS)), shards, device=dev)
+    t_resume = time.perf_counter() - t0
+    steps = sess.steps_taken
+    while not sess.done:
+        sess.step()
+    res = sess.result()
+    torch.cuda.synchronize()
+    print(json.dumps({"resumed_at": steps, "steps": sess.steps_taken,
+                      "digest": digest((res.final, res.estimates)),
+                      "data_s": t_data, "resume_s": t_resume,
+                      "run_s": time.perf_counter() - t0 - t_resume}), flush=True)
+
+
 def run(work: Path) -> None:
     import torch
 
 
     import repro_torch as T
-    from repro_torch import randomize, scan
+    from repro_torch import scan
     from repro_torch.data import encodings as ENC
     from repro_torch.data import source as DS
     from repro_torch.data import tpch
@@ -143,15 +219,7 @@ def run(work: Path) -> None:
 
     # -- data: generated, globally randomized and packed on the device ------
     t0 = time.perf_counter()
-    cols = tpch.generate_lineitem(ROWS, num_suppliers=tpch.Q1_LARGE_SUPPLIERS,
-                                  seed=SEED, device=dev)
-    cols["orderkey"] = tpch.generate_orders_fk(ROWS, seed=SEED, device=dev)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED + 1)
-    parts = randomize.randomize_global(cols, gen, P)
-    del cols
-    shards = randomize.pack_partitions(parts, chunk_len=L)
-    del parts
+    shards = make_data(dev)
     torch.cuda.synchronize()
     check(tuple(shards["_mask"].shape) == (P, C, L), "unexpected shard shape")
     gib = sum(v.numel() * v.element_size() for v in shards.values()) / 2**30
@@ -194,10 +262,7 @@ def run(work: Path) -> None:
     q6 = T.make_sum_gla(tpch.q6_func, tpch.q6_cond(tpch.Q6_LOW_WINDOW), d_total=d)
     q1s = T.make_groupby_gla(tpch.q1_func, tpch.q1_cond, tpch.q1_group_small,
                              num_groups=4, d_total=d, num_aggs=4)
-    q1l = T.make_groupby_gla(
-        tpch.q1_func, tpch.q1_cond, tpch.q1_group_large,
-        num_groups=tpch.Q1_LARGE_SUPPLIERS,
-        bucket_bits=tpch.Q1_LARGE_BUCKET_BITS, d_total=d, num_aggs=4)
+    q1l = q1_large(d)
     # Q3: lineitem ⋈ orders (rows/4 orders, as the reference's q3_scenario);
     # its probe tables are far past the reference's fused budget -> K3
     orders = tpch.orders_table(ROWS // 4, seed=SEED + 7, device=dev)
@@ -646,6 +711,315 @@ def run(work: Path) -> None:
                 host_read_s=io["read_s"], h2d_copy_ms=io["copy_ms"], waited_s=io["wait_s"],
                 peak_device_bytes=peak, peak_in_slices=f"{peak / slice_bytes:.3f}",
                 launches=got)
+    # -- 4b. failures, stragglers, pause/resume and elastic resume ----------
+    # Every phase runs at full width through the public entry points, held
+    # to its launch counts; the uninterrupted runs are the resident twins
+    # above where one exists.
+    from repro_torch import fault as FT
+
+    def drive(sess):
+        while not sess.done:
+            sess.step()
+        return sess.result()
+
+    def members(est):
+        return (est,) if isinstance(est, T.Estimate) else tuple(
+            e for e in est if e is not None)
+
+    def no_nan(name, res):
+        check(not any(torch.isnan(x).any().item()
+                      for x in leaves((res.final, res.snapshots, res.estimates))),
+              f"{name}: NaN in the result")
+
+    def first_rounds_equal(a, b, n):
+        la, lb = leaves(a), leaves(b)
+        return len(la) == len(lb) and all(torch.equal(x[:n], y[:n]) for x, y in zip(la, lb))
+
+    def without(p):
+        """The float64 oracle over every partition but p: the whole table's
+        answer minus partition p's (its rows are a view of the shards)."""
+        part = {k: v[p].reshape(-1) for k, v in shards.items()}
+        return lambda fs, **kw: exact_of(fs, **kw) - tpch.exact_answer(
+            part, fs.func, fs.cond, **kw)
+
+    def final_errs(name, res, exacts):
+        finals = res.final if isinstance(res.final, tuple) else (res.final,)
+        errs = []
+        for fin, ex in zip(finals, exacts, strict=True):
+            fin = fin.double().reshape(ex.shape)
+            err = ((fin - ex).abs() / ex.abs().clamp(min=1e-300)).max().item()
+            check(bool(((fin - ex).abs() <= ORACLE_RTOL * ex.abs()).all()),
+                  f"{name}: final off the oracle (max rel {err:.3e})")
+            errs.append(f"{err:.3e}")
+        return errs
+
+    # [fault]: partition 2 lost at round 5 of 16 (FaultPolicy.fail_at)
+    surv = without(FAIL_P)
+    ex6_s = surv(q6.fused)[0]
+    ex1s_s = surv(q1s.fused, group=q1s.fused.group, num_groups=4)
+    q1s_sync = T.make_groupby_gla(tpch.q1_func, tpch.q1_cond, tpch.q1_group_small,
+                                  num_groups=4, d_total=d, num_aggs=4,
+                                  estimator="synchronized")
+    q6m = T.make_sum_gla(tpch.q6_func, tpch.q6_cond(tpch.Q6_LOW_WINDOW), d_total=d,
+                         estimator="multiple")
+    faulted = {}
+    for qname, gla, emit, family, kernel, exacts in (
+            ("q6", q6, "kernel", "single", "fused_round_step/scalar", (ex6_s,)),
+            ("q1-small", q1s, "kernel", "single", "fused_round_step/group", (ex1s_s,)),
+            ("q1-small", q1s_sync, "kernel", "synchronized", "fused_round_step/group",
+             (ex1s_s,)),
+            ("[q6, q1-small]", T.GLABundle([q6, q1s]), "kernel", "single",
+             "fused_round_step/bundle", (ex6_s, ex1s_s)),
+            ("q6", q6m, "round", "multiple", None, (ex6_s,))):
+        name = f"fault {qname} {family}"
+        qs = T.QuerySpec(gla, rounds=ROUNDS, emit=emit)
+        expected = {kernel: ROUNDS} if kernel else {}
+        base = twins[qname] if family == "single" else None
+        t_base = None
+        if base is None:
+            FK.reset_launch_counts()
+            t0 = time.perf_counter()
+            base = drive(T.Session(qs, shards, device=dev))
+            torch.cuda.synchronize()
+            t_base = time.perf_counter() - t0
+            path_launches(f"{name}: uninterrupted", expected)
+        FK.reset_launch_counts()
+        t0 = time.perf_counter()
+        sess = T.Session(qs.with_(fault=T.FaultPolicy(family, fail_at={FAIL_P: FAIL_R})),
+                         shards, device=dev)
+        res = drive(sess)
+        torch.cuda.synchronize()
+        e2e[name] = time.perf_counter() - t0
+        got = path_launches(name, expected)
+        if family == "single":
+            faulted[qname] = res
+        no_nan(name, res)
+        check(first_rounds_equal(res.estimates, base.estimates, FAIL_R)
+              and first_rounds_equal(res.snapshots, base.snapshots, FAIL_R),
+              f"{name}: rounds before the failure differ from the uninterrupted run")
+        widths = []
+        for e, eb in zip(members(res.estimates), members(base.estimates), strict=True):
+            after = slice(FAIL_R, None)
+            if family == "single":
+                check(bool(torch.isfinite(e.lower).all() and torch.isfinite(e.upper).all()),
+                      f"{name}: a bound is not finite")
+                w, wb = (e.upper - e.lower)[-1].max().item(), (eb.upper - eb.lower)[-1].max().item()
+                check(w > wb, f"{name}: last round {w} not wider than uninterrupted {wb}")
+                widths.append(f"{w:.6g} > {wb:.6g}")
+            elif family == "synchronized":
+                check(all(torch.equal(x[after], x[FAIL_R - 1].expand_as(x[after]))
+                          for x in (e.estimate, e.lower, e.upper)),
+                      f"{name}: rounds {FAIL_R}-{ROUNDS - 1} not frozen at round {FAIL_R - 1}")
+            else:
+                check(bool(torch.isneginf(e.lower[after]).all()
+                           and torch.isposinf(e.upper[after]).all()),
+                      f"{name}: bounds not (-inf, +inf) from round {FAIL_R}")
+        say("fault", query=qname, estimator=family, emit=emit,
+            fail_at={FAIL_P: FAIL_R}, first_rounds_vs_uninterrupted="bitwise",
+            last_width_vs_uninterrupted=widths or None,
+            final_vs_survivors_max_rel_err=final_errs(name, res, exacts),
+            seconds=f"{e2e[name]:.3f}",
+            uninterrupted_seconds=None if t_base is None else f"{t_base:.3f}",
+            launches=got)
+
+    # [fault-stream]: the npy copy dies under partition 2 inside round 5
+    c_fail = FAIL_R * per + per // 2
+    for qname, gla, kernel in streamed[:2]:
+        name = f"fault-stream {qname}"
+        FK.reset_launch_counts()
+        t0 = time.perf_counter()
+        sess = T.Session(spec(gla).with_(fault=T.FaultPolicy("single")),
+                         FT.FailingSource(npy_src, {FAIL_P: c_fail}), device=dev)
+        res = drive(sess)
+        torch.cuda.synchronize()
+        e2e[name] = time.perf_counter() - t0
+        got = path_launches(name, {kernel: ROUNDS})
+        check(sess._fail_at == {FAIL_P: FAIL_R},
+              f"{name}: failure recorded as {sess._fail_at}, not {{{FAIL_P}: {FAIL_R}}}")
+        inj = faulted[qname]
+        check(same(res.final, inj.final) and same(res.snapshots, inj.snapshots)
+              and same(res.estimates, inj.estimates),
+              f"{name}: differs from the resident session with fail_at")
+        say("fault-stream", query=qname, fail_chunk={FAIL_P: c_fail},
+            recorded_fail_at=sess._fail_at, bitwise_vs_resident_fail_at=True,
+            seconds=f"{e2e[name]:.3f}", slices_read=sess.io_stats["slices"],
+            launches=got)
+    FK.reset_launch_counts()
+    sess = T.Session(spec(q6), FT.FailingSource(npy_src, {FAIL_P: c_fail}), device=dev)
+    lost = None
+    try:
+        drive(sess)
+    except FT.PartitionLostError as err:
+        lost = str(err)
+    check(lost is not None and f"[{FAIL_P}]" in lost,
+          f"fault-stream without a policy: no PartitionLostError naming [{FAIL_P}]")
+    got = path_launches("fault-stream q6, no policy", {"fused_round_step/scalar": FAIL_R})
+    say("fault-stream", query="q6", policy=None, raised=repr(lost),
+        rounds_run=sess.steps_taken, launches=got)
+
+    # [pause]: Q1-large paused after 5 rounds, resumed here and in a fresh
+    # process (which makes the same data again from SEED and reuses the
+    # kernels built under build/)
+    ck = work / "q1-large.ckpt"
+    FK.reset_launch_counts()
+    base = drive(T.Session(spec(q1l), shards, device=dev))
+    path_launches("pause: q1-large uninterrupted", {"fused_round_step/group": ROUNDS})
+    FK.reset_launch_counts()
+    sess = T.Session(spec(q1l), shards, device=dev)
+    for _ in range(5):
+        sess.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess.pause(ck)
+    t_pause = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = T.Session.resume(ck, q1l, shards, device=dev)
+    torch.cuda.synchronize()
+    t_resume = time.perf_counter() - t0
+    res = drive(back)
+    torch.cuda.synchronize()
+    got = path_launches("pause q1-large", {"fused_round_step/group": ROUNDS})
+    check(back.steps_taken == ROUNDS and same(res.final, base.final)
+          and same(res.snapshots, base.snapshots) and same(res.estimates, base.estimates),
+          "pause: the resumed run differs from the uninterrupted one")
+    del sess, back, res
+    torch.cuda.empty_cache()  # room for the child's copy of the data
+    t0 = time.perf_counter()
+    child = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), RESUME_CHILD,
+                            str(ck)], capture_output=True, text=True, timeout=600)
+    t_child = time.perf_counter() - t0
+    check(child.returncode == 0, f"pause: the resume process failed:\n{child.stderr[-3000:]}")
+    out = json.loads(child.stdout.strip().splitlines()[-1])
+    check(out["resumed_at"] == 5 and out["steps"] == ROUNDS
+          and out["digest"] == digest((base.final, base.estimates)),
+          f"pause: the fresh process's run differs from the uninterrupted one: {out}")
+    say("pause", query="q1-large(2^13 buckets)", emit="kernel", paused_after=5,
+        checkpoint_bytes=ck.stat().st_size, pause_s=f"{t_pause:.3f}",
+        resume_s=f"{t_resume:.3f}", in_process="bitwise", fresh_process="bitwise",
+        fresh_process_s=f"{t_child:.3f}", fresh_data_s=f"{out['data_s']:.3f}",
+        fresh_resume_s=f"{out['resume_s']:.3f}", fresh_run_s=f"{out['run_s']:.3f}",
+        launches=got)
+
+    # [elastic]: Q6 and Q1-small paused at round 4 on P=8, resumed on 4 and
+    # on 16 partitions and taken 8 -> 4 -> 8; each view's round-slices are
+    # gathered on the card from the resident table
+    slice_all = sum(v.numel() * v.element_size() for v in shards.values()) // ROUNDS
+    at = 4
+    for qname, gla, kernel in streamed[:2]:
+        twin = twins[qname]
+        FK.reset_launch_counts()
+        sess = T.Session(spec(gla), shards, device=dev)
+        for _ in range(at):
+            sess.step()
+        ck = work / "elastic.ckpt"
+        sess.pause(ck)
+        path_launches(f"elastic {qname}: first {at} rounds", {kernel: at})
+        for chain in ((4,), (16,), (4, 8)):
+            name = f"elastic {qname} 8->" + "->".join(map(str, chain))
+            FK.reset_launch_counts()
+            torch.cuda.synchronize()
+            mem0 = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            path_ = ck
+            for j, pn in enumerate(chain):
+                back = T.Session.resume(path_, gla, shards, partitions=pn, device=dev)
+                carry_r, r0 = back._states, back.steps_taken
+                if j + 1 < len(chain):
+                    back.step()
+                    back.step()
+                    path_ = work / f"elastic-{j}.ckpt"
+                    back.pause(path_)
+            res = drive(back)
+            torch.cuda.synchronize()
+            e2e[name] = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - mem0
+            got = path_launches(name, {kernel: ROUNDS - at})
+            ref_final = twin.final
+            tol = SUM_RTOL * ref_final.abs().max().item()
+            check(torch.allclose(res.final, ref_final, rtol=SUM_RTOL, atol=tol),
+                  f"{name}: final off the uninterrupted run by more than SUM_RTOL")
+            check(torch.equal(res.snapshots.scanned, twin.snapshots.scanned)
+                  and torch.equal(res.snapshots.matched, twin.snapshots.matched),
+                  f"{name}: scanned/matched differ from the uninterrupted run")
+            check(peak <= 2 * slice_all,
+                  f"{name}: peak device memory {peak} B above the resident table "
+                  f"exceeds two round-slices ({2 * slice_all} B)")
+            # K1 at the new partition count against its plain version, on the
+            # round-slice it ran first, from the carry the resume made
+            view = T.repartition(shards, chain[-1])
+            per_new = view.spec.C // ROUNDS
+            sl_new = view.slice_cols(r0 * per_new, (r0 + 1) * per_new)
+            vals_n, w_n, gids_n = FK.project(gla.fused, sl_new)
+            if gids_n is None:
+                cin = torch.cat([carry_r.sum, carry_r.sumsq, carry_r.matched[:, None]], 1).contiguous()
+                k, r_ = FK.scalar_round_step(vals_n, w_n, cin), ref.scalar_round_step(vals_n, w_n, cin)
+                err = compare(f"{name}: K1 scalar", (k[:, :2], k[:, 2]), (r_[:, :2], r_[:, 2]), {1})
+                kname = "fused_round_step/scalar"
+            else:
+                cin = (carry_r.sum.contiguous(), carry_r.sumsq.contiguous(),
+                       carry_r.matched.contiguous())
+                err = compare(f"{name}: K1 group", FK.group_round_step(vals_n, w_n, gids_n, *cin),
+                              ref.group_round_step(vals_n, w_n, gids_n, *cin), {2})
+                kname = "fused_round_step/group"
+            checks[kname] = max(checks[kname], err)
+            zero_children = int((carry_r.matched.reshape(chain[-1], -1) == 0).all(dim=1).sum())
+            del sl_new, vals_n, w_n, gids_n
+            say("elastic", query=qname, chain="8->" + "->".join(map(str, chain)),
+                paused_at=at, final_rel_err_vs_uninterrupted=(
+                    (res.final.double() - ref_final.double()).abs().max().item()
+                    / ref_final.double().abs().max().item()),
+                counters_vs_uninterrupted="exact", peak_device_bytes=peak,
+                peak_in_slices=f"{peak / slice_all:.3f}",
+                k1_vs_plain=dict(kernel=kname, shape=tuple(carry_r.sum.shape),
+                                 zero_carries=zero_children, max_abs_err=err),
+                seconds=f"{e2e[name]:.3f}", launches=got)
+
+    # [straggler]: partition 7 at a quarter of the others' speed
+    sched = T.straggler_schedule(P, C, ROUNDS, SPEEDS)
+    q6sync = T.make_sum_gla(tpch.q6_func, tpch.q6_cond(tpch.Q6_LOW_WINDOW), d_total=d,
+                            estimator="synchronized")
+    ex6_3 = without(3)(q6.fused)[0]
+    for name, fn, expected, exacts, scanned in (
+            ("q6 single async, emit=kernel (K2)",
+             lambda: T.run_query(T.QuerySpec(q6, schedule=sched, emit="kernel"), shards,
+                                 device=dev),
+             {"fused_prefix_states": 1}, (exact6,), L * sched[:, 1:].sum(axis=0)),
+            ("q6 synchronized, sync=True, emit=chunk",
+             lambda: T.run_query(T.QuerySpec(q6sync, schedule=sched, sync=True,
+                                             emit="chunk"), shards, device=dev),
+             {}, (exact6,), L * P * sched[:, 1:].min(axis=0)),
+            ("q1-small, emit=round_masked",
+             lambda: T.run_query(T.QuerySpec(q1s, schedule=sched, emit="round_masked"),
+                                 shards, device=dev),
+             {}, (exact1s,), L * sched[:, 1:].sum(axis=0)),
+            ("run_with_failures q6, dead [3], emit=kernel (K2)",
+             lambda: FT.run_with_failures(q6, shards, dead_partitions=[3], emit="kernel",
+                                          device=dev),
+             {"fused_prefix_states": 1}, (ex6_3,), None)):
+        FK.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        e2e[f"straggler {name}"] = time.perf_counter() - t0
+        got = path_launches(f"straggler {name}", expected)
+        no_nan(name, res)
+        for e in members(res.estimates):
+            check(torch.isfinite(e.estimate).all().item(), f"{name}: estimates not finite")
+        if scanned is not None:
+            check(res.snapshots.scanned.cpu().numpy().tolist() == scanned.tolist(),
+                  f"{name}: per-round scanned rows differ from the schedule's")
+        say("straggler", path=name, speeds=SPEEDS, schedule_last_partition=sched[-1].tolist(),
+            final_max_rel_err=final_errs(name, res, exacts),
+            seconds=f"{e2e[f'straggler {name}']:.3f}", launches=got)
+    FK.reset_launch_counts()
+    t0 = time.perf_counter()
+    floor = FT.variance_floor(q6, shards, [3], device=dev)
+    got = path_launches("straggler variance_floor", {})
+    check(floor > 0.0, f"variance floor {floor} is not above 0")
+    say("straggler", path="variance_floor q6, dead [3], emit=chunk", floor=floor,
+        seconds=f"{time.perf_counter() - t0:.3f}", launches=got)
+
     say("main-path launches", **launches)
     for k, n in launches.items():
         if k in OFF_PATH:

@@ -25,19 +25,36 @@ in any function of ``scan.py``, ``jnp.maximum`` clamps in
 ``repro_torch/core/`` directory would inherit those rules; the flat layout
 keeps the module names without the trap.
 
+Failures and checkpoints: ``FaultPolicy`` (and ``repro_torch.fault``'s
+``run_with_failures``, ``FailingSource``) applies paper §4.6 to live
+sessions, ``Session.pause``/``Session.resume`` checkpoint through
+``repro_torch.ckpt`` and resume on another partition count through
+``RepartitionedSource``; ``engine.straggler_schedule`` and
+``emit="round_masked"`` run heterogeneous partition speeds.
+
 Entry points take ``device=`` and default to ``"cuda"``; with no card they
 raise unless the caller asks for ``"cpu"``.  The package imports ``torch``
-and ``numpy`` only — never ``jax`` and nothing of ``repro``.
+and ``numpy`` only — never ``jax`` and nothing of ``repro`` (nor
+``msgpack`` or ``zstandard``).
 """
+from repro_torch import ckpt, fault
 from repro_torch.data.encodings import BitPackedEncoding, DictEncoding
 from repro_torch.data.source import (
     ChunkSource,
     EncodedSource,
     InMemorySource,
     NpyMmapSource,
+    PartitionLostError,
+    RepartitionedSource,
     as_source,
+    repartition,
 )
-from repro_torch.engine import QueryResult, run_queries, run_query
+from repro_torch.engine import (
+    QueryResult,
+    run_queries,
+    run_query,
+    straggler_schedule,
+)
 from repro_torch.gla import (
     GLABundle,
     debucket,
@@ -47,6 +64,7 @@ from repro_torch.gla import (
     make_sum_gla,
 )
 from repro_torch.session import (
+    FaultPolicy,
     RoundProgress,
     Session,
     abs_width,
@@ -64,14 +82,17 @@ __all__ = [
     "DictEncoding",
     "EncodedSource",
     "Estimate",
+    "FaultPolicy",
     "FusedSpec",
     "GLA",
     "GLABundle",
     "InMemorySource",
     "NpyMmapSource",
+    "PartitionLostError",
     "ProbeTable",
     "QueryResult",
     "QuerySpec",
+    "RepartitionedSource",
     "RoundProgress",
     "Session",
     "abs_width",
@@ -79,12 +100,16 @@ __all__ = [
     "as_source",
     "any_of",
     "budget",
+    "ckpt",
     "debucket",
+    "fault",
     "hash_bucket",
     "make_groupby_gla",
     "make_join_groupby_gla",
     "make_sum_gla",
     "rel_width",
+    "repartition",
     "run_queries",
     "run_query",
+    "straggler_schedule",
 ]

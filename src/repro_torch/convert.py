@@ -11,7 +11,8 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.estimators import SumState
+from repro_torch.estimators import MultState, SumState
+from repro_torch.uda import tree_map
 
 
 def _tensor(x, dev: torch.device) -> torch.Tensor:
@@ -29,3 +30,16 @@ def state_from_reference(state, device="cuda") -> SumState:
     """A reference ``SumState`` (any leaf shapes) -> the port's ``SumState``."""
     dev = resolve_device(device)
     return SumState(*(_tensor(getattr(state, f), dev) for f in SumState._fields))
+
+
+def mult_state_from_reference(state, device="cuda") -> MultState:
+    """A reference ``MultState`` (numpy or JAX leaves) -> the port's."""
+    dev = resolve_device(device)
+    return MultState(state_from_reference(state.base, dev),
+                     _tensor(state.est, dev), _tensor(state.estvar, dev))
+
+
+def state_to_numpy(state):
+    """A port state (any tree of tensors) -> the same tree of numpy arrays,
+    the form the reference's states take through ``np.asarray``."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), state)

@@ -1,7 +1,9 @@
 """Chunk sources — out-of-core scans; port of ``repro/data/source.py``
 (``ColumnSpec``/``ChunkSpec`` l.83-124, ``ChunkSource`` l.125-240,
 ``InMemorySource`` l.251-278, ``NpyMmapSource`` l.280-332,
-``EncodedSource`` l.334-463, ``as_source`` l.704-713).
+``EncodedSource`` l.334-463, ``PartitionLostError`` l.65-80,
+``RepartitionedSource`` l.614-701, ``as_source``/``repartition``
+l.704-722).
 
 The paper estimates over tables far larger than any device holds.  A
 :class:`ChunkSource` decouples the scan from residency: it yields
@@ -21,6 +23,10 @@ while finals, snapshots and bounds stay bitwise those of the resident run.
     (``data/encodings.py``) stored physical, with the reference's
     ``encodings.json``; it presents the plain logical ``spec``, ships the
     physical bytes, and the scan decodes them on the device.
+  * :class:`RepartitionedSource` — a P'-way view of a P-way source
+    (elastic resume): over a resident source its round-slices are
+    gathered on the device the data lives on (``device_slices``), over a
+    streaming one on the host.
 
 Streaming sources return host NumPy arrays from :meth:`ChunkSource.slice_cols`
 (the reference's API) and can copy a slice straight into caller buffers
@@ -28,9 +34,9 @@ Streaming sources return host NumPy arrays from :meth:`ChunkSource.slice_cols`
 staging memory).  Every source publishes the reference's content
 :meth:`ChunkSource.fingerprint` — sha256 over ``repr(spec)``, the per-chunk
 ``_mask`` sums and strided samples of every column's logical values — equal
-to the reference's on the same rows.  ``ParquetSource``,
-``RepartitionedSource`` and ``PartitionLostError`` are not ported yet
-(ROADMAP Queue 1).
+to the reference's on the same rows.  A source whose storage dies
+mid-scan raises :class:`PartitionLostError`.  ``ParquetSource`` is not
+ported (``pyarrow`` is not a dependency of the port).
 """
 from __future__ import annotations
 
@@ -47,6 +53,23 @@ from repro_torch.data import encodings as ENC
 # Bound on host bytes touched per fingerprint/mask-sum pass (the reference's).
 _SAMPLE_CHUNKS = 8
 _SAMPLE_ELEMS = 256
+
+
+class PartitionLostError(RuntimeError):
+    """A partition's storage or device vanished mid-scan.
+
+    Raised by a source (and surfaced through the session's prefetcher)
+    when a slice read touches a partition that no longer exists.  A
+    session with a ``repro_torch.session.FaultPolicy`` records the failure
+    round and retries the read; the source then serves the dead
+    partitions' columns and masks zeroed — the data is gone, not stale.
+    Without a policy the error propagates: losing data is not silently
+    survivable by default.
+    """
+
+    def __init__(self, partitions):
+        self.partitions = tuple(sorted(int(p) for p in partitions))
+        super().__init__(f"partitions lost mid-scan: {list(self.partitions)}")
 
 
 class ColumnSpec(NamedTuple):
@@ -66,6 +89,12 @@ class ChunkSpec(NamedTuple):
     C: int
     L: int
     columns: Tuple[ColumnSpec, ...]  # sorted by name; includes "_mask"
+
+    def meta(self) -> dict:
+        """JSON-able form for checkpoint envelopes (the reference's)."""
+        return {"P": self.P, "C": self.C, "L": self.L,
+                "columns": [[c.name, c.dtype, list(c.trailing)]
+                            for c in self.columns]}
 
     def slice_like(self, width: int) -> dict:
         """{name: (shape, dtype name)} of one [P, width, L] slice."""
@@ -105,11 +134,15 @@ class ChunkSource:
     after any decode; ``encodings`` (name-sorted tuple of ``(column,
     Encoding)``) names the columns that :meth:`slice_cols` returns in
     *physical* form.  ``resident`` is True when the whole dataset lives on
-    the device.  ``_mask`` is never encoded.
+    the device.  ``device_slices`` is True when :meth:`slice_cols` returns
+    tensors already on that device (a view over resident data): sessions
+    take them as they are, with no host staging.  ``_mask`` is never
+    encoded.
     """
 
     spec: ChunkSpec
     resident: bool = False
+    device_slices: bool = False
     encodings: tuple = ()
 
     def slice_cols(self, lo: int, hi: int) -> dict:
@@ -214,10 +247,15 @@ class InMemorySource(ChunkSource):
         return {k: v[:, lo:hi] for k, v in self.shards.items()}
 
     def mask_chunk_sums(self) -> np.ndarray:
-        # one device-side reduction; only the [P, C] result crosses to host
+        # one device-side reduction; only the [P, C] result crosses to host.
+        # A chunk's sum of 0/1 rows is exact in float32 up to 2**24 rows,
+        # and summing a float32 mask in float64 would first make a float64
+        # copy of all of it (twice the mask's bytes on the device)
         if getattr(self, "_mask_sums", None) is None:
-            self._mask_sums = _numpy(
-                self.shards["_mask"].sum(dim=2, dtype=torch.float64))
+            mask = self.shards["_mask"]
+            exact32 = mask.dtype == torch.float32 and mask.shape[2] <= 1 << 24
+            self._mask_sums = _numpy(mask.sum(
+                dim=2, dtype=torch.float32 if exact32 else torch.float64).double())
         return self._mask_sums
 
 
@@ -362,6 +400,101 @@ class EncodedSource(_HostColumns):
         return directory
 
 
+class RepartitionedSource(ChunkSource):
+    """A P'-way view of a P-way source — elastic resume.
+
+    Merging (P' < P, P % P' == 0, k = P / P'): new partition i
+    round-robin-interleaves the chunk streams of old partitions
+    [i·k, (i+1)·k) — new chunk j is old (partition i·k + j mod k, chunk
+    j // k) — so C' = k·C.  Splitting (P' > P, P' % P == 0, k = P' / P,
+    k | C): new partition p·k + j de-interleaves old partition p's stream,
+    taking old chunks j, j+k, j+2k, …, so C' = C / k.  The reference's
+    convention: when every old partition has scanned the same chunk prefix
+    [0, cur), the scanned rows are the prefix [0, cur·k) (merge) or
+    [0, cur/k) (split, k | cur) of every new stream, so a resumed scan
+    continues where the paused one stopped.  Merge and split by the same
+    factor are mutual inverses (:func:`repartition` returns the inner
+    source for the round trip).
+
+    The view is never ``resident``: no whole second copy of the data
+    exists in the new layout.  Over a resident inner each round-slice is
+    gathered where the inner's tensors live — on the card for card data —
+    and ``device_slices`` is True; over a streaming inner the slice is
+    gathered on the host and :meth:`read_into` (the base class's) copies it
+    into the caller's staging.  ``fingerprint`` is the reference's content
+    hash of the view's own layout, equal to the reference's
+    ``RepartitionedSource`` fingerprint on the same rows.
+    """
+
+    def __init__(self, inner: ChunkSource, partitions: int):
+        if not isinstance(inner, ChunkSource):
+            raise TypeError("RepartitionedSource wraps a ChunkSource; use "
+                            "repartition() for plain shards dicts")
+        P, C, L = inner.spec.P, inner.spec.C, inner.spec.L
+        P_new = int(partitions)
+        if P_new <= 0:
+            raise ValueError(f"partitions must be positive, got {partitions}")
+        if (P % P_new) if P_new <= P else (P_new % P):
+            raise ValueError(
+                f"cannot repartition {P} -> {P_new}: the new partition "
+                "count must divide the old one (merge) or be a multiple "
+                "of it (split)")
+        if P_new <= P:
+            k = P // P_new
+            C_new = C * k
+        else:
+            k = P_new // P
+            if C % k:
+                raise ValueError(
+                    f"cannot split {P} -> {P_new}: the factor {k} must "
+                    f"divide the per-partition chunk count C={C}")
+            C_new = C // k
+        self.inner = inner
+        self._factor = k
+        self._is_merge = P_new <= P
+        self.spec = ChunkSpec(P_new, C_new, L, inner.spec.columns)
+        # the physical layout is the data's, not the partitioning's
+        self.encodings = inner.encodings
+        self.device_slices = inner.resident or inner.device_slices
+
+    def _index_maps(self, lo: int, hi: int):
+        """Old (partition, chunk within [olo, ohi)) index grids [P', hi-lo]
+        of new chunks [lo, hi) of every new partition, and [olo, ohi)."""
+        k = self._factor
+        j = np.arange(lo, hi)
+        i = np.arange(self.spec.P)
+        if self._is_merge:
+            olo, ohi = lo // k, (hi - 1) // k + 1
+            rows = i[:, None] * k + (j % k)[None, :]
+            cols = np.broadcast_to((j // k)[None, :] - olo, rows.shape)
+        else:
+            olo, ohi = lo * k, hi * k
+            rows = np.broadcast_to((i // k)[:, None], (i.size, j.size))
+            cols = (j[None, :] - lo) * k + (i % k)[:, None]
+        return rows, cols, olo, ohi
+
+    def slice_cols(self, lo: int, hi: int) -> dict:
+        rows, cols, olo, ohi = self._index_maps(lo, hi)
+        block = self.inner.slice_cols(olo, ohi)
+        out, idx = {}, {}
+        for name, v in block.items():
+            if isinstance(v, torch.Tensor):  # gathered where the data lives
+                if v.device not in idx:
+                    idx[v.device] = tuple(torch.from_numpy(np.array(a)).to(v.device)
+                                          for a in (rows, cols))
+                out[name] = v[idx[v.device]]
+            else:
+                out[name] = np.asarray(v)[rows, cols]
+        return out
+
+    def mask_chunk_sums(self) -> np.ndarray:
+        # an index remap of the inner counts: no data read
+        if getattr(self, "_mask_sums", None) is None:
+            rows, cols, _, _ = self._index_maps(0, self.spec.C)
+            self._mask_sums = self.inner.mask_chunk_sums()[rows, cols]
+        return self._mask_sums
+
+
 def as_source(data) -> ChunkSource:
     """A ChunkSource passes through; a plain [P, C, L] shards dict wraps
     into an :class:`InMemorySource`."""
@@ -371,3 +504,28 @@ def as_source(data) -> ChunkSource:
         return InMemorySource(data)
     raise TypeError(f"expected a ChunkSource or a [P, C, L] shards dict, got "
                     f"{type(data).__name__}")
+
+
+def repartition(data, partitions: int) -> ChunkSource:
+    """P'-way :class:`RepartitionedSource` view of ``data``: the source
+    itself when the partition count already matches, and the inner source
+    when ``data`` is a view of it with P' partitions (merge and split are
+    mutual inverses, so no view of a view is built for a round trip)."""
+    src = as_source(data)
+    partitions = int(partitions)
+    if partitions == src.spec.P:
+        return src
+    if isinstance(src, RepartitionedSource) and partitions == src.inner.spec.P:
+        return src.inner
+    return RepartitionedSource(src, partitions)
+
+
+def place(source: ChunkSource, device) -> ChunkSource:
+    """``source`` with its resident tensors on ``device`` (a no-op for
+    tensors already there): a resident source, or the resident data under
+    a view whose slices are gathered on the device."""
+    if source.resident:
+        return InMemorySource(source.shards, device=device)
+    if isinstance(source, RepartitionedSource) and source.device_slices:
+        return RepartitionedSource(place(source.inner, device), source.spec.P)
+    return source

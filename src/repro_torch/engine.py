@@ -14,7 +14,10 @@ Execution model (paper §3.2–§3.4):
     async snapshots take each partition at its own progress (valid for the
     single estimator under global randomization), ``sync=True`` truncates
     every partition to the global minimum (the Wu et al. barrier).
-  * node failure: ``alive`` masks partitions out of merging.
+  * node failure: ``alive`` masks partitions out of merging
+    (``repro_torch.fault`` builds the masks and applies each estimation
+    model's consequences).
+  * :func:`straggler_schedule` gives partitions heterogeneous speeds.
   * :func:`run_queries` runs N queries over ONE pass of the shards as a
     :func:`repro_torch.gla.GLABundle` and unbundles the results.
 
@@ -49,6 +52,29 @@ def uniform_schedule(num_partitions: int, num_chunks: int, rounds: int) -> np.nd
     """Cumulative chunk boundaries [P, R+1]; round r covers [b[r], b[r+1])."""
     b = np.round(np.linspace(0, num_chunks, rounds + 1)).astype(np.int32)
     return np.broadcast_to(b, (num_partitions, rounds + 1)).copy()
+
+
+def straggler_schedule(num_partitions: int, num_chunks: int, rounds: int,
+                       speeds, seed: int = 0) -> np.ndarray:
+    """Per-partition progress curves under heterogeneous speeds — the
+    reference's (same ``default_rng(seed)`` draws, same schedule).
+
+    ``speeds[p]`` is partition p's relative throughput; progress accrues
+    proportionally with small multiplicative jitter, capped at num_chunks.
+    Every partition finishes in the last round, so the query completes:
+    stragglers only delay, as in the paper's asynchronous model.
+    """
+    rng = np.random.default_rng(seed)
+    speeds = np.asarray(speeds, np.float64)
+    base = num_chunks / speeds.max()
+    sched = np.zeros((num_partitions, rounds + 1), np.int32)
+    for p in range(num_partitions):
+        jitter = rng.uniform(0.85, 1.15, rounds)
+        inc = speeds[p] * base / rounds * jitter
+        cum = np.minimum(np.cumsum(inc), num_chunks)
+        sched[p, 1:] = np.round(cum).astype(np.int32)
+    sched[:, -1] = num_chunks  # completion
+    return sched
 
 
 # ---------------------------------------------------------------------------
@@ -133,6 +159,8 @@ def _run_vmapped(gla: GLA, shards: dict, sched: np.ndarray, alive, *,
         if mode == "sync":
             raise NotImplementedError("sync mode requires emit='chunk'")
         finals, round_states = SC.scan_rounds(gla, shards, lanes, R)
+    elif emit == "round_masked":  # as the reference: no sync barrier here
+        finals, round_states = SC.scan_rounds_masked(gla, shards, sched, lanes)
     else:
         raise ValueError(f"unknown emit: {emit!r}")
 
@@ -174,9 +202,9 @@ def normalize_plan(qspec: QS.QuerySpec, source) -> QS.QuerySpec:
     gla, emit = qspec.gla, qspec.resolved_emit()
     rounds, schedule = qspec.rounds, qspec.schedule
     P, C = source.spec.P, source.spec.C
-    if emit not in ("chunk", "round", "kernel"):
+    if emit not in ("chunk", "round", "round_masked", "kernel"):
         raise ValueError(f"unknown emit: {emit!r} (the port runs 'chunk', "
-                         "'round' and 'kernel')")
+                         "'round', 'round_masked' and 'kernel')")
     if emit == "kernel":
         if gla.members:
             # one launch serves every member: either all publish a fused
@@ -214,7 +242,8 @@ def normalize_plan(qspec: QS.QuerySpec, source) -> QS.QuerySpec:
                 raise ValueError(
                     f"emit={emit!r} emits snapshots at uniform round "
                     "boundaries and cannot honor a non-uniform schedule — "
-                    "use emit='chunk' (prefix states)")
+                    "use emit='round_masked' (large states, any schedule) "
+                    "or emit='chunk' (prefix states)")
     if schedule is None:
         schedule = uniform_schedule(P, C, rounds)
     schedule = np.asarray(schedule)

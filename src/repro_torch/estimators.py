@@ -1,9 +1,10 @@
 """Sampling estimators for parallel on-line aggregation — paper §4.
 
-Port of ``repro/core/estimators.py:40-133,192-202``: the generic sampling-without-
+Port of ``repro/core/estimators.py:40-176,192-202``: the generic sampling-without-
 replacement estimator (Eq. 2) with its unbiased variance estimator (Eq. 4),
-and the single-estimator model (paper Alg. 1, corrected: ``scanned`` = |S|
-counts every live item, ``sum``/``sumsq`` only predicate matches).
+the single-estimator model (paper Alg. 1, corrected: ``scanned`` = |S|
+counts every live item, ``sum``/``sumsq`` only predicate matches) and the
+multiple-estimators (stratified) model (paper Alg. 2, :class:`MultState`).
 
 The functions broadcast: ``scanned`` may carry fewer trailing axes than
 ``sum_`` (one count per round or partition against ``[..., A]`` or
@@ -88,6 +89,55 @@ def single_estimate(state: SumState, confidence, *, d_total) -> Estimate:
     lo, hi = normal_bounds(est, var, confidence)
     frac = state.scanned / max(float(d_total), 1.0)
     return Estimate(est, lo, hi, info={"var": var, "frac": frac})
+
+
+class MultState(NamedTuple):
+    """State of the multiple-estimators (stratified) model — paper Alg. 2.
+
+    ``base`` accumulates locally; ``(est, estvar)`` are produced by
+    EstimatorTerminate at each partition and summed by EstimatorMerge.
+    """
+
+    base: SumState
+    est: torch.Tensor
+    estvar: torch.Tensor
+
+
+def mult_state_zero(device=None, dtype=torch.float32) -> MultState:
+    z = torch.zeros((), dtype=dtype, device=device)
+    return MultState(SumState(z, z.clone(), z.clone(), z.clone()), z.clone(), z.clone())
+
+
+def mult_estimator_terminate(state: MultState, *, d_local) -> MultState:
+    """Paper Alg. 2 EstimatorTerminate: the local estimator of partition i.
+
+    est_i    = |D_i|/count * sum
+    estvar_i = |D_i|(|D_i|-count)/(count^2(count-1)) * (count*sumSq - sum^2)
+
+    ``d_local`` is one |D_i| per partition, aligned to the state's leading
+    axes (``[P]`` against ``[P, ...]`` or ``[P, R, ...]`` states).  A
+    partition with fewer than two scanned rows gets ``+inf`` variance, never
+    NaN (:func:`variance_estimate`'s clamps).
+    """
+    b = state.base
+    d = _align(d_local, b.sum)
+    est = horvitz_estimate(b.sum, b.scanned, d)
+    var = variance_estimate(b.sum, b.sumsq, b.scanned, d)
+    return MultState(b, est, var)
+
+
+def mult_estimator_merge(a: MultState, b: MultState) -> MultState:
+    """Paper Alg. 2 EstimatorMerge: sum the local estimators and variances."""
+    return MultState(
+        base=SumState(*(x + y for x, y in zip(a.base, b.base))),
+        est=a.est + b.est,
+        estvar=a.estvar + b.estvar,
+    )
+
+
+def mult_estimate(state: MultState, confidence) -> Estimate:
+    lo, hi = normal_bounds(state.est, state.estvar, confidence)
+    return Estimate(state.est, lo, hi, info={"var": state.estvar})
 
 
 def join_scale(d_fact, s_fact, d_dim, s_dim):

@@ -2,7 +2,8 @@
 
 Port of ``repro/core/gla.py:37-133,149-523``:
 
-  * :func:`make_sum_gla`          — §4.3 single-table SUM/COUNT (Alg. 1)
+  * :func:`make_sum_gla`          — §4.3 single-table SUM/COUNT (Alg. 1;
+                                    Alg. 2 with ``estimator="multiple"``)
   * :func:`make_groupby_gla`      — §4.4 group-by aggregation (Alg. 3), with
                                     the hash-bucketed large-domain table
   * :func:`make_join_groupby_gla` — §4.5 join group-by with a replicated
@@ -18,7 +19,9 @@ out as ``B``, and states carry the same leading axis (uda module doc).
 States are float32 ``SumState``s, so every GLA here publishes the fused
 kernel contract (``FusedSpec``) that ``emit="kernel"`` runs, and the
 legacy ``kernel_cols`` projection (scalar with A == 1, and group-by) that
-it falls back to when the fused contract cannot be used.
+it falls back to when the fused contract cannot be used — except the
+``"multiple"`` estimator's, whose ``MultState`` no kernel publishes (as in
+the reference): it runs on ``emit="chunk"`` and ``"round"``.
 """
 from __future__ import annotations
 
@@ -145,11 +148,41 @@ def debucket(bucket_vals: torch.Tensor, raw_ids, bucket_bits: int):
 
 
 def _check_estimator(estimator: str) -> None:
-    if estimator == "multiple":
-        raise NotImplementedError(
-            "the 'multiple' (stratified) estimator is not ported yet")
-    if estimator not in ("single", "synchronized", "none"):
+    if estimator not in ("single", "multiple", "synchronized", "none"):
         raise ValueError(f"unknown estimator model: {estimator!r}")
+
+
+def _mult_gla(base: GLA, state_shape: tuple, *, squeeze: bool,
+              name: str) -> GLA:
+    """Paper Alg. 2 around a SumState GLA's accumulate: the state is a
+    :class:`estimators.MultState` whose ``base`` accumulates locally and
+    whose ``(est, estvar)`` (shape ``state_shape``) EstimatorTerminate
+    fills per partition with that partition's |D_i|.  Like the
+    reference's, it publishes no fused and no ``kernel_cols`` contract:
+    it runs on ``emit="chunk"``/``"round"``."""
+    def zero(device):
+        z = torch.zeros(state_shape, dtype=_F32, device=device)
+        return E.MultState(base=base.init(device), est=z, estvar=z.clone())
+
+    def acc(state: E.MultState, chunk: Chunk) -> E.MultState:
+        return E.MultState(base.accumulate(state.base, chunk), state.est,
+                           state.estvar)
+
+    def est_term(state: E.MultState, ctx) -> E.MultState:
+        return E.mult_estimator_terminate(state, d_local=ctx["d_local"])
+
+    def estimate(state: E.MultState, confidence, ctx=None) -> Estimate:
+        e = E.mult_estimate(state, confidence)
+        if not squeeze:
+            return e
+        return Estimate(e.estimate[..., 0], e.lower[..., 0], e.upper[..., 0],
+                        info={"var": e.info["var"][..., 0]})
+
+    return GLA(
+        init=zero, accumulate=acc, merge=_add,
+        terminate=lambda s: base.terminate(s.base),
+        estimator_terminate=est_term, estimator_merge=_add, estimate=estimate,
+        merge_is_additive=True, name=name)
 
 
 # ---------------------------------------------------------------------------
@@ -166,9 +199,10 @@ def make_sum_gla(
 ) -> GLA:
     """SUM(func(d)) WHERE cond(d) — paper query (1).
 
-    ``estimator``: "single" (Alg. 1), "synchronized" (Wu et al.; same state
-    as single — the barrier lives in the engine), or "none" (plain
-    aggregate, no estimation model).
+    ``estimator``: "single" (Alg. 1), "multiple" (Alg. 2: stratified, one
+    local estimator per partition, state :class:`estimators.MultState`),
+    "synchronized" (Wu et al.; same state as single — the barrier lives in
+    the engine), or "none" (plain aggregate, no estimation model).
     """
     _check_estimator(estimator)
     A = num_aggs
@@ -208,6 +242,10 @@ def make_sum_gla(
     def kernel_cols(chunk):  # the legacy scalar contract: A == 1 only
         return func(chunk), cond(chunk)
 
+    if estimator == "multiple":
+        single = GLA(init=zero_sum, accumulate=acc_sum, merge=_add,
+                     terminate=terminate)
+        return _mult_gla(single, (A,), squeeze=A == 1, name="sum-multiple")
     return GLA(
         init=zero_sum, accumulate=acc_sum, merge=_add, terminate=terminate,
         estimate=None if estimator == "none" else estimate,
@@ -224,8 +262,10 @@ def make_sum_gla(
 def segment_sum(data: torch.Tensor, gids: torch.Tensor, num_groups: int):
     """Per-batch segment sums: ``data [..., L, K]`` by ``gids [..., L]``
     into ``[..., G, K]``.  Ids outside [0, G) are dropped, as
-    ``jax.ops.segment_sum`` drops them.  Deterministic on the CPU
-    (``index_add_`` adds in row order there)."""
+    ``jax.ops.segment_sum`` drops them: they add into one row past the
+    table, which is cut off (no boolean indexing, so no wait for the
+    device).  Deterministic on the CPU (``index_add_`` adds in row order
+    there)."""
     lead = gids.shape[:-1]
     B = 1
     for n in lead:
@@ -233,10 +273,11 @@ def segment_sum(data: torch.Tensor, gids: torch.Tensor, num_groups: int):
     K = data.shape[-1]
     g = gids.reshape(B, -1).to(torch.int64)
     idx = g + torch.arange(B, device=g.device)[:, None] * num_groups
-    keep = ((g >= 0) & (g < num_groups)).reshape(-1)
-    out = torch.zeros((B * num_groups, K), dtype=data.dtype, device=data.device)
-    out.index_add_(0, idx.reshape(-1)[keep], data.reshape(-1, K)[keep])
-    return out.reshape(*lead, num_groups, K)
+    dump = B * num_groups
+    idx = torch.where((g >= 0) & (g < num_groups), idx, dump)
+    out = torch.zeros((dump + 1, K), dtype=data.dtype, device=data.device)
+    out.index_add_(0, idx.reshape(-1), data.reshape(-1, K))
+    return out[:dump].reshape(*lead, num_groups, K)
 
 
 def make_groupby_gla(
@@ -300,6 +341,11 @@ def make_groupby_gla(
         return func(chunk), cond(chunk), group(chunk)
 
     suffix = f"-b{bucket_bits}" if bucket_bits is not None else ""
+    if estimator == "multiple":
+        single = GLA(init=zero, accumulate=acc, merge=_add,
+                     terminate=lambda s: s.sum)
+        return _mult_gla(single, (G, A), squeeze=False,
+                         name=f"groupby-multiple{suffix}")
     return GLA(
         init=zero, accumulate=acc, merge=_add, terminate=lambda s: s.sum,
         estimate=None if estimator == "none" else estimate,
@@ -377,8 +423,8 @@ def make_join_groupby_gla(
         c = cond(chunk)
         return c * chunk[pt_valid.key][join_key(chunk).long()].to(c.dtype)
 
-    fused = inner.fused._replace(cond=fused_cond, group=fused_group,
-                                 probe_tables=(pt_group, pt_valid))
+    fused = None if inner.fused is None else inner.fused._replace(
+        cond=fused_cond, group=fused_group, probe_tables=(pt_group, pt_valid))
 
     est_fn = inner.estimate
     if est_fn is not None and d_dim is not None:

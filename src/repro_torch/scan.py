@@ -1,4 +1,4 @@
-"""Shared scan/merge core — port of ``repro/core/scan.py:70-461,483-588``.
+"""Shared scan/merge core — port of ``repro/core/scan.py:70-461,483-632``.
 
 Where the reference ``vmap``s a per-partition scan, the partition axis is
 written out here: columns are ``[P, C, L]`` and every state leaf carries a
@@ -12,6 +12,8 @@ Scan variants (selected by the engine's ``emit``):
                            arbitrary snapshot schedules.
   ``scan_rounds``          state only at round boundaries [P, R, ...];
                            uniform schedules (C % R == 0).
+  ``scan_rounds_masked``   state only at round boundaries, any schedule
+                           (per-partition windows, liveness-masked).
   ``fused_rounds_states``  one K1 launch per round-slice (all partitions);
                            group and bundle states on ``emit="kernel"``.
   ``fused_prefix_states``  one K2 launch for the whole data; scalar states
@@ -29,11 +31,14 @@ The reference launches its kernels once per partition; here the partition
 axis stays a batch axis and one launch covers all P partitions.
 ``scan_round_step``, ``fused_round_step`` and :data:`ROUND_DELTA_FNS` are
 also the session's per-round-slice primitives (``repro_torch.session``).
+:func:`merge_carries` and :func:`split_carries` carry a paused session's
+states to another partition count (elastic resume).
 """
 from __future__ import annotations
 
 from typing import Any, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import estimators as E
@@ -127,6 +132,76 @@ def scan_rounds(gla: GLA, cols: dict, lanes: int, rounds: int):
         views.append(view)
     final = fold_merge(gla.merge, st, lanes, dim=1) if lanes > 1 else st
     return final, tree_stack(views, dim=1)
+
+
+def scan_rounds_masked(gla: GLA, cols: dict, sched, lanes: int):
+    """Any-schedule path for large states: state only at round boundaries.
+
+    ``sched`` is the cumulative [P, R+1] chunk schedule.  Round r takes, in
+    chunk order, every chunk that lies in some partition's window
+    [sched[p, r], sched[p, r+1]) with each partition's ``_mask`` multiplied
+    by its own liveness (lo <= c < hi), as the reference's masked scan.
+    The reference also folds the chunks that lie in no partition's window,
+    fully masked; a fully masked chunk adds exact zeros to every state of
+    the port's GLAs (finite columns), so they are skipped here.  Returns
+    ``(final view [P, ...], views [P, R, ...])``."""
+    mask = cols["_mask"]
+    P = mask.shape[0]
+    sched = np.asarray(sched, np.int64)
+    st = stack_init(gla, _batch(P, lanes), mask.device)
+    views = []
+    for r in range(sched.shape[1] - 1):
+        lo, hi = sched[:, r], sched[:, r + 1]
+        chunks = np.unique(np.concatenate(
+            [np.arange(a, b) for a, b in zip(lo, hi)] + [np.zeros(0, np.int64)]))
+        # [chunks, P] liveness, moved to the device once per round
+        live = torch.from_numpy((chunks[:, None] >= lo) & (chunks[:, None] < hi)).to(
+            mask.device, mask.dtype)
+        for i, c in enumerate(chunks.tolist()):
+            chunk = {k: v[:, c] for k, v in cols.items()}
+            chunk["_mask"] = chunk["_mask"] * live[i][:, None]
+            st, _ = accumulate_chunk(gla, st, chunk, lanes)
+        views.append(fold_merge(gla.merge, st, lanes, dim=1) if lanes > 1 else st)
+    final = fold_merge(gla.merge, st, lanes, dim=1) if lanes > 1 else st
+    return final, tree_stack(views, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# elastic carry algebra (resume on another partition count)
+# ---------------------------------------------------------------------------
+
+def merge_carries(states: Pytree, group: int) -> Pytree:
+    """Fold a [P, ...] carry to [P/group, ...] partitions.
+
+    New partition i is the left fold (old partition i·group first, each
+    next one added onto it) of old partitions [i·group, (i+1)·group), the
+    association of :func:`fold_merge`.  Valid for additive merges only, the
+    contract the engine's weighted liveness merges already require."""
+    def m(x):
+        if x.shape[0] % group:
+            raise ValueError(f"cannot merge {x.shape[0]} partitions in groups of {group}")
+        g = x.reshape(x.shape[0] // group, group, *x.shape[1:])
+        acc = g[:, 0]
+        for j in range(1, group):
+            acc = acc + g[:, j]
+        return acc
+
+    return tree_map(m, states)
+
+
+def split_carries(states: Pytree, group: int) -> Pytree:
+    """Expand a [P, ...] carry to [P·group, ...] partitions.
+
+    Child p·group inherits parent p's whole carry; the other children start
+    from the additive identity (zeros).  To an additive merge where a carry
+    lives is unobservable, so merged snapshots, finals and estimates are
+    kept; ``merge_carries(split_carries(x, k), k)`` is ``x`` (x + 0)."""
+    def s(x):
+        z = torch.zeros_like(x)
+        return torch.stack([x, *[z] * (group - 1)], dim=1).reshape(
+            x.shape[0] * group, *x.shape[1:])
+
+    return tree_map(s, states)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """Interactive OLA sessions — the paper's headline user feature, §1/§3.4.
 
-Port of ``repro/core/session.py:101-215,290-356,415-880`` on resident
-shards: the user stops the computation as soon as the estimate is accurate
+Port of ``repro/core/session.py:101-1118``: the user stops the
+computation as soon as the estimate is accurate
 enough.  A :class:`Session` either runs the whole-scan program (no stopping
 rule — byte-for-byte ``engine.run_query``'s path) or advances the scan one
 round-slice at a time and evaluates a stopping rule between rounds, so a
@@ -29,19 +29,32 @@ events, so at most two round-slices are on the card and finals,
 snapshots and bounds are bitwise the resident run's.  An encoded source's
 physical columns are decoded on the device — by the fused step on the
 ``kernel_fused`` path, by :func:`repro_torch.data.encodings.decode_cols`
-before every other path.  Pause/resume, fault policies and meshes come in
-later slices.
+before every other path.  A view over resident data whose slices are
+gathered on the device (``RepartitionedSource``) is stepped round by round
+without host staging.
+
+Failures (paper §4.6 live): a :class:`FaultPolicy` injects partition loss
+at given rounds, or survives a ``PartitionLostError`` that a streaming
+source raises mid-scan, and applies its estimation model's consequences
+round by round (``repro_torch.fault``).  :meth:`Session.pause` checkpoints
+the per-partition carries and the scan cursor (``repro_torch.ckpt``);
+:meth:`Session.resume` continues from that round boundary, in this process
+or another, bitwise the uninterrupted run, or on another partition count
+(elastic resume: ``scan.merge_carries``/``split_carries`` over a
+``RepartitionedSource``).  Meshes come in a later slice.
 """
 from __future__ import annotations
 
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Callable, List, NamedTuple, Optional
+from typing import Any, Callable, List, Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import ckpt
 from repro_torch import engine as EN
+from repro_torch import fault as FT
 from repro_torch import scan as SC
 from repro_torch import spec as QS
 from repro_torch._device import resolve_device
@@ -50,6 +63,10 @@ from repro_torch.data import source as DS
 from repro_torch.uda import GLA, Estimate, tree_map, tree_stack
 
 Pytree = Any
+
+# the reference's v3 field set (per-partition cursors, the runtime failure
+# record, the fault estimator family) plus the framework that wrote it
+_CKPT_VERSION = 3
 
 
 # ---------------------------------------------------------------------------
@@ -157,8 +174,79 @@ def all_of(*rules: StoppingRule) -> StoppingRule:
 
 
 # ---------------------------------------------------------------------------
+# runtime failure handling (paper §4.6 live)
+# ---------------------------------------------------------------------------
+
+class FaultPolicy:
+    """Make mid-scan partition loss survivable instead of fatal.
+
+    Attach to a :class:`Session` (``QuerySpec(..., fault=FaultPolicy(...))``)
+    and failures degrade the answer instead of ending the scan.  They
+    arrive two ways:
+
+      * *injected* — ``fail_at`` maps partition -> failure round, the
+        ``repro_torch.fault.failure_schedule`` convention: ``fail_at[p] ==
+        0`` is dead from the start, and partition p's state is excluded
+        from every merge from round ``fail_at[p]`` on;
+      * *detected* — a streaming source's read raises
+        ``PartitionLostError``; the session records the current round as
+        those partitions' failure round and reads the slice again (the
+        source serves them zeroed from then on).
+
+    ``estimator`` names the estimation model the GLA was built with:
+    ``single`` survives (the alive-weighted merge renormalizes, and the
+    variance floor keeps bounds finite), ``multiple`` is poisoned (bounds
+    (-inf, +inf) from the failure round on), ``synchronized`` freezes at
+    the last pre-failure round.  Excluding dead partitions is a weighted
+    merge, so the session requires ``gla.merge_is_additive``.
+    """
+
+    _ESTIMATORS = ("single", "multiple", "synchronized")
+
+    def __init__(self, estimator: str = "single", *,
+                 fail_at: Optional[Mapping[int, int]] = None):
+        if estimator not in self._ESTIMATORS:
+            raise ValueError(
+                f"unknown estimator model {estimator!r}; expected one of "
+                f"{self._ESTIMATORS}")
+        self.estimator = estimator
+        self.fail_at = {int(p): int(r) for p, r in (fail_at or {}).items()}
+        for p, r in self.fail_at.items():
+            if p < 0 or r < 0:
+                raise ValueError(
+                    f"fail_at maps partition -> failure round, both >= 0; "
+                    f"got {{{p}: {r}}}")
+
+
+def _map_member_ests(fn, est):
+    """Apply ``fn`` to an Estimate, member-wise for a bundle's tuple
+    (members without an estimation model pass through as None)."""
+    if est is None:
+        return None
+    if isinstance(est, Estimate):
+        return fn(est)
+    return tuple(None if e is None else fn(e) for e in est)
+
+
+# ---------------------------------------------------------------------------
 # one round-slice
 # ---------------------------------------------------------------------------
+
+def _merge_estimate(gla: GLA, views, w_r: torch.Tensor, d_local: torch.Tensor,
+                    d_total: torch.Tensor, confidence: float, all_alive: bool):
+    """EstimatorTerminate per partition with its |D_i|, EstimatorMerge
+    over partitions under the round's weights, and the round's Estimate
+    (None without an estimation model).  Returns (merged, estimate)."""
+    term = gla.estimator_terminate(views, {"d_local": d_local})
+    merged = EN._merge_rounds(
+        gla, tree_map(lambda x: x[:, None], term), w_r[:, None],
+        gla.estimator_merge, all_alive)
+    merged = tree_map(lambda x: x[0], merged)
+    est = None
+    if gla.estimate is not None:
+        est = gla.estimate(merged, confidence, {"d_total": d_total})
+    return merged, est
+
 
 def _step(gla: GLA, states, slice_shards: dict, w_r: torch.Tensor,
           d_local: torch.Tensor, d_total: torch.Tensor, *, path: str,
@@ -184,14 +272,8 @@ def _step(gla: GLA, states, slice_shards: dict, w_r: torch.Tensor,
         delta = SC.ROUND_DELTA_FNS[path](gla, slice_shards)
         new_states = views = (delta if first
                               else tree_map(torch.add, states, delta))
-    term = gla.estimator_terminate(views, {"d_local": d_local})
-    merged = EN._merge_rounds(
-        gla, tree_map(lambda x: x[:, None], term), w_r[:, None],
-        gla.estimator_merge, all_alive)
-    merged = tree_map(lambda x: x[0], merged)
-    est = None
-    if gla.estimate is not None:
-        est = gla.estimate(merged, confidence, {"d_total": d_total})
+    merged, est = _merge_estimate(gla, views, w_r, d_local, d_total,
+                                  confidence, all_alive)
     return new_states, views, merged, est
 
 
@@ -275,7 +357,14 @@ class _SlicePrefetcher:
 
     def get(self, r: int) -> dict:
         """Device tensors of round r's slice, ready for the current
-        stream; the fetch of round r+1 is scheduled before this waits."""
+        stream; the fetch of round r+1 is scheduled before this waits.
+
+        When the read of round r fails, the fetch of r+1 already scheduled
+        is drained before the error leaves: a ``PartitionLostError`` it
+        raised (its source marks those partitions dead and serves them
+        zeroed from then on, round r's retry included) joins the one
+        raised here, so the caller records every lost partition at round
+        r; a slice it read is dropped and fetched again."""
         if self._fut is not None and self._next_r == r:
             fut = self._fut
         else:
@@ -285,14 +374,36 @@ class _SlicePrefetcher:
         else:
             self._fut = self._next_r = None
         t0 = time.perf_counter()
-        out, done = fut.result()
-        self._wait_s += time.perf_counter() - t0
+        try:
+            out, done = fut.result()
+        except DS.PartitionLostError as e:
+            lost = set(e.partitions) | self._drain()
+            raise DS.PartitionLostError(lost) from e
+        except BaseException:
+            self._drain()
+            raise
+        finally:
+            self._wait_s += time.perf_counter() - t0
         if done is not None:
             cur = torch.cuda.current_stream(self._dev)
             cur.wait_event(done)
             for t in out.values():
                 t.record_stream(cur)
         return out
+
+    def _drain(self) -> set:
+        """Cancel or wait out the scheduled fetch and forget it (a slice it
+        read is fetched again); returns the partitions a
+        ``PartitionLostError`` of it names.  An error of another kind
+        raises here."""
+        fut, self._fut, self._next_r = self._fut, None, None
+        if fut is None or fut.cancel():
+            return set()
+        try:
+            fut.result()
+        except DS.PartitionLostError as e:
+            return set(e.partitions)
+        return set()
 
     def close(self) -> dict:
         """Retire the worker (waiting for a fetch in flight), free the
@@ -333,14 +444,15 @@ class Session:
         the stopping rule saw.  Needs ``sync=False``, a partition-uniform
         schedule and no [R, P] alive schedule.
       * :meth:`result` — :class:`engine.QueryResult` over the rounds run.
+      * :meth:`pause` / :meth:`resume` — checkpoint between rounds and
+        continue later, bitwise, in this process or another, or on another
+        partition count.
     """
 
     def __init__(self, spec, data, *, device="cuda", **plan):
         qspec = QS.coerce_spec(spec, plan, caller="Session")
         dev = resolve_device(device)
-        source = DS.as_source(data)
-        if source.resident:
-            source = DS.InMemorySource(source.shards, device=dev)
+        source = DS.place(DS.as_source(data), dev)
         qspec = EN.normalize_plan(qspec, source)
         self.spec = qspec  # the resolved plan, for introspection
         gla: GLA = qspec.gla
@@ -357,12 +469,31 @@ class Session:
         self._emit = qspec.emit
         self._lanes = qspec.lanes
         self._snapshots = qspec.snapshots
-        P = source.spec.P
-        self._P = P
+        P, C, L = source.spec.P, source.spec.C, source.spec.L
+        self._P, self._C, self._L = P, C, L
 
         alive_np = None if qspec.alive is None else np.asarray(qspec.alive)
+        self._alive_np = alive_np  # as given, for the checkpoint
         self._all_alive = alive_np is None or bool(np.all(alive_np))
         self._alive = (np.ones((P,), bool) if alive_np is None else alive_np)
+
+        fault = qspec.resolved_fault()
+        self._policy = fault
+        self._fail_at = {} if fault is None else dict(fault.fail_at)
+        self._prefail_est = None  # the last round's Estimate before a failure
+        if fault is not None:
+            if alive_np is not None:
+                raise ValueError(
+                    "pass failures either as a static alive mask or through "
+                    "a FaultPolicy, not both")
+            if not gla.merge_is_additive:
+                raise ValueError(
+                    "FaultPolicy needs additive merges: excluding dead "
+                    "partitions is a weighted merge")
+            for p in self._fail_at:
+                if p >= P:
+                    raise ValueError(f"FaultPolicy.fail_at names partition "
+                                     f"{p}, but the data has P={P}")
 
         uniform = bool(np.all(self._sched == self._sched[0]))
         self._incremental_ok = (self._mode == "async" and uniform
@@ -404,6 +535,7 @@ class Session:
         self._steps = 0
         self._elapsed = 0.0
         self._converged = False
+        self._fused = False  # ran the whole-scan program: nothing to pause
         self._result: Optional[EN.QueryResult] = None
 
     # -- introspection -------------------------------------------------------
@@ -462,10 +594,12 @@ class Session:
                 self._alive, self._rounds, self._device)
 
     def _slice_shards(self, r: int, lo: int, hi: int) -> dict:
-        """Round r's slice: lazy slicing of resident shards, else the
-        prefetcher's device buffers."""
+        """Round r's slice: lazy slicing of resident shards, a slice the
+        source gathers on the device, else the prefetcher's buffers."""
         if self._resident:
             return {k: v[:, lo:hi] for k, v in self._shards.items()}
+        if self._source.device_slices:
+            return self._source.slice_cols(lo, hi)
         if self._prefetch is None:
             bounds = [(int(self._sched[0, i]), int(self._sched[0, i + 1]))
                       for i in range(self._rounds)]
@@ -476,6 +610,62 @@ class Session:
         if self._prefetch is not None:
             self._io_stats = self._prefetch.close()
             self._prefetch = None
+
+    # -- runtime failure bookkeeping (FaultPolicy) ---------------------------
+
+    def _record_failure(self, p: int, r: int) -> None:
+        if not 0 <= p < self._P:
+            raise ValueError(f"source reported lost partition {p}, but the "
+                             f"data has P={self._P}")
+        # the first failure round wins: a retried read re-reporting the
+        # same loss must not move it
+        self._fail_at.setdefault(int(p), int(r))
+
+    def _alive_now(self, r: int) -> np.ndarray:
+        """[P] bool — partition p contributes to round r's merge iff it has
+        not failed at or before r (``fault.failure_schedule``'s rule)."""
+        a = np.ones(self._P, bool)
+        for p, fr in self._fail_at.items():
+            if fr <= r:
+                a[p] = False
+        return a
+
+    def _first_fail_round(self) -> Optional[int]:
+        return min(self._fail_at.values()) if self._fail_at else None
+
+    def _fetch_slice(self, r: int, lo: int, hi: int) -> dict:
+        """Round r's slice, surviving partition loss when a policy is
+        attached: a ``PartitionLostError`` records the partitions it names
+        at round r and the read is retried (the source serves them zeroed
+        from then on).  At most P+1 attempts: each retry must name a new
+        partition."""
+        for _ in range(self._P + 1):
+            try:
+                return self._slice_shards(r, lo, hi)
+            except DS.PartitionLostError as e:
+                if self._policy is None:
+                    self._close_prefetch()  # the session cannot go on
+                    raise
+                for p in e.partitions:
+                    self._record_failure(p, r)
+        self._close_prefetch()
+        raise RuntimeError(f"source kept losing partitions at round {r} — "
+                           "more loss reports than partitions")
+
+    def _apply_policy_est(self, est, r: int):
+        """Round r's §4.6 estimator consequences: ``single`` passes through;
+        ``multiple`` poisons the bounds from the failure round on;
+        ``synchronized`` freezes at the last pre-failure round (infinite
+        bounds when nothing preceded it)."""
+        fr = self._first_fail_round()
+        if fr is None or r < fr:
+            self._prefail_est = est
+            return est
+        if self._policy.estimator == "single":
+            return est
+        if self._policy.estimator == "multiple" or self._prefail_est is None:
+            return _map_member_ests(FT.poison_bounds, est)
+        return self._prefail_est
 
     def step(self) -> RoundProgress:
         """Advance one round-slice; evaluate the stopping rule; return what
@@ -492,14 +682,24 @@ class Session:
         self._ensure_stats()
         r = self._steps
         lo, hi = int(self._sched[0, r]), int(self._sched[0, r + 1])
-        slice_shards = self._slice_shards(r, lo, hi)
+        slice_shards = self._fetch_slice(r, lo, hi)
         states = self._states if self._states is not None else self._init_states()
+        w_r, all_alive = self._w_pr[:, r], self._all_alive
+        if self._fail_at:
+            alive_now = self._alive_now(r)
+            if not alive_now.all():
+                # dead partitions drop out of this round's merge; their
+                # carry keeps stepping (weight 0 from now on)
+                w_r = w_r * torch.as_tensor(alive_now, device=w_r.device)
+                all_alive = False
         new_states, views, merged, est = _step(
-            self._gla, states, slice_shards, self._w_pr[:, r], self._d_local,
+            self._gla, states, slice_shards, w_r, self._d_local,
             self._d_total, path=self._path, lanes=self._lanes,
-            confidence=self._confidence, all_alive=self._all_alive,
+            confidence=self._confidence, all_alive=all_alive,
             first=self._path not in ("scan", "kernel_fused") and r == 0,
             encodings=self._encodings)
+        if self._policy is not None:
+            est = self._apply_policy_est(est, r)
         self._states, self._views = new_states, views
         if self._snapshots:
             self._merged.append(merged)
@@ -526,11 +726,26 @@ class Session:
         if self._resident and self._steps == 0 and (
                 self._stop is None or not self._incremental_ok):
             t0 = time.perf_counter()
+            self._fused = True
+            alive, all_alive = self._alive, self._all_alive
+            if self._fail_at:
+                # injected failures on the whole-scan program: the policy
+                # as an [R, P] schedule, as fault.run_with_failures ships it
+                alive = FT.failure_schedule(self._P, self._rounds, self._fail_at)
+                all_alive = False
             self._result = EN._run_vmapped(
-                self._gla, self._shards, self._sched, self._alive,
+                self._gla, self._shards, self._sched, alive,
                 mode=self._mode, emit=self._emit, lanes=self._lanes,
                 snapshots=self._snapshots, confidence=self._confidence,
-                all_alive=self._all_alive)
+                all_alive=all_alive)
+            fr = self._first_fail_round()
+            post = None if fr is None or fr >= self._rounds else {
+                "multiple": lambda e: FT._poison(e, fr),
+                "synchronized": lambda e: FT._stall(e, fr)}.get(
+                    self._policy.estimator)
+            if post is not None and self._result.estimates is not None:
+                self._result = self._result._replace(
+                    estimates=_map_member_ests(post, self._result.estimates))
             self._elapsed += time.perf_counter() - t0
             self._steps = self._rounds
             return self._result
@@ -551,8 +766,16 @@ class Session:
             return self._result
         if self._steps == 0:
             raise RuntimeError("no rounds executed yet — step() or run()")
+        w_final, all_alive = self._w_final, self._all_alive
+        if self._fail_at:
+            alive_now = self._alive_now(self._steps - 1)
+            if not alive_now.all():
+                # the final is over the surviving partitions' data: a dead
+                # partition's carry is lost with it (§4.6)
+                w_final = w_final * torch.as_tensor(alive_now, device=w_final.device)
+                all_alive = False
         final = self._gla.terminate(EN._merge_over_partitions(
-            self._gla, self._views, self._w_final, self._all_alive))
+            self._gla, self._views, w_final, all_alive))
         snaps = tree_stack(self._merged) if self._merged else None
         ests = None
         if self._ests and self._ests[0] is not None:
@@ -561,3 +784,198 @@ class Session:
         if self.done:
             self._result = res
         return res
+
+    # -- pause / resume ------------------------------------------------------
+
+    def _meta(self) -> dict:
+        return {
+            "version": _CKPT_VERSION, "framework": ckpt.FRAMEWORK,
+            "gla": self._gla.name, "rounds": self._rounds, "steps": self._steps,
+            "emit": self._emit, "mode": self._mode, "lanes": self._lanes,
+            "snapshots": self._snapshots, "confidence": self._confidence,
+            "path": self._path, "P": self._P, "C": self._C, "L": self._L,
+            # the cursor means something only against the same round
+            # boundaries and liveness weights, so both round-trip
+            "schedule": self._sched.tolist(),
+            "alive": (None if self._alive_np is None
+                      else np.asarray(self._alive_np, int).tolist()),
+            # the chunk each partition has consumed up to, the failure
+            # record as [partition, round] pairs and the fault family
+            "cursors": [int(self._sched[p, self._steps]) for p in range(self._P)],
+            "fail_at": sorted([int(p), int(r)] for p, r in self._fail_at.items()),
+            "fault_estimator": (None if self._policy is None
+                                else self._policy.estimator),
+            "elapsed_s": self._elapsed, "converged": self._converged,
+            # resume refuses other data, same-shape data included
+            "source": self._source.spec.meta(),
+            "fingerprint": self._source.fingerprint(),
+        }
+
+    def _payload_like(self, steps: int) -> dict:
+        """The checkpoint payload's structure, rebuilt from the session's
+        configuration, never from live state: the initial per-partition
+        states, and the merged state and Estimate that one round over them
+        gives (a few tensors of the state's size; no data is read, so it
+        works for any source)."""
+        self._ensure_stats()
+        states = self._init_states()
+        merged, est = _merge_estimate(
+            self._gla, states, self._w_pr[:, 0], self._d_local, self._d_total,
+            self._confidence, self._all_alive)
+        hist = steps if self._snapshots else 0  # no history retained
+        return {"states": states, "views": states,
+                "merged": (merged,) * hist, "ests": (est,) * hist}
+
+    def pause(self, path) -> None:
+        """Checkpoint the session between rounds (Serialize, paper Table 1).
+
+        Stores the per-partition carries, the per-round merged states and
+        estimates, and the scan cursor (``repro_torch.ckpt``).  Resume with
+        :meth:`Session.resume`, in this process or another: the remaining
+        rounds replay the same program, so finals are bitwise the
+        uninterrupted session's."""
+        if self._fused:
+            raise RuntimeError(
+                "session ran the whole-scan program — there is no incremental "
+                "carry to pause; attach a stopping rule or step() instead")
+        self._close_prefetch()  # a paused session holds no worker thread
+        blob = b""
+        if self._steps:
+            blob = ckpt.serialize_state({
+                "states": self._states, "views": self._views,
+                "merged": tuple(self._merged), "ests": tuple(self._ests)})
+        ckpt.save_envelope(path, self._meta(), blob)
+
+    @classmethod
+    def resume(cls, path, gla: GLA, data, *, stop: Optional[StoppingRule] = None,
+               partitions: Optional[int] = None,
+               fault: Optional[FaultPolicy] = None, device="cuda") -> "Session":
+        """Rebuild a paused session from ``path`` and the same GLA and data.
+
+        The checkpoint stores configuration and state, not code or data: the
+        caller supplies the same GLA and dataset (a shards dict or any
+        source).  The data's content fingerprint must equal the one stored
+        at pause time, so other data — same shapes included — is refused.
+        Every plan mismatch (gla name, P, C, L, rounds, the estimator
+        family, the data) is a ``ValueError`` naming the field, raised
+        before any state is read or placed on the device.  ``stop`` is
+        attached fresh: rules are closures and do not serialize.
+
+        **Elastic resume**: ``partitions=P'`` continues on another partition
+        count — P'|P merges carries (``scan.merge_carries``), P|P' splits
+        them (``scan.split_carries``) — over a ``RepartitionedSource`` of
+        the data with round boundaries re-derived for P'.  It needs an
+        all-alive checkpoint with a partition-uniform schedule; finals
+        match the uninterrupted run up to the merge's association order
+        (bitwise for count-like sums).
+
+        The failure record and estimator family come back from the
+        checkpoint; ``fault`` extends them (its family must agree).
+        ``synchronized`` sessions restore the frozen estimate from the
+        snapshot history; with ``snapshots=False`` there is none, and
+        rounds after a failure get infinite bounds.
+        """
+        meta, blob = ckpt.load_envelope(path)
+        ckpt.require_version(meta, (_CKPT_VERSION,), what="session checkpoint")
+
+        # -- the supplied plan against the envelope, before any device work
+        src = DS.as_source(data)
+        if meta["gla"] != gla.name:
+            raise ValueError(f"checkpoint mismatch: gla was {meta['gla']!r} at "
+                             f"pause time, got {gla.name!r} now")
+        if meta["L"] != src.spec.L:
+            raise ValueError(f"checkpoint mismatch: L was {meta['L']!r} at "
+                             f"pause time, got {src.spec.L!r} now")
+        if src.spec.P != int(meta["P"]):
+            # the data may come in its original layout while the session was
+            # paused on a view of it (or the other way round)
+            try:
+                src = DS.repartition(src, int(meta["P"]))
+            except ValueError as err:
+                raise ValueError(
+                    f"checkpoint mismatch: P was {meta['P']!r} at pause time, "
+                    f"got {src.spec.P!r} now ({err})") from None
+        if meta["C"] != src.spec.C:
+            raise ValueError(f"checkpoint mismatch: C was {meta['C']!r} at "
+                             f"pause time, got {src.spec.C!r} now")
+        sched = np.asarray(meta["schedule"], np.int32)
+        if (sched.ndim != 2 or sched.shape[0] != meta["P"]
+                or meta["rounds"] != sched.shape[1] - 1
+                or not 0 <= meta["steps"] <= meta["rounds"]):
+            raise ValueError(
+                f"checkpoint mismatch: rounds {meta['rounds']!r} / steps "
+                f"{meta['steps']!r} do not agree with the stored "
+                f"{list(sched.shape)}-shaped schedule")
+        if meta["fingerprint"] != src.fingerprint():
+            raise ValueError(
+                "checkpoint mismatch: data content fingerprint differs — the "
+                "supplied data is not what this session was paused over (same "
+                "shapes are not enough; resuming would give wrong finals)")
+
+        # -- the failure record; a supplied policy must agree on the family
+        rec_fail = {int(p): int(r) for p, r in meta["fail_at"]}
+        rec_est = meta["fault_estimator"]
+        if fault is not None and rec_est is not None and fault.estimator != rec_est:
+            raise ValueError(
+                f"checkpoint mismatch: fault estimator family was {rec_est!r} "
+                f"at pause time, got {fault.estimator!r} now")
+        if fault is None and rec_est is not None:
+            fault = FaultPolicy(rec_est, fail_at=rec_fail)
+        elif fault is not None and rec_fail:
+            at = dict(fault.fail_at)
+            for p, r in rec_fail.items():
+                at[p] = min(r, at.get(p, r))
+            fault = FaultPolicy(fault.estimator, fail_at=at)
+        alive = None if meta["alive"] is None else np.asarray(meta["alive"], bool)
+
+        # -- elastic resume: the source view and schedule for P'
+        P_old = int(meta["P"])
+        factor, split = 1, False
+        if partitions is not None and int(partitions) != P_old:
+            P_new = int(partitions)
+            if alive is not None or rec_fail:
+                raise ValueError(
+                    "elastic resume requires an all-alive checkpoint: dead "
+                    "partitions' carries are lost and cannot be merged or "
+                    "split into a new layout")
+            bounds = sched[0]
+            if not np.all(sched == bounds):
+                raise ValueError("elastic resume requires a partition-uniform schedule")
+            src = DS.repartition(src, P_new)  # validates divisibility
+            if P_new <= P_old:
+                factor = P_old // P_new
+                bounds = bounds * factor
+            else:
+                factor, split = P_new // P_old, True
+                if np.any(bounds % factor):
+                    raise ValueError(
+                        f"cannot split {P_old} -> {P_new} partitions: round "
+                        f"boundaries {bounds.tolist()} are not all divisible "
+                        f"by {factor}")
+                bounds = bounds // factor
+            sched = np.broadcast_to(bounds, (P_new, bounds.size)).astype(np.int32)
+
+        sess = cls(QS.QuerySpec(
+            gla, rounds=int(sched.shape[1] - 1), stop=stop, schedule=sched,
+            alive=alive, fault=fault, confidence=meta["confidence"],
+            sync=meta["mode"] == "sync", emit=meta["emit"], lanes=meta["lanes"],
+            snapshots=meta["snapshots"]), src, device=device)
+        if meta["steps"]:
+            # the skeleton gives the structure; shapes (the old layout's
+            # carries among them) come from the blob
+            payload = ckpt.deserialize_state(
+                blob, sess._payload_like(meta["steps"]), device=sess._device)
+            states, views = payload["states"], payload["views"]
+            if factor > 1:
+                xform = SC.split_carries if split else SC.merge_carries
+                states, views = xform(states, factor), xform(views, factor)
+            sess._states, sess._views = states, views
+            # the history is already merged over partitions: any layout
+            sess._merged = list(payload["merged"])
+            sess._ests = list(payload["ests"])
+            if sess._ests:
+                sess._prefail_est = sess._ests[-1]
+        sess._steps = meta["steps"]
+        sess._elapsed = meta["elapsed_s"]
+        sess._converged = meta["converged"]
+        return sess

@@ -1,7 +1,7 @@
 """QuerySpec — the one query-plan object every entry point accepts.
 
-Port of ``repro/core/spec.py:337-461`` (``QuerySpec`` and ``coerce_spec``;
-plan trees come in a later slice).  A ``QuerySpec`` whose ``gla`` is a
+Port of ``repro/core/spec.py:337-461`` (``QuerySpec`` with its runtime
+fault policy, and ``coerce_spec``; plan trees come in a later slice).  A ``QuerySpec`` whose ``gla`` is a
 sequence of GLAs is a :func:`repro_torch.engine.run_queries` plan.
 ``QuerySpec`` is plan-only: *where* the plan runs (``device``) stays a
 per-call argument of ``run_query`` / ``Session``.
@@ -16,7 +16,7 @@ from typing import Any, Optional
 #: ``run_query``/``Session`` shims.  ``mode`` maps onto ``QuerySpec.sync``.
 DEPRECATED_PLAN_KWARGS = (
     "rounds", "schedule", "stop", "confidence", "mode", "emit", "lanes",
-    "snapshots", "alive",
+    "snapshots", "alive", "fault", "estimator_merge",
 )
 
 
@@ -29,14 +29,21 @@ class QuerySpec:
       schedule    cumulative chunk boundaries [P, R+1]; None = uniform.
       stop        stopping rule (``repro_torch.session.rel_width`` et al.).
       emit        state-emission discipline: "chunk" (prefix states, any
-                  schedule), "round" (round-boundary states) or "kernel"
-                  (the CUDA kernels); None resolves to "chunk", or to
-                  "round" for a multi-query plan.
+                  schedule), "round" (round-boundary states),
+                  "round_masked" (round-boundary states, any schedule) or
+                  "kernel" (the CUDA kernels); None resolves to "chunk",
+                  or to "round" for a multi-query plan.
       sync        True = the Wu et al. synchronized estimator barrier.
       lanes       parallel GLA states per partition.
       snapshots   False = non-interactive mode (no per-round states).
       confidence  CI level for estimates.
       alive       static liveness mask [P] or [R, P] (paper §4.6).
+      fault       runtime ``repro_torch.session.FaultPolicy``; exclusive
+                  with ``estimator_merge``.
+      estimator_merge  shorthand for the fault-estimator family ("single" |
+                  "multiple" | "synchronized"): resolves to
+                  ``FaultPolicy(estimator_merge)`` when ``fault`` is not
+                  given.
     """
 
     gla: Any
@@ -49,6 +56,14 @@ class QuerySpec:
     snapshots: bool = True
     confidence: float = 0.95
     alive: Optional[Any] = None
+    fault: Optional[Any] = None
+    estimator_merge: Optional[str] = None
+
+    def __post_init__(self):
+        if self.fault is not None and self.estimator_merge is not None:
+            raise ValueError(
+                "QuerySpec: pass either fault= (a FaultPolicy) or "
+                "estimator_merge= (its shorthand), not both")
 
     @property
     def mode(self) -> str:
@@ -62,6 +77,15 @@ class QuerySpec:
         if self.emit is not None:
             return self.emit
         return "round" if self.is_multi else "chunk"
+
+    def resolved_fault(self):
+        """The runtime fault policy: ``fault`` as given, or one built from
+        the ``estimator_merge`` shorthand."""
+        if self.fault is not None or self.estimator_merge is None:
+            return self.fault
+        from repro_torch.session import FaultPolicy  # session imports spec
+
+        return FaultPolicy(self.estimator_merge)
 
     def with_(self, **kw) -> "QuerySpec":
         return dataclasses.replace(self, **kw)

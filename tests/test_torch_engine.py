@@ -179,7 +179,7 @@ def test_plan_validation(shards, ref_shards):
         T.run_query(T.QuerySpec(q6.with_(fused=None, kernel_cols=None),
                                 emit="kernel"), shards, device="cpu")
     with pytest.raises(ValueError, match="unknown emit"):
-        T.run_query(T.QuerySpec(q6, emit="round_masked"), shards, device="cpu")
+        T.run_query(T.QuerySpec(q6, emit="rounds"), shards, device="cpu")
     with pytest.raises(ValueError, match="non-uniform"):
         sched = np.array([[0, 1, 8]] * P)
         T.run_query(T.QuerySpec(q1, emit="kernel", schedule=sched), shards,

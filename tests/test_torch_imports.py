@@ -1,5 +1,7 @@
 """Import boundary of the PyTorch port: ``repro_torch`` and ``chip_smoke.py``
-import neither JAX nor anything of the JAX package ``repro``."""
+import neither JAX nor anything of the JAX package ``repro``, nor ``msgpack``
+or ``zstandard`` (the reference's checkpoint codecs, which the card's machine
+does not have)."""
 import ast
 import os
 import subprocess
@@ -25,7 +27,7 @@ def _imported_modules(path: Path):
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "repro", "msgpack", "zstandard")
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -39,7 +41,7 @@ def test_import_walk_sees_the_whole_port():
     names = {p.relative_to(PORT).as_posix() for p in FILES if PORT in p.parents}
     assert {"engine.py", "session.py", "kernels/fused_agg.py", "kernels/ops.py",
             "kernels/_runtime.py", "kernels/decode.py", "data/tpch.py",
-            "data/source.py", "data/encodings.py"} <= names
+            "data/source.py", "data/encodings.py", "fault.py", "ckpt.py"} <= names
     # the contract linter matches core/scan.py, core/estimators.py and
     # core/session.py by path suffix: the port keeps its modules flat
     assert not (PORT / "core").exists()
@@ -49,9 +51,11 @@ def test_import_repro_torch_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.convert, "
             "repro_torch.kernels.fused_agg, repro_torch.kernels.ops, "
             "repro_torch.kernels.decode, repro_torch.data.tpch, "
-            "repro_torch.data.source, repro_torch.data.encodings; "
-            "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
-            "if m.startswith('jax'))")
+            "repro_torch.data.source, repro_torch.data.encodings, "
+            "repro_torch.fault, repro_torch.ckpt; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro', 'msgpack', 'zstandard')); "
+            "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card:
 K1 (scalar, group, bundle, and its column decode ``pf_decode``), K2, K3,
-K4, K5 ``chunk_agg`` and K6 ``q6_agg``, and a small streamed session.
+K4, K5 ``chunk_agg`` and K6 ``q6_agg``, K1 from carries merged or split
+for another partition count, a small streamed session, a streamed
+partition loss and an elastic resume.
 
 Every test here is marked ``gpu`` and skips without a CUDA device.  The file
 imports no JAX, so it runs on a machine that has a card but not the JAX
@@ -652,3 +654,104 @@ def test_decode_vectors_tails_and_misaligned_columns_bitwise(src, dst):
     for g, h, w_, (_, e) in zip(*runs, want, cases):
         assert g.dtype == w_.dtype and torch.equal(g.cpu(), w_), e
         assert torch.equal(g, h), e
+
+
+# -- slice 6: K1 on carries carried across partition counts; faults and
+# elastic resume on the card ---------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["merge", "split"])
+def test_k1_on_elastic_carries_matches_plain_versions(layout):
+    """K1 scalar and group from carries that scan.merge_carries (8 -> 4
+    partitions) or scan.split_carries (8 -> 16: every second child starts
+    at zero) made, against their plain versions."""
+    dev = _cuda()
+    _, _, _, carry, cs, cq, cm = _random_inputs(50, dev, P=8, A=4, G=37, C=1, L=8)
+    if layout == "merge":
+        fn, P_new = scan.merge_carries, 4
+    else:
+        fn, P_new = scan.split_carries, 16
+    carry, cs, cq, cm = fn((carry * 1e3, cs * 1e3, cq * 1e6, cm), 2)
+    carry, cs, cq, cm = (t.contiguous() for t in (carry, cs, cq, cm))
+    assert carry.shape[0] == cs.shape[0] == P_new
+    vals, w, gids, *_ = _random_inputs(51, dev, P=P_new, A=4, G=37, C=24, L=2048)
+    k1 = FK.scalar_round_step(vals, w, carry)
+    r1 = ref.scalar_round_step(vals, w, carry)
+    _close(k1[:, :8], r1[:, :8])
+    assert torch.equal(k1[:, 8], r1[:, 8])
+    kg = FK.group_round_step(vals, w, gids, cs, cq, cm)
+    rs, rq, rm = ref.group_round_step(vals, w, gids, cs, cq, cm)
+    _close(kg[0], rs)
+    _close(kg[1], rq)
+    assert torch.equal(kg[2], rm)
+
+
+def _slice6_data(dev, P=8, C=16, L=512):
+    cols = tpch.generate_lineitem(P * C * L, seed=9, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10)
+    shards = randomize.pack_partitions(randomize.randomize_global(cols, gen, P),
+                                       chunk_len=L)
+    d = float(P * C * L)
+    q6 = T.make_sum_gla(tpch.q6_func, tpch.q6_cond((0, 2000)), d_total=d)
+    q1 = T.make_groupby_gla(tpch.q1_func, tpch.q1_cond, tpch.q1_group_small,
+                            num_groups=4, d_total=d, num_aggs=4)
+    return shards, q6, q1
+
+
+def _drive(sess):
+    while not sess.done:
+        sess.step()
+    return sess.result()
+
+
+@pytest.mark.gpu
+def test_streamed_partition_loss_on_the_card(tmp_path):
+    """A FailingSource over an npy copy through the pinned-staging
+    prefetcher: the loss is recorded at round 3 and the run is bitwise the
+    resident session injected with that round (K1 group, 8 launches)."""
+    from repro_torch import fault as FT
+
+    dev = _cuda()
+    shards, _, q1 = _slice6_data(dev)
+    npy = DS.NpyMmapSource(DS.NpyMmapSource.save(shards, tmp_path / "npy"))
+    spec = T.QuerySpec(q1, rounds=8, emit="kernel")
+    want = _drive(T.Session(spec.with_(fault=T.FaultPolicy("single", fail_at={5: 3})),
+                            shards, device=dev))
+    before = FK.launch_counts()
+    sess = T.Session(spec.with_(fault=T.FaultPolicy("single")),
+                     FT.FailingSource(npy, {5: 7}), device=dev)
+    got = _drive(sess)
+    torch.cuda.synchronize()
+    assert _delta(before) == {"fused_round_step/group": 8}
+    assert sess._fail_at == {5: 3}
+    assert _same((got.final, got.snapshots, got.estimates),
+                 (want.final, want.snapshots, want.estimates))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pnew", [4, 16])
+def test_elastic_resume_on_the_card(tmp_path, pnew):
+    """Paused on 8 partitions, resumed on 4 or 16: the view gathers each
+    round-slice on the card (no prefetcher), K1 runs the remaining rounds,
+    and the finals are the uninterrupted run's within RTOL (counters
+    exact)."""
+    dev = _cuda()
+    shards, q6, q1 = _slice6_data(dev)
+    for gla in (q6, q1):
+        spec = T.QuerySpec(gla, rounds=8, emit="kernel")
+        want = _drive(T.Session(spec, shards, device=dev))
+        sess = T.Session(spec, shards, device=dev)
+        for _ in range(3):
+            sess.step()
+        sess.pause(tmp_path / "e.ckpt")
+        before = FK.launch_counts()
+        back = T.Session.resume(tmp_path / "e.ckpt", gla, shards, partitions=pnew,
+                                device=dev)
+        got = _drive(back)
+        torch.cuda.synchronize()
+        assert back._prefetch is None and back._source.device_slices
+        assert list(_delta(before).values()) == [5]
+        _close(got.final, want.final)
+        assert torch.equal(got.snapshots.scanned, want.snapshots.scanned)
+        assert torch.equal(got.snapshots.matched, want.snapshots.matched)
