@@ -16,7 +16,13 @@ out-of-core scan: Q6, Q1-small and [Q6, Q1-small] sessions streamed from an
 npy and from an encoded copy of the same rows on disk (K1, and K1's column
 decode on the encoded copy), each bitwise its resident twin.  It checks
 the answers against a float64 oracle and times every kernel (K5 and K6,
-which no entry point reaches, included) beside its bound.
+which no entry point reaches, included) beside its bound.  The failure,
+checkpoint and straggler phases follow, then the partitions across
+processes (``repro_torch.sharded``): four gloo ranks sharing the card and
+one NCCL rank, spawned with ``torch.multiprocessing`` under a file store,
+each reading its partitions of the npy copy — sessions, ``run_query``,
+sync mode, failures and a pause resumed on two ranks, every result held
+to the one-process run and every rank's launches counted.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.  The last line is the run's JSON summary.
@@ -25,11 +31,14 @@ from __future__ import annotations
 
 import json
 import math
+import multiprocessing
+import pickle
 import shutil
 import statistics
 import subprocess
 import sys
 import time
+import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -86,6 +95,13 @@ FAIL_P, FAIL_R = 2, 5
 SPEEDS = [1.0] * (P - 1) + [0.25]
 #: argument that runs the [pause] phase's resume in a fresh process
 RESUME_CHILD = "--resume-child"
+#: the [dist] phases: W gloo ranks sharing the card, each over P/W partitions
+#: read from the npy copy; one NCCL rank over all of them
+DIST_WORLD = 4
+DIST_TIMEOUT = 300  # seconds a rank waits in a collective before it fails
+DIST_JOIN_S = 600  # seconds a group of ranks may take in all
+SYNC_C = C // 8  # the sync-mode phase's chunks per partition (a cut depth)
+DIST_AT = 4  # [dist-elastic] pauses after this many rounds
 
 
 def fail(msg: str):
@@ -138,6 +154,19 @@ def make_data(dev):
     return randomize.pack_partitions(parts, chunk_len=L)
 
 
+def q6_q1s(d: float, estimator: str = "single"):
+    """Q6 (low window) and Q1 with 4 groups: the streamed, fault and [dist]
+    phases' queries."""
+    import repro_torch as T
+    from repro_torch.data import tpch
+
+    q6 = T.make_sum_gla(tpch.q6_func, tpch.q6_cond(tpch.Q6_LOW_WINDOW), d_total=d,
+                        estimator=estimator)
+    q1s = T.make_groupby_gla(tpch.q1_func, tpch.q1_cond, tpch.q1_group_small,
+                             num_groups=4, d_total=d, num_aggs=4, estimator=estimator)
+    return q6, q1s
+
+
 def q1_large(d: float):
     import repro_torch as T
     from repro_torch.data import tpch
@@ -184,6 +213,237 @@ def resume_child(ckpt_path: Path) -> None:
                       "digest": digest((res.final, res.estimates)),
                       "data_s": t_data, "resume_s": t_resume,
                       "run_s": time.perf_counter() - t0 - t_resume}), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# the [dist] phases' ranks: spawned processes sharing the card
+# ---------------------------------------------------------------------------
+
+def dist_rank(job: str, rank: int, world: int, work: str) -> None:
+    """One rank of a [dist] phase, in a process of its own: joins the
+    job's group (a file store under the work directory; NCCL for the
+    ``nccl`` job, gloo otherwise), runs the job over its partitions and
+    pickles what it got to ``dist/<job>-<rank>.pkl``, or writes its
+    traceback to ``.err`` and exits non-zero.  Its peers fail with it at
+    their next collective, or after DIST_TIMEOUT."""
+    out = Path(work) / "dist" / f"{job}-{rank}"
+    try:
+        sys.path.insert(0, str(ROOT / "src"))
+        import torch
+
+        from repro_torch import sharded
+
+        dev = torch.device(DEVICE)
+        if dev.type == "cuda":
+            torch.cuda.set_device(0)
+        mesh = sharded.init_partition_group(
+            "nccl" if job == "nccl" and dev.type == "cuda" else "gloo",
+            f"file://{Path(work) / 'dist' / job}.store", rank, world, dev,
+            timeout=DIST_TIMEOUT)
+        try:
+            res = DIST_JOBS[job](mesh, Path(work))
+            if dev.type == "cuda":  # the card's whole use now, every process's
+                free, total = torch.cuda.mem_get_info()
+                res["card_used_bytes"] = total - free
+        finally:
+            mesh.close()
+        out.with_suffix(".pkl").write_bytes(pickle.dumps(res))
+    except BaseException:
+        out.with_suffix(".err").write_text(traceback.format_exc())
+        raise SystemExit(1) from None
+
+
+def _to_cpu(tree):
+    import torch
+
+    from repro_torch.uda import tree_map
+
+    return tree_map(lambda x: x.cpu() if isinstance(x, torch.Tensor) else x, tree)
+
+
+def _rank_block(mesh, work: Path, c_hi=None) -> dict:
+    """This rank's partitions of the npy copy's columns, on the card."""
+    import numpy as np
+    import torch
+
+    lo, hi = mesh.bounds(P)
+    return {k: torch.from_numpy(np.array(  # a copy: the mmap is read-only
+        np.load(work / "npy" / f"{k}.npy", mmap_mode="r")[lo:hi, :c_hi])).to(mesh.device)
+        for k in STREAM_COLS}
+
+
+def _rank_phase(mesh, fn, rounds: int) -> dict:
+    """Run one phase on this rank: its result, seconds, host seconds in
+    collectives and bytes gathered per round, launches and peak memory."""
+    import torch
+
+    from repro_torch.kernels import fused_agg as FK
+
+    torch.cuda.synchronize()
+    FK.reset_launch_counts()
+    mesh.reset_stats()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    st = mesh.stats()
+    return {"out": _to_cpu(out), "seconds": secs,
+            "collective_s_per_round": st["seconds"] / rounds,
+            "gathered_bytes_per_round": st["bytes"] / rounds, "collectives": st["calls"],
+            "launches": {k: n for k, n in FK.launch_counts().items() if n},
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def drive(sess):
+    """Step a session to its end; its result."""
+    while not sess.done:
+        sess.step()
+    return sess.result()
+
+
+def _dist_gloo(mesh, work: Path) -> dict:
+    """[dist-gloo], [dist-fault] and the pauses of [dist-elastic] on this
+    rank's P/W partitions of the npy copy."""
+    import repro_torch as T
+    from repro_torch import fault as FT
+    from repro_torch import scan
+    from repro_torch.kernels import fused_agg as FK
+    from repro_torch.kernels import ref
+
+    t0 = time.perf_counter()
+    block = _rank_block(mesh, work)
+    out = {"load_s": time.perf_counter() - t0, "phases": {}}
+    ph = out["phases"]
+    q6, q1s = q6_q1s(float(ROWS))
+    q1s_sync = q6_q1s(float(ROWS), "synchronized")[1]
+
+    def spec(gla, **kw):
+        return T.QuerySpec(gla, rounds=ROUNDS, emit="kernel", **kw)
+
+    # [dist-gloo]
+    ph["run_query q6"] = _rank_phase(
+        mesh, lambda: T.run_query(spec(q6), block, mesh=mesh), ROUNDS)
+    for name, gla in (("q6", q6), ("q1-small", q1s), ("[q6, q1-small]", T.GLABundle([q6, q1s]))):
+        ph[f"session {name}"] = _rank_phase(
+            mesh, lambda gla=gla: drive(T.Session(spec(gla), block, mesh=mesh)), ROUNDS)
+    npy = T.NpyMmapSource(work / "npy")
+    ph["streamed q6"] = _rank_phase(
+        mesh, lambda: T.Session(spec(q6), npy, mesh=mesh).run(), ROUNDS)
+    small = {k: v[:, :SYNC_C] for k, v in block.items()}
+    sched = T.straggler_schedule(P, SYNC_C, ROUNDS, SPEEDS)
+    for cost in (True, False):
+        ph[f"sync q6 chunk, sync_cost_model={cost}"] = _rank_phase(
+            mesh, lambda cost=cost: T.run_query(
+                T.QuerySpec(q6, schedule=sched, sync=True, emit="chunk",
+                            sync_cost_model=cost), small, mesh=mesh), ROUNDS)
+    # K1 on this rank's P/W partitions of round-slice 0, from zero carries:
+    # against its plain version here, against the one-process launch's rows
+    # in the parent
+    sl = {k: v[:, :C // ROUNDS] for k, v in block.items()}
+    k1 = {}
+    for name, gla in (("q6", q6), ("q1-small", q1s)):
+        args = FK._member_args(gla.fused, scan.stack_init(gla, (P // mesh.world,), mesh.device), sl)
+        if args[2] is None:
+            got, want = FK.scalar_round_step(args[0], args[1], args[3]), \
+                ref.scalar_round_step(args[0], args[1], args[3])
+            got, want = (got[:, :2], got[:, 2]), (want[:, :2], want[:, 2])
+        else:
+            got, want = FK.group_round_step(*args), ref.group_round_step(*args)
+            got, want = (got[0], got[1], got[2]), (want[0], want[1], want[2])
+        k1[name] = {"kernel": _to_cpu(got), "plain": _to_cpu(want),
+                    "shape": tuple(args[0].shape)}
+    out["k1"] = k1
+    # [dist-fault]: partition 2 lost at round 5, injected; and the npy copy
+    # dying under it inside round 5 on the rank that owns it
+    for family, gla in (("single", q1s), ("synchronized", q1s_sync)):
+        def faulted(gla=gla, family=family):
+            sess = T.Session(spec(gla, fault=T.FaultPolicy(family, fail_at={FAIL_P: FAIL_R})),
+                             block, mesh=mesh)
+            return drive(sess), dict(sess._fail_at)
+        ph[f"fault q1-small {family}"] = _rank_phase(mesh, faulted, ROUNDS)
+    lo, hi = mesh.bounds(P)
+    per = C // ROUNDS
+    src = FT.FailingSource(npy, {FAIL_P: FAIL_R * per + per // 2}) if lo <= FAIL_P < hi else npy
+
+    def streamed_loss():
+        sess = T.Session(spec(q6, fault=T.FaultPolicy("single")), src, mesh=mesh)
+        return drive(sess), dict(sess._fail_at)
+    ph["fault-stream q6"] = _rank_phase(mesh, streamed_loss, ROUNDS)
+    # [dist-elastic]: Q6 and Q1-small paused after DIST_AT rounds
+    for name, gla in (("q6", q6), ("q1-small", q1s)):
+        def pause(gla=gla, name=name):
+            sess = T.Session(spec(gla), block, mesh=mesh)
+            for _ in range(DIST_AT):
+                sess.step()
+            t0 = time.perf_counter()
+            sess.pause(work / "dist" / f"elastic-{name}.ckpt")
+            return time.perf_counter() - t0
+        ph[f"pause {name}"] = _rank_phase(mesh, pause, DIST_AT)
+    return out
+
+
+def _dist_nccl(mesh, work: Path) -> dict:
+    """[dist-nccl]: one NCCL rank over every partition of the npy copy."""
+    import repro_torch as T
+
+    block = _rank_block(mesh, work)
+    q6, q1s = q6_q1s(float(ROWS))
+    spec = lambda g: T.QuerySpec(g, rounds=ROUNDS, emit="kernel")  # noqa: E731
+    ph = {"run_query q6": _rank_phase(
+        mesh, lambda: T.run_query(spec(q6), block, mesh=mesh), ROUNDS)}
+    for name, gla in (("q6", q6), ("q1-small", q1s)):
+        ph[f"session {name}"] = _rank_phase(
+            mesh, lambda gla=gla: drive(T.Session(spec(gla), block, mesh=mesh)), ROUNDS)
+    return {"phases": ph}
+
+
+def _dist_resume(mesh, work: Path) -> dict:
+    """[dist-elastic]: the W=4 pauses resumed on this group at
+    partitions=4, each rank over its half of the npy copy's P=8 layout."""
+    import repro_torch as T
+
+    block = _rank_block(mesh, work)
+    q6, q1s = q6_q1s(float(ROWS))
+    ph = {}
+    for name, gla in (("q6", q6), ("q1-small", q1s)):
+        ph[f"resume {name}"] = _rank_phase(mesh, lambda gla=gla, name=name: drive(
+            T.Session.resume(work / "dist" / f"elastic-{name}.ckpt", gla, block,
+                             partitions=4, mesh=mesh)), ROUNDS - DIST_AT)
+    return {"phases": ph}
+
+
+DIST_JOBS = {"gloo": _dist_gloo, "nccl": _dist_nccl, "resume": _dist_resume}
+
+
+def spawn_ranks(groups, work: Path) -> dict:
+    """Start every rank of ``groups`` ({job: world}) at once, wait for all
+    (at most DIST_JOIN_S) and return {job: [each rank's result]}; any rank
+    that failed, hung or wrote nothing fails the run (the others are
+    killed first)."""
+    (work / "dist").mkdir(exist_ok=True)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [(job, r, ctx.Process(target=dist_rank, args=(job, r, w, str(work)), daemon=True))
+             for job, w in groups.items() for r in range(w)]
+    for _, _, p in procs:
+        p.start()
+    deadline = time.monotonic() + DIST_JOIN_S
+    for _, _, p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    for _, _, p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    out, errs = {}, []
+    for job, r, p in procs:
+        f = work / "dist" / f"{job}-{r}"
+        if f.with_suffix(".pkl").exists() and p.exitcode == 0:
+            out.setdefault(job, []).append(pickle.loads(f.with_suffix(".pkl").read_bytes()))
+        else:
+            tail = f.with_suffix(".err").read_text()[-2500:] if f.with_suffix(".err").exists() else ""
+            errs.append(f"[{job} rank {r}] exit code {p.exitcode}\n{tail}")
+    check(not errs, "a [dist] rank failed:\n" + "\n".join(errs))
+    return out
 
 
 def run(work: Path) -> None:
@@ -259,9 +519,7 @@ def run(work: Path) -> None:
         fingerprint=npy_src.fingerprint()[:16])
 
     d = float(ROWS)
-    q6 = T.make_sum_gla(tpch.q6_func, tpch.q6_cond(tpch.Q6_LOW_WINDOW), d_total=d)
-    q1s = T.make_groupby_gla(tpch.q1_func, tpch.q1_cond, tpch.q1_group_small,
-                             num_groups=4, d_total=d, num_aggs=4)
+    q6, q1s = q6_q1s(d)
     q1l = q1_large(d)
     # Q3: lineitem ⋈ orders (rows/4 orders, as the reference's q3_scenario);
     # its probe tables are far past the reference's fused budget -> K3
@@ -520,8 +778,8 @@ def run(work: Path) -> None:
 
     FK.reset_launch_counts()
     t0 = time.perf_counter()
-    res = T.run_query(T.QuerySpec(q6, rounds=ROUNDS, emit="kernel"), shards,
-                      device=dev)
+    res = twin_rq6 = T.run_query(T.QuerySpec(q6, rounds=ROUNDS, emit="kernel"), shards,
+                                 device=dev)
     final = float(res.final)
     e2e["run_query q6"] = time.perf_counter() - t0
     got = path_launches("run_query q6", {"fused_prefix_states": 1})
@@ -717,11 +975,6 @@ def run(work: Path) -> None:
     # above where one exists.
     from repro_torch import fault as FT
 
-    def drive(sess):
-        while not sess.done:
-            sess.step()
-        return sess.result()
-
     def members(est):
         return (est,) if isinstance(est, T.Estimate) else tuple(
             e for e in est if e is not None)
@@ -757,9 +1010,7 @@ def run(work: Path) -> None:
     surv = without(FAIL_P)
     ex6_s = surv(q6.fused)[0]
     ex1s_s = surv(q1s.fused, group=q1s.fused.group, num_groups=4)
-    q1s_sync = T.make_groupby_gla(tpch.q1_func, tpch.q1_cond, tpch.q1_group_small,
-                                  num_groups=4, d_total=d, num_aggs=4,
-                                  estimator="synchronized")
+    q1s_sync = q6_q1s(d, "synchronized")[1]
     q6m = T.make_sum_gla(tpch.q6_func, tpch.q6_cond(tpch.Q6_LOW_WINDOW), d_total=d,
                          estimator="multiple")
     faulted = {}
@@ -791,8 +1042,7 @@ def run(work: Path) -> None:
         torch.cuda.synchronize()
         e2e[name] = time.perf_counter() - t0
         got = path_launches(name, expected)
-        if family == "single":
-            faulted[qname] = res
+        faulted[qname, family] = res
         no_nan(name, res)
         check(first_rounds_equal(res.estimates, base.estimates, FAIL_R)
               and first_rounds_equal(res.snapshots, base.snapshots, FAIL_R),
@@ -836,7 +1086,7 @@ def run(work: Path) -> None:
         got = path_launches(name, {kernel: ROUNDS})
         check(sess._fail_at == {FAIL_P: FAIL_R},
               f"{name}: failure recorded as {sess._fail_at}, not {{{FAIL_P}: {FAIL_R}}}")
-        inj = faulted[qname]
+        inj = faulted[qname, "single"]
         check(same(res.final, inj.final) and same(res.snapshots, inj.snapshots)
               and same(res.estimates, inj.estimates),
               f"{name}: differs from the resident session with fail_at")
@@ -904,14 +1154,15 @@ def run(work: Path) -> None:
     # on 16 partitions and taken 8 -> 4 -> 8; each view's round-slices are
     # gathered on the card from the resident table
     slice_all = sum(v.numel() * v.element_size() for v in shards.values()) // ROUNDS
-    at = 4
+    at = DIST_AT
+    elastic_res = {}  # (query, chain) -> result, the [dist-elastic] twins
     for qname, gla, kernel in streamed[:2]:
         twin = twins[qname]
         FK.reset_launch_counts()
         sess = T.Session(spec(gla), shards, device=dev)
         for _ in range(at):
             sess.step()
-        ck = work / "elastic.ckpt"
+        ck = work / f"elastic-{qname}.ckpt"  # the [dist-elastic] twin
         sess.pause(ck)
         path_launches(f"elastic {qname}: first {at} rounds", {kernel: at})
         for chain in ((4,), (16,), (4, 8)):
@@ -930,7 +1181,7 @@ def run(work: Path) -> None:
                     back.step()
                     path_ = work / f"elastic-{j}.ckpt"
                     back.pause(path_)
-            res = drive(back)
+            res = elastic_res[qname, chain] = drive(back)
             torch.cuda.synchronize()
             e2e[name] = time.perf_counter() - t0
             peak = torch.cuda.max_memory_allocated() - mem0
@@ -1019,6 +1270,175 @@ def run(work: Path) -> None:
     check(floor > 0.0, f"variance floor {floor} is not above 0")
     say("straggler", path="variance_floor q6, dead [3], emit=chunk", floor=floor,
         seconds=f"{time.perf_counter() - t0:.3f}", launches=got)
+
+    # -- 4c. partitions across processes --------------------------------
+    # [dist-gloo]/[dist-fault]/[dist-elastic]: W=4 gloo ranks share the card
+    # (NCCL refuses two ranks on one device), each over its 2 partitions of
+    # the npy copy; [dist-nccl]: one NCCL rank over all 8, started with
+    # them; then the W=4 pauses resumed on W=2 ranks.  Every result is held
+    # to the one-process run of the same query above.
+    small = {k: shards[k][:, :SYNC_C] for k in STREAM_COLS}
+    sched_s = T.straggler_schedule(P, SYNC_C, ROUNDS, SPEEDS)
+    t0 = time.perf_counter()
+    sync_twin = T.run_query(T.QuerySpec(q6, schedule=sched_s, sync=True, emit="chunk"),
+                            small, device=dev)
+    torch.cuda.synchronize()
+    e2e["sync q6 chunk (C/8)"] = time.perf_counter() - t0
+    path_launches("sync q6 chunk (C/8)", {})
+    del small
+    torch.cuda.empty_cache()  # room for the ranks' blocks
+    held = torch.cuda.memory_allocated()  # what this process holds meanwhile
+    t0 = time.perf_counter()
+    ranks = spawn_ranks({"gloo": DIST_WORLD, "nccl": 1}, work)
+    t_first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks.update(spawn_ranks({"resume": 2}, work))
+    t_resume = time.perf_counter() - t0
+    rank_launches = dict.fromkeys(FK.LAUNCHES, 0)
+
+    def dist_phase(tag, job, name, want, expected, twin_s, exact=True, extra=None):
+        """Every rank's ``name`` phase of ``job``: its result bitwise
+        ``want`` (``exact=False``: finals within SUM_RTOL, counters exact),
+        its launches exactly ``expected``; prints the phase's line."""
+        got = [r["phases"][name] for r in ranks[job]]
+        for k, g_ in enumerate(got):
+            out = g_["out"][0] if type(g_["out"]) is tuple else g_["out"]  # (result, fail_at)
+            if exact:
+                check(same(out, want), f"[{tag}] {name}: rank {k} differs from one process")
+            else:
+                ref_final = want.final.cpu()
+                check(torch.allclose(out.final, ref_final, rtol=SUM_RTOL,
+                                     atol=SUM_RTOL * ref_final.abs().max().item()),
+                      f"[{tag}] {name}: rank {k} final off by more than SUM_RTOL")
+                check(torch.equal(out.snapshots.scanned, want.snapshots.scanned.cpu())
+                      and torch.equal(out.snapshots.matched, want.snapshots.matched.cpu()),
+                      f"[{tag}] {name}: rank {k} counters differ")
+            check(g_["launches"] == expected,
+                  f"[{tag}] {name}: rank {k} launched {g_['launches']}, expected {expected}")
+            for kn, n in g_["launches"].items():
+                rank_launches[kn] += n
+        say(tag, run=name, ranks=len(got),
+            vs_one_process="bitwise" if exact else "within SUM_RTOL, counters exact",
+            seconds=[f"{g_['seconds']:.3f}" for g_ in got],
+            one_process_seconds=None if twin_s is None else f"{twin_s:.3f}",
+            collective_s_per_round=[f"{g_['collective_s_per_round']:.6f}" for g_ in got],
+            gathered_bytes_per_round=[int(g_["gathered_bytes_per_round"]) for g_ in got],
+            collectives=[g_["collectives"] for g_ in got],
+            peak_device_bytes=[g_["peak_bytes"] for g_ in got],
+            launches_per_rank=got[0]["launches"], **(extra or {}))
+        return got
+
+    scalar_k, group_k = {"fused_round_step/scalar": ROUNDS}, {"fused_round_step/group": ROUNDS}
+    say("dist", ranks=DIST_WORLD, backend="gloo", device=str(dev), partitions_per_rank=P // DIST_WORLD,
+        load_s=[f"{r['load_s']:.3f}" for r in ranks["gloo"]],
+        spawn_to_end_s=f"{t_first:.3f}", resume_group_s=f"{t_resume:.3f}")
+    for tag, job in (("dist-gloo", "gloo"), ("dist-nccl", "nccl")):
+        dist_phase(tag, job, "run_query q6", _to_cpu(twin_rq6), {"fused_prefix_states": 1},
+                   e2e["run_query q6"])
+        for qname, _, kernel in (streamed if job == "gloo" else streamed[:2]):
+            dist_phase(tag, job, f"session {qname}", _to_cpu(twins[qname]), {kernel: ROUNDS},
+                       e2e[f"resident {qname}"])
+    dist_phase("dist-gloo", "gloo", "streamed q6", _to_cpu(twins["q6"]), scalar_k,
+               e2e["streamed npy q6"])
+    for cost in (True, False):
+        name = f"sync q6 chunk, sync_cost_model={cost}"
+        outs = [r["phases"][name]["out"] for r in ranks["gloo"]]
+        bitwise = all(same(o, _to_cpu(sync_twin)) for o in outs)
+        dist_phase("dist-gloo", "gloo", name, _to_cpu(sync_twin), {},
+                   e2e["sync q6 chunk (C/8)"], exact=bitwise,
+                   extra={"chunks_per_partition": SYNC_C,
+                          "chunk_coordinations": SYNC_C if cost else 0})
+    # K1 on each rank's 2 partitions of round-slice 0 (zero carries): held
+    # to its plain version, and bitwise the one-process launch's rows
+    for qname, gla, kname in (("q6", q6, "fused_round_step/scalar"),
+                              ("q1-small", q1s, "fused_round_step/group")):
+        args = FK._member_args(gla.fused, scan.stack_init(gla, (P,), dev), sl)
+        full = (FK.scalar_round_step(args[0], args[1], args[3]) if args[2] is None
+                else FK.group_round_step(*args))
+        full = (full[:, :2], full[:, 2]) if args[2] is None else full
+        errs = []
+        for k, r in enumerate(ranks["gloo"]):
+            lo_, hi_ = k * P // DIST_WORLD, (k + 1) * P // DIST_WORLD
+            k1 = r["k1"][qname]
+            err = compare(f"[dist-gloo] K1 {qname} rank {k}", k1["kernel"], k1["plain"],
+                          {1} if args[2] is None else {2})
+            checks[kname] = max(checks[kname], err)
+            check(all(torch.equal(a, b[lo_:hi_].cpu()) for a, b in zip(k1["kernel"], full)),
+                  f"[dist-gloo] K1 {qname}: rank {k}'s launch differs from the "
+                  "one-process launch's rows")
+            errs.append(err)
+        say("dist-gloo", check=f"K1 {kname}", rank_shape=k1["shape"], max_abs_err_vs_plain=errs,
+            vs_one_process_launch_rows="bitwise")
+    for family in ("single", "synchronized"):
+        got = dist_phase("dist-fault", "gloo", f"fault q1-small {family}",
+                         _to_cpu(faulted["q1-small", family]), group_k,
+                         e2e[f"fault q1-small {family}"])
+        check(all(g_["out"][1] == {FAIL_P: FAIL_R} for g_ in got),
+              f"[dist-fault] {family}: a rank recorded another failure")
+    got = dist_phase("dist-fault", "gloo", "fault-stream q6", _to_cpu(faulted["q6", "single"]),
+                     scalar_k, e2e["fault-stream q6"],
+                     extra={"failing_source_on_rank": FAIL_P // (P // DIST_WORLD)})
+    recorded = [g_["out"][1] for g_ in got]
+    check(recorded == [{FAIL_P: FAIL_R}] * DIST_WORLD,
+          f"[dist-fault] streamed loss recorded as {recorded}")
+    say("dist-fault", run="fault-stream q6", recorded_fail_at_per_rank=recorded)
+    # [dist-elastic]: the W=4 envelopes against the one-process pauses, then
+    # resumed here on P=8 (bitwise) and on W=2 ranks at partitions=4
+    from repro_torch import ckpt as CK
+
+    cols = {k: shards[k] for k in STREAM_COLS}
+    for qname, gla, kernel in streamed[:2]:
+        got = [r["phases"][f"pause {qname}"] for r in ranks["gloo"]]
+        check(all(g_["launches"] == {kernel: DIST_AT} for g_ in got),
+              f"[dist-elastic] pause {qname}: launches {[g_['launches'] for g_ in got]}")
+        for g_ in got:
+            rank_launches[kernel] += g_["launches"][kernel]
+        ck_d = work / "dist" / f"elastic-{qname}.ckpt"
+        meta_d, blob_d = CK.load_envelope(ck_d)
+        meta_1, blob_1 = CK.load_envelope(work / f"elastic-{qname}.ckpt")
+        like = T.Session(spec(gla), cols, device=dev)._payload_like(DIST_AT)
+        check(same(CK.deserialize_state(blob_d, like), CK.deserialize_state(blob_1, like)),
+              f"[dist-elastic] {qname}: the W=4 envelope's leaves differ from one process's")
+        keys = ("P", "C", "L", "schedule", "cursors", "steps", "path", "fail_at")
+        check(all(meta_d[k] == meta_1[k] for k in keys),
+              f"[dist-elastic] {qname}: the W=4 envelope's plan differs from one process's")
+        FK.reset_launch_counts()
+        t0 = time.perf_counter()
+        here = drive(T.Session.resume(ck_d, gla, cols, device=dev))
+        torch.cuda.synchronize()
+        t_here = time.perf_counter() - t0
+        path_launches(f"dist-elastic {qname}: resumed in one process",
+                      {kernel: ROUNDS - DIST_AT})
+        check(same(here, twins[qname]),
+              f"[dist-elastic] {qname}: the W=4 envelope resumed on P=8 differs")
+        say("dist-elastic", run=f"pause {qname}", paused_at=DIST_AT,
+            checkpoint_bytes=ck_d.stat().st_size, envelope_leaves_vs_one_process="bitwise",
+            pause_s=[f"{g_['out']:.3f}" for g_ in got],
+            collective_s_per_round=[f"{g_['collective_s_per_round']:.6f}" for g_ in got],
+            gathered_bytes_per_round=[int(g_["gathered_bytes_per_round"]) for g_ in got],
+            peak_device_bytes=[g_["peak_bytes"] for g_ in got],
+            resumed_in_one_process_P8="bitwise", one_process_resume_s=f"{t_here:.3f}")
+        dist_phase("dist-elastic", "resume", f"resume {qname}", _to_cpu(twins[qname]),
+                   {kernel: ROUNDS - DIST_AT}, e2e[f"elastic {qname} 8->4"], exact=False,
+                   extra={"world": 2, "partitions": 4})
+        check(all(same(r["phases"][f"resume {qname}"]["out"], _to_cpu(elastic_res[qname, (4,)]))
+                  for r in ranks["resume"]),
+              f"[dist-elastic] {qname}: W=2 at partitions=4 differs from one process at 4")
+        say("dist-elastic", run=f"resume {qname}",
+            vs_one_process_resume_at_4="bitwise")
+    peaks = [g_["peak_bytes"] for job in ranks.values() for r in job for g_ in r["phases"].values()]
+    card_peak = held + sum(max(g_["peak_bytes"] for g_ in r["phases"].values())
+                           for job in ("gloo", "nccl") for r in ranks[job])
+    check(card_peak < 0.75 * torch.cuda.get_device_properties(0).total_memory,
+          f"[dist] the processes' peak device memory sums to {card_peak} B")
+    say("dist", ranks_peak_device_bytes_max=max(peaks), parent_held_bytes=held,
+        card_peak_bytes_bound=card_peak,
+        card_used_bytes_at_rank_end=[r.get("card_used_bytes") for job in ranks.values()
+                                     for r in job],
+        card_total_bytes=torch.cuda.get_device_properties(0).total_memory,
+        rank_launches={k: n for k, n in rank_launches.items() if n})
+    for k, n in rank_launches.items():
+        launches[k] += n
 
     say("main-path launches", **launches)
     for k, n in launches.items():

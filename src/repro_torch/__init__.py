@@ -32,12 +32,18 @@ sessions, ``Session.pause``/``Session.resume`` checkpoint through
 ``RepartitionedSource``; ``engine.straggler_schedule`` and
 ``emit="round_masked"`` run heterogeneous partition speeds.
 
+Partitions across processes: ``init_partition_group`` joins a
+``torch.distributed`` group (gloo, or NCCL with one card a rank) and every
+entry point takes ``mesh=`` the ``PartitionGroup`` it returns — each rank
+steps its own partitions, and the results are bitwise the one-process
+run's (``repro_torch.sharded``).
+
 Entry points take ``device=`` and default to ``"cuda"``; with no card they
 raise unless the caller asks for ``"cpu"``.  The package imports ``torch``
 and ``numpy`` only — never ``jax`` and nothing of ``repro`` (nor
 ``msgpack`` or ``zstandard``).
 """
-from repro_torch import ckpt, fault
+from repro_torch import ckpt, fault, sharded
 from repro_torch.data.encodings import BitPackedEncoding, DictEncoding
 from repro_torch.data.source import (
     ChunkSource,
@@ -45,6 +51,7 @@ from repro_torch.data.source import (
     InMemorySource,
     NpyMmapSource,
     PartitionLostError,
+    PartitionRangeSource,
     RepartitionedSource,
     as_source,
     repartition,
@@ -73,6 +80,7 @@ from repro_torch.session import (
     budget,
     rel_width,
 )
+from repro_torch.sharded import PartitionGroup, init_partition_group
 from repro_torch.spec import QuerySpec
 from repro_torch.uda import GLA, Estimate, FusedSpec, ProbeTable
 
@@ -88,7 +96,9 @@ __all__ = [
     "GLABundle",
     "InMemorySource",
     "NpyMmapSource",
+    "PartitionGroup",
     "PartitionLostError",
+    "PartitionRangeSource",
     "ProbeTable",
     "QueryResult",
     "QuerySpec",
@@ -104,6 +114,7 @@ __all__ = [
     "debucket",
     "fault",
     "hash_bucket",
+    "init_partition_group",
     "make_groupby_gla",
     "make_join_groupby_gla",
     "make_sum_gla",
@@ -111,5 +122,6 @@ __all__ = [
     "repartition",
     "run_queries",
     "run_query",
+    "sharded",
     "straggler_schedule",
 ]

@@ -27,6 +27,10 @@ while finals, snapshots and bounds stay bitwise those of the resident run.
     (elastic resume): over a resident source its round-slices are
     gathered on the device the data lives on (``device_slices``), over a
     streaming one on the host.
+  * :class:`PartitionRangeSource` — partitions [lo, hi) of a source, one
+    rank's share under ``repro_torch.sharded``: reads touch those
+    partitions alone (every source's ``*_parts`` methods), and the
+    fingerprint is the whole layout's.
 
 Streaming sources return host NumPy arrays from :meth:`ChunkSource.slice_cols`
 (the reference's API) and can copy a slice straight into caller buffers
@@ -127,6 +131,42 @@ def _mask_sums(read_mask, P: int, C: int) -> np.ndarray:
     return out
 
 
+def _sample_chunks(spec: ChunkSpec) -> list:
+    """The chunks the fingerprint samples: up to 8, evenly spaced."""
+    n_samp = min(spec.C, _SAMPLE_CHUNKS)
+    return sorted({int(i) for i in np.linspace(0, spec.C - 1, n_samp)})
+
+
+def fingerprint_parts(source) -> tuple:
+    """What the fingerprint hashes of ``source``'s partitions, row by row:
+    its per-chunk mask sums ``[P, C]`` and, per sampled chunk, the strided
+    row ``[P, L/stride]`` of every logical column (``{name: array}``).
+    Partition p's rows depend on partition p alone, so the parts of
+    partition ranges, concatenated in order, are the whole layout's
+    (``repro_torch.sharded.fingerprint`` gathers them across ranks)."""
+    spec = source.spec
+    stride = max(1, spec.L // _SAMPLE_ELEMS)
+    samples = []
+    for c in _sample_chunks(spec):
+        sl = source._fingerprint_slice(c, c + 1)
+        samples.append({name: np.ascontiguousarray(sl[name][:, 0, ::stride])
+                        for name in sorted(sl)})
+    return np.ascontiguousarray(source.mask_chunk_sums()), samples
+
+
+def content_fingerprint(spec: ChunkSpec, mask_sums: np.ndarray, samples) -> str:
+    """sha256 over ``repr(spec)``, the mask sums and the samples of
+    :func:`fingerprint_parts` — the reference's content hash."""
+    h = hashlib.sha256()
+    h.update(repr(spec).encode())
+    h.update(np.ascontiguousarray(mask_sums).tobytes())
+    for sample in samples:
+        for name in sorted(sample):
+            h.update(name.encode())
+            h.update(np.ascontiguousarray(sample[name]).tobytes())
+    return h.hexdigest()
+
+
 class ChunkSource:
     """Base class: a [P, C, L] columnar dataset readable in chunk slices.
 
@@ -158,6 +198,23 @@ class ChunkSource:
         :meth:`slice_cols`."""
         for k, v in self.slice_cols(lo, hi).items():
             np.copyto(out[k], _numpy(v))
+
+    def slice_parts(self, plo: int, phi: int, lo: int, hi: int) -> dict:
+        """Columns of partitions [plo, phi) over chunks [lo, hi): the
+        ``[phi-plo, hi-lo, ·]`` rows of :meth:`slice_cols`.  This default
+        reads every partition and keeps the rows asked for; the file-backed
+        sources and the views override it to read those partitions alone."""
+        return {k: v[plo:phi] for k, v in self.slice_cols(lo, hi).items()}
+
+    def read_parts_into(self, plo: int, phi: int, lo: int, hi: int,
+                        out: Dict[str, np.ndarray]) -> None:
+        """:meth:`read_into` for partitions [plo, phi) only."""
+        for k, v in self.slice_parts(plo, phi, lo, hi).items():
+            np.copyto(out[k], _numpy(v))
+
+    def mask_sums_parts(self, plo: int, phi: int) -> np.ndarray:
+        """:meth:`mask_chunk_sums` of partitions [plo, phi), ``[phi-plo, C]``."""
+        return self.mask_chunk_sums()[plo:phi]
 
     def physical_columns(self) -> Tuple[ColumnSpec, ...]:
         """Column table of the bytes :meth:`slice_cols` returns: encoded
@@ -192,21 +249,7 @@ class ChunkSource:
         across the two packages, for the same rows.  Best-effort (sampled),
         as the reference's."""
         if getattr(self, "_fingerprint", None) is None:
-            spec = self.spec
-            h = hashlib.sha256()
-            h.update(repr(spec).encode())
-            h.update(np.ascontiguousarray(self.mask_chunk_sums()).tobytes())
-            n_samp = min(spec.C, _SAMPLE_CHUNKS)
-            sample_chunks = sorted(
-                {int(i) for i in np.linspace(0, spec.C - 1, n_samp)})
-            stride = max(1, spec.L // _SAMPLE_ELEMS)
-            for c in sample_chunks:
-                sl = self._fingerprint_slice(c, c + 1)
-                for name in sorted(sl):
-                    v = sl[name][:, 0, ::stride]
-                    h.update(name.encode())
-                    h.update(np.ascontiguousarray(v).tobytes())
-            self._fingerprint = h.hexdigest()
+            self._fingerprint = content_fingerprint(self.spec, *fingerprint_parts(self))
         return self._fingerprint
 
     def _fingerprint_slice(self, lo: int, hi: int) -> dict:
@@ -266,22 +309,31 @@ class _HostColumns(ChunkSource):
     _host: Dict[str, np.ndarray]
 
     def slice_cols(self, lo: int, hi: int) -> dict:
-        # only the slice is materialized on the host
-        return {k: np.ascontiguousarray(v[:, lo:hi]) for k, v in self._host.items()}
+        return self.slice_parts(0, self.spec.P, lo, hi)
+
+    def slice_parts(self, plo: int, phi: int, lo: int, hi: int) -> dict:
+        # only the slice of those partitions is materialized on the host
+        return {k: np.ascontiguousarray(v[plo:phi, lo:hi]) for k, v in self._host.items()}
 
     def read_into(self, lo: int, hi: int, out: Dict[str, np.ndarray]) -> None:
+        self.read_parts_into(0, self.spec.P, lo, hi, out)
+
+    def read_parts_into(self, plo: int, phi: int, lo: int, hi: int,
+                        out: Dict[str, np.ndarray]) -> None:
         # each partition's rows [lo, hi) are contiguous on disk: one strided
         # copy per column straight into the caller's buffer, no temporary
         for k, v in self._host.items():
-            np.copyto(out[k], v[:, lo:hi])
+            np.copyto(out[k], v[plo:phi, lo:hi])
 
     def mask_chunk_sums(self) -> np.ndarray:
-        # only the mask column is read, in bounded steps
         if getattr(self, "_mask_sums", None) is None:
-            mask = self._host["_mask"]
-            self._mask_sums = _mask_sums(lambda lo, hi: mask[:, lo:hi],
-                                         self.spec.P, self.spec.C)
+            self._mask_sums = self.mask_sums_parts(0, self.spec.P)
         return self._mask_sums
+
+    def mask_sums_parts(self, plo: int, phi: int) -> np.ndarray:
+        # only the mask column of those partitions is read, in bounded steps
+        mask = self._host["_mask"]
+        return _mask_sums(lambda lo, hi: mask[plo:phi, lo:hi], phi - plo, self.spec.C)
 
 
 class NpyMmapSource(_HostColumns):
@@ -457,12 +509,13 @@ class RepartitionedSource(ChunkSource):
         self.encodings = inner.encodings
         self.device_slices = inner.resident or inner.device_slices
 
-    def _index_maps(self, lo: int, hi: int):
-        """Old (partition, chunk within [olo, ohi)) index grids [P', hi-lo]
-        of new chunks [lo, hi) of every new partition, and [olo, ohi)."""
+    def _index_maps(self, lo: int, hi: int, plo: int = 0, phi: int = None):
+        """Old (partition, chunk within [olo, ohi)) index grids
+        [phi-plo, hi-lo] of new chunks [lo, hi) of new partitions
+        [plo, phi) (all of them by default), and [olo, ohi)."""
         k = self._factor
         j = np.arange(lo, hi)
-        i = np.arange(self.spec.P)
+        i = np.arange(plo, self.spec.P if phi is None else phi)
         if self._is_merge:
             olo, ohi = lo // k, (hi - 1) // k + 1
             rows = i[:, None] * k + (j % k)[None, :]
@@ -474,8 +527,14 @@ class RepartitionedSource(ChunkSource):
         return rows, cols, olo, ohi
 
     def slice_cols(self, lo: int, hi: int) -> dict:
-        rows, cols, olo, ohi = self._index_maps(lo, hi)
-        block = self.inner.slice_cols(olo, ohi)
+        return self.slice_parts(0, self.spec.P, lo, hi)
+
+    def slice_parts(self, plo: int, phi: int, lo: int, hi: int) -> dict:
+        # new partitions [plo, phi) read old partitions [rlo, rhi) alone
+        rows, cols, olo, ohi = self._index_maps(lo, hi, plo, phi)
+        rlo = int(rows.min())
+        rows = rows - rlo
+        block = self.inner.slice_parts(rlo, rlo + int(rows.max()) + 1, olo, ohi)
         out, idx = {}, {}
         for name, v in block.items():
             if isinstance(v, torch.Tensor):  # gathered where the data lives
@@ -488,11 +547,54 @@ class RepartitionedSource(ChunkSource):
         return out
 
     def mask_chunk_sums(self) -> np.ndarray:
-        # an index remap of the inner counts: no data read
         if getattr(self, "_mask_sums", None) is None:
-            rows, cols, _, _ = self._index_maps(0, self.spec.C)
-            self._mask_sums = self.inner.mask_chunk_sums()[rows, cols]
+            self._mask_sums = self.mask_sums_parts(0, self.spec.P)
         return self._mask_sums
+
+    def mask_sums_parts(self, plo: int, phi: int) -> np.ndarray:
+        # an index remap of the inner counts: no data read
+        rows, cols, _, _ = self._index_maps(0, self.spec.C, plo, phi)
+        rlo = int(rows.min())
+        return self.inner.mask_sums_parts(rlo, int(rows.max()) + 1)[rows - rlo, cols]
+
+
+class PartitionRangeSource(ChunkSource):
+    """Partitions [lo, hi) of a source: one rank's share of a layout that
+    several processes scan together (``repro_torch.sharded``).
+
+    ``spec`` is the range's own ``[hi-lo, C, L]`` contract; every read —
+    :meth:`slice_cols`, :meth:`read_into` (what the prefetcher's pinned
+    staging takes), :meth:`step_slice_like`, :meth:`mask_chunk_sums` —
+    touches those partitions alone (through the inner source's
+    ``*_parts`` methods).  :meth:`fingerprint` is the whole layout's, so a
+    checkpoint written by several ranks names the data one process would
+    see.  A ``PartitionLostError`` from the inner source names partitions
+    of the whole layout.  Over a resident source, use its rows directly
+    (``repro_torch.sharded.device_put_slice``): this view streams.
+    """
+
+    def __init__(self, inner: ChunkSource, lo: int, hi: int):
+        if not 0 <= lo < hi <= inner.spec.P:
+            raise ValueError(f"partition range [{lo}, {hi}) is not inside "
+                             f"the source's {inner.spec.P} partitions")
+        self.inner, self.lo, self.hi = inner, int(lo), int(hi)
+        self.spec = inner.spec._replace(P=self.hi - self.lo)
+        self.encodings = inner.encodings
+        self.device_slices = inner.device_slices
+
+    def slice_cols(self, lo: int, hi: int) -> dict:
+        return self.inner.slice_parts(self.lo, self.hi, lo, hi)
+
+    def read_into(self, lo: int, hi: int, out: Dict[str, np.ndarray]) -> None:
+        self.inner.read_parts_into(self.lo, self.hi, lo, hi, out)
+
+    def mask_chunk_sums(self) -> np.ndarray:
+        if getattr(self, "_mask_sums", None) is None:
+            self._mask_sums = self.inner.mask_sums_parts(self.lo, self.hi)
+        return self._mask_sums
+
+    def fingerprint(self) -> str:
+        return self.inner.fingerprint()
 
 
 def as_source(data) -> ChunkSource:

@@ -20,6 +20,9 @@ Execution model (paper §3.2–§3.4):
   * :func:`straggler_schedule` gives partitions heterogeneous speeds.
   * :func:`run_queries` runs N queries over ONE pass of the shards as a
     :func:`repro_torch.gla.GLABundle` and unbundles the results.
+  * ``mesh=`` (``repro_torch.sharded``) runs the partitions across
+    processes: each rank scans its own (:func:`_scan_states`) and the
+    merge (:func:`_merge_result`) runs over every rank's states, gathered.
 
 ``emit="kernel"`` routes as the reference does: the fused kernels (K1, K2)
 whenever ``scan.fused_available``; otherwise a group-by GLA or a bundle
@@ -113,16 +116,37 @@ def _gather_rounds(prefixes: Pytree, idx: torch.Tensor) -> Pytree:
     return tree_map(lambda x: x[rows, idx], prefixes)
 
 
-def _run_vmapped(gla: GLA, shards: dict, sched: np.ndarray, alive, *,
+def _merge_round(gla: GLA, views, w_r: torch.Tensor, d_local: torch.Tensor,
+                 d_total: torch.Tensor, confidence: float, all_alive: bool):
+    """One round's merge over every partition's views [P, ...]:
+    EstimatorTerminate per partition with its |D_i|, EstimatorMerge under
+    the round's weights [P], and the round's Estimate (None without an
+    estimation model).  Returns (merged, estimate)."""
+    term = gla.estimator_terminate(views, {"d_local": d_local})
+    merged = _merge_rounds(gla, tree_map(lambda x: x[:, None], term), w_r[:, None],
+                           gla.estimator_merge, all_alive)
+    merged = tree_map(lambda x: x[0], merged)
+    est = None
+    if gla.estimate is not None:
+        est = gla.estimate(merged, confidence, {"d_total": d_total})
+    return merged, est
+
+
+def _scan_states(gla: GLA, shards: dict, sched: np.ndarray, *, lo: int = 0,
                  mode: str, emit: str, lanes: int, snapshots: bool,
-                 confidence: float, all_alive: bool) -> QueryResult:
-    """The whole-scan program over every partition at once."""
+                 on_chunk=None):
+    """The per-partition half of the whole-scan program, over the
+    partitions ``shards`` holds — rows [lo, lo+n) of the [P, R+1]
+    schedule ``sched`` (all of them in one process; one rank's share
+    under ``repro_torch.sharded``).  The sync barrier truncates to the
+    minimum progress over every row of ``sched``.  ``on_chunk`` is
+    ``scan.scan_prefix``'s per-chunk hook.  Returns (final states
+    [n, ...], round states [n, R, ...] or None, d_local [n])."""
     mask = shards["_mask"]
     dev = mask.device
+    n = mask.shape[0]
     R = sched.shape[1] - 1
-    d_local = mask.sum(dim=(1, 2), dtype=torch.float64).to(torch.float32)
-    d_total = d_local.sum()
-    w_pr, w_final = SC.round_weights(alive, R, dev)
+    d_local = SC._live(mask)
     kernel = emit == "kernel"
     if kernel and lanes != 1:
         raise ValueError("emit='kernel' runs single-lane")
@@ -145,25 +169,37 @@ def _run_vmapped(gla: GLA, shards: dict, sched: np.ndarray, alive, *,
             finals, round_states = SC.kernel_rounds_states(gla, shards, R_)
     elif emit in ("chunk", "kernel"):
         if not kernel:
-            finals, prefixes = SC.scan_prefix(gla, shards, lanes)
+            finals, prefixes = SC.scan_prefix(gla, shards, lanes, on_chunk=on_chunk)
         elif fused_ok:
             finals, prefixes = SC.fused_prefix_states(gla, shards)
         else:
             finals, prefixes = SC.kernel_prefix_states(gla, shards)
         if snapshots:
-            idx = torch.as_tensor(sched[:, 1:], dtype=torch.int64, device=dev)
+            idx = sched[lo:lo + n, 1:]
             if mode == "sync":
-                idx = idx.min(dim=0).values.expand_as(idx)
-            round_states = _gather_rounds(prefixes, idx)  # [P, R, ...]
+                idx = np.broadcast_to(sched[:, 1:].min(axis=0), idx.shape)
+            idx = torch.as_tensor(np.ascontiguousarray(idx), dtype=torch.int64,
+                                  device=dev)
+            round_states = _gather_rounds(prefixes, idx)  # [n, R, ...]
     elif emit == "round":
         if mode == "sync":
             raise NotImplementedError("sync mode requires emit='chunk'")
         finals, round_states = SC.scan_rounds(gla, shards, lanes, R)
     elif emit == "round_masked":  # as the reference: no sync barrier here
-        finals, round_states = SC.scan_rounds_masked(gla, shards, sched, lanes)
+        finals, round_states = SC.scan_rounds_masked(gla, shards, sched[lo:lo + n],
+                                                     lanes)
     else:
         raise ValueError(f"unknown emit: {emit!r}")
+    return finals, round_states, d_local
 
+
+def _merge_result(gla: GLA, finals, round_states, d_local: torch.Tensor, alive,
+                  *, rounds: int, snapshots: bool, confidence: float,
+                  all_alive: bool) -> QueryResult:
+    """The merging half of the whole-scan program, over every partition's
+    final and round states (leaves [P, ...] and [P, R, ...])."""
+    d_total = d_local.sum()
+    w_pr, w_final = SC.round_weights(alive, rounds, d_local.device)
     # Final result: plain Merge across partitions, then Terminate.
     final = gla.terminate(_merge_over_partitions(gla, finals, w_final, all_alive))
     if not snapshots:
@@ -179,15 +215,43 @@ def _run_vmapped(gla: GLA, shards: dict, sched: np.ndarray, alive, *,
     return QueryResult(final, merged, estimates, d_total, d_local)
 
 
+def _run_vmapped(gla: GLA, shards: dict, sched: np.ndarray, alive, *,
+                 mode: str, emit: str, lanes: int, snapshots: bool,
+                 confidence: float, all_alive: bool) -> QueryResult:
+    """The whole-scan program over every partition at once."""
+    finals, round_states, d_local = _scan_states(
+        gla, shards, sched, mode=mode, emit=emit, lanes=lanes, snapshots=snapshots)
+    return _merge_result(gla, finals, round_states, d_local, alive,
+                         rounds=sched.shape[1] - 1, snapshots=snapshots,
+                         confidence=confidence, all_alive=all_alive)
+
+
+def _execute_full(gla: GLA, shards: dict, sched: np.ndarray, alive, *, mode: str,
+                  emit: str, lanes: int, snapshots: bool, confidence: float,
+                  all_alive: bool, mesh=None, sync_cost_model: bool = True
+                  ) -> QueryResult:
+    """Dispatch one whole-scan program: over every partition here, or over
+    this rank's share of them (``shards``) under ``repro_torch.sharded``."""
+    if mesh is None:
+        return _run_vmapped(gla, shards, sched, alive, mode=mode, emit=emit,
+                            lanes=lanes, snapshots=snapshots,
+                            confidence=confidence, all_alive=all_alive)
+    from repro_torch import sharded  # local: sharded imports engine
+    return sharded.run_sharded(
+        gla, shards, sched, alive, mesh=mesh, mode=mode, emit=emit, lanes=lanes,
+        snapshots=snapshots, confidence=confidence, all_alive=all_alive,
+        sync_cost_model=sync_cost_model)
+
+
 # ---------------------------------------------------------------------------
 # plan resolution and the public entry point
 # ---------------------------------------------------------------------------
 
-def normalize_plan(qspec: QS.QuerySpec, source) -> QS.QuerySpec:
+def normalize_plan(qspec: QS.QuerySpec, spec) -> QS.QuerySpec:
     """Validate the emit/kernel contracts and resolve the plan against the
     data's ``[P, C, L]`` shape: ``emit`` a concrete string, ``schedule`` a
-    [P, R+1] ndarray, ``rounds`` its R.  ``source`` is a ``ChunkSource``,
-    whose ``spec`` gives the shape (no data is read).
+    [P, R+1] ndarray, ``rounds`` its R.  ``spec`` is the data's
+    ``ChunkSpec`` (the whole layout's, under a partition group).
 
     A multi-query spec is a TypeError: :func:`run_queries` bundles it first.
     Round-emission paths ("round", and group-by or bundle "kernel") emit at
@@ -201,7 +265,7 @@ def normalize_plan(qspec: QS.QuerySpec, source) -> QS.QuerySpec:
             "plan — run_queries bundles it before execution")
     gla, emit = qspec.gla, qspec.resolved_emit()
     rounds, schedule = qspec.rounds, qspec.schedule
-    P, C = source.spec.P, source.spec.C
+    P, C = spec.P, spec.C
     if emit not in ("chunk", "round", "round_masked", "kernel"):
         raise ValueError(f"unknown emit: {emit!r} (the port runs 'chunk', "
                          "'round', 'round_masked' and 'kernel')")
@@ -250,7 +314,7 @@ def normalize_plan(qspec: QS.QuerySpec, source) -> QS.QuerySpec:
     return qspec.with_(rounds=schedule.shape[1] - 1, schedule=schedule, emit=emit)
 
 
-def run_query(spec, data, *, device="cuda", **plan) -> QueryResult:
+def run_query(spec, data, *, device=None, mesh=None, **plan) -> QueryResult:
     """Execute a GLA query with on-line estimation.
 
     A thin wrapper over :class:`repro_torch.session.Session` driven to
@@ -266,15 +330,21 @@ def run_query(spec, data, *, device="cuda", **plan) -> QueryResult:
         prefetched round-slice at a time, with finals bitwise those of
         the resident run.
       device: where the query runs ("cuda" by default; "cpu" runs the
-        kernels' plain versions).
+        kernels' plain versions; the group's device under ``mesh``).
+      mesh: a :class:`repro_torch.sharded.PartitionGroup`: this process is
+        one rank of several that run the query together, each over its
+        own partitions (``data`` is this rank's resident block
+        ``[P/W, C, L]``, or a source over the whole layout), and every
+        rank returns the whole query's result, bitwise the one-process
+        run's (``repro_torch.sharded``).
     """
     from repro_torch import session as SN  # local: session imports engine
 
     qspec = QS.coerce_spec(spec, plan, caller="run_query")
-    return SN.Session(qspec, data, device=device).run()
+    return SN.Session(qspec, data, device=device, mesh=mesh).run()
 
 
-def run_queries(specs, data, *, device="cuda", **plan):
+def run_queries(specs, data, *, device=None, mesh=None, **plan):
     """Execute N concurrent OLA queries over ONE pass of the shards.
 
     The queries are stacked into a :func:`repro_torch.gla.GLABundle` (one
@@ -290,7 +360,8 @@ def run_queries(specs, data, *, device="cuda", **plan):
     runs every member in one K1 launch per round-slice when all have a
     usable fused contract, else one K3 launch per round-slice over their
     ``kernel_cols``.  With ``spec.stop`` every member that estimates must
-    converge before the bundle stops.
+    converge before the bundle stops.  ``mesh`` runs it across processes,
+    as :func:`run_query`.
 
     Returns: list of :class:`QueryResult`, one per GLA, in order.
     """
@@ -302,7 +373,7 @@ def run_queries(specs, data, *, device="cuda", **plan):
                         "single query use run_query()")
     glas = list(qspec.gla)
     qspec = qspec.with_(emit=qspec.resolved_emit(), gla=GLABundle(glas))
-    res = run_query(qspec, data, device=device)
+    res = run_query(qspec, data, device=device, mesh=mesh)
     return [QueryResult(res.final[i],
                         None if res.snapshots is None else res.snapshots[i],
                         None if res.estimates is None else res.estimates[i],

@@ -132,7 +132,8 @@ def run_with_failures(
     mode: str = "async",
     emit: str = "chunk",
     confidence: float = 0.95,
-    device="cuda",
+    device=None,
+    mesh=None,
 ) -> engine.QueryResult:
     """Run a query under injected node failures and apply §4.6 semantics.
 
@@ -140,9 +141,17 @@ def run_with_failures(
     partition -> failure round for mid-query failures.  ``estimator``
     names the estimation model the GLA was built with: the bounds'
     post-processing (poison / stall / pass-through) depends on it.
-    ``shards`` is a shards dict or any chunk source.
+    ``shards`` is a shards dict or any chunk source.  ``mesh`` runs it as
+    one rank of a partition group (``repro_torch.sharded``; ``shards`` is
+    this rank's block or the whole layout's source): the failure schedule
+    is the whole layout's, and every rank returns the whole result.
     """
-    spec = DS.as_source(shards).spec
+    if mesh is None:
+        spec = DS.as_source(shards).spec
+    else:
+        from repro_torch import sharded  # local: sharded imports engine
+
+        spec = sharded.rank_view(mesh, shards).spec
     P, C = spec.P, spec.C
     if schedule is None:
         schedule = engine.uniform_schedule(P, C, rounds)
@@ -155,7 +164,8 @@ def run_with_failures(
         alive = alive_mask(P, dead_partitions)
     res = engine.run_query(
         QuerySpec(gla, schedule=schedule, sync=mode == "sync", emit=emit,
-                  confidence=confidence, alive=alive), shards, device=device)
+                  confidence=confidence, alive=alive), shards, device=device,
+        mesh=mesh)
     fr = first_failure_round(alive)
     if fr is None or res.estimates is None:
         return res
@@ -196,7 +206,8 @@ class FailingSource(DS.ChunkSource):
     the mask-chunk sums (|D| is a property of the data) and the
     fingerprint — are the inner source's.  ``resident`` is False even over
     in-memory data, so a session always takes the streaming path that
-    detects the failure.
+    detects the failure.  A read of a partition range (one rank's share,
+    ``PartitionRangeSource``) sees only the failures of its partitions.
     """
 
     resident = False
@@ -214,33 +225,43 @@ class FailingSource(DS.ChunkSource):
         self._dead: set = set()
         self._lock = threading.Lock()  # reads run on the prefetcher's thread
 
-    def _dead_before(self, hi: int) -> list:
-        """The dead partitions a read of [lo, hi) must zero; raises when
-        the read reaches a partition's fail chunk for the first time."""
+    def _dead_before(self, hi: int, plo: int, phi: int) -> list:
+        """The dead partitions of [plo, phi) a read of [lo, hi) must zero,
+        as offsets from ``plo``; raises when the read reaches the fail
+        chunk of one of those partitions for the first time."""
         with self._lock:
             newly = sorted(p for p, c in self._fail.items()
-                           if c < hi and p not in self._dead)
+                           if c < hi and p not in self._dead and plo <= p < phi)
             if newly:
                 self._dead.update(newly)
                 raise PartitionLostError(newly)
-            return sorted(self._dead)
+            return sorted(p - plo for p in self._dead if plo <= p < phi)
 
     def slice_cols(self, lo: int, hi: int) -> dict:
-        dead = self._dead_before(hi)
+        return self.slice_parts(0, self.spec.P, lo, hi)
+
+    def slice_parts(self, plo: int, phi: int, lo: int, hi: int) -> dict:
+        dead = self._dead_before(hi, plo, phi)
         cols = {k: v.clone() if isinstance(v, torch.Tensor) else np.array(v, copy=True)
-                for k, v in self.inner.slice_cols(lo, hi).items()}
+                for k, v in self.inner.slice_parts(plo, phi, lo, hi).items()}
         for v in cols.values() if dead else ():
             v[dead] = 0
         return cols
 
     def read_into(self, lo: int, hi: int, out: dict) -> None:
-        dead = self._dead_before(hi)
-        self.inner.read_into(lo, hi, out)
+        self.read_parts_into(0, self.spec.P, lo, hi, out)
+
+    def read_parts_into(self, plo: int, phi: int, lo: int, hi: int, out: dict) -> None:
+        dead = self._dead_before(hi, plo, phi)
+        self.inner.read_parts_into(plo, phi, lo, hi, out)
         for v in out.values() if dead else ():
             v[dead] = 0
 
     def mask_chunk_sums(self) -> np.ndarray:
         return self.inner.mask_chunk_sums()
+
+    def mask_sums_parts(self, plo: int, phi: int) -> np.ndarray:
+        return self.inner.mask_sums_parts(plo, phi)
 
     def fingerprint(self) -> str:
         return self.inner.fingerprint()

@@ -279,8 +279,13 @@ def project(fs, cols):
 
 
 def _live_counts(mask: torch.Tensor) -> torch.Tensor:
-    """Live rows per (partition, chunk), [P, C] float64 — exact integers."""
-    return mask.sum(dim=-1, dtype=torch.float64)
+    """Live rows per (partition, chunk), [P, C] float64 — exact integers.
+
+    A chunk's 0/1 rows sum exactly in float32 up to 2**24 rows, so only the
+    [P, C] result is widened: summing in float64 would first make a float64
+    copy of the whole mask (twice a float32 mask's bytes on the device)."""
+    exact32 = mask.shape[-1] <= 1 << 24
+    return mask.sum(dim=-1, dtype=torch.float32 if exact32 else torch.float64).double()
 
 
 def _fused_specs(gla):

@@ -30,7 +30,8 @@ over the reference's probe budget), the legacy ``kernel_cols`` paths:
 The reference launches its kernels once per partition; here the partition
 axis stays a batch axis and one launch covers all P partitions.
 ``scan_round_step``, ``fused_round_step`` and :data:`ROUND_DELTA_FNS` are
-also the session's per-round-slice primitives (``repro_torch.session``).
+also the session's per-round-slice primitives (:func:`round_step`, which
+``repro_torch.session`` and ``repro_torch.sharded`` call).
 :func:`merge_carries` and :func:`split_carries` carry a paused session's
 states to another partition count (elastic resume).
 """
@@ -42,6 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch import estimators as E
+from repro_torch.data import encodings as ENC
 from repro_torch.kernels import fused_agg, ops
 from repro_torch.uda import GLA, tree_map, tree_stack
 
@@ -86,9 +88,11 @@ def _batch(P: int, lanes: int) -> Tuple[int, ...]:
 # per-partition scans (partition axis batched)
 # ---------------------------------------------------------------------------
 
-def scan_prefix(gla: GLA, cols: dict, lanes: int):
+def scan_prefix(gla: GLA, cols: dict, lanes: int, on_chunk=None):
     """Scan chunks emitting every prefix state (init prepended).
 
+    ``on_chunk``, when given, is called after every chunk: the per-chunk
+    coordination of the sharded sync barrier (``repro_torch.sharded``).
     Returns ``(final view [P, ...], prefixes [P, C+1, ...])``."""
     P, C, _ = cols["_mask"].shape
     st = stack_init(gla, _batch(P, lanes), cols["_mask"].device)
@@ -97,6 +101,8 @@ def scan_prefix(gla: GLA, cols: dict, lanes: int):
         st, view = accumulate_chunk(gla, st, {k: v[:, c] for k, v in cols.items()},
                                     lanes)
         views.append(view)
+        if on_chunk is not None:
+            on_chunk()
     return views[-1], tree_stack(views, dim=1)
 
 
@@ -253,8 +259,9 @@ def fused_prefix_states(gla: GLA, cols: dict, encodings=()):
 # ---------------------------------------------------------------------------
 
 def _live(mask: torch.Tensor) -> torch.Tensor:
-    """Live rows per partition, f32 [P] — exact integers, summed in f64."""
-    return mask.sum(dim=(1, 2), dtype=torch.float64).to(torch.float32)
+    """Live rows per partition, f32 [P] — exact integers: the per-chunk
+    counts (``fused_agg._live_counts``) summed in f64."""
+    return fused_agg._live_counts(mask).sum(dim=1).to(torch.float32)
 
 
 def _scalar_projection(gla: GLA, cols: dict):
@@ -440,6 +447,29 @@ ROUND_DELTA_FNS = {
     "kernel_group": kernel_round_delta,
     "kernel_bundle": bundle_round_deltas,
 }
+
+
+def round_step(gla: GLA, states: Pytree, slice_cols: dict, *, path: str,
+               lanes: int, first: bool, encodings=()):
+    """Advance per-partition states by ONE round-slice on a session path:
+    ``"scan"`` (:func:`scan_round_step`), the carry-style ``"kernel_fused"``
+    (one K1 launch for every partition) or a delta-style legacy path of
+    :data:`ROUND_DELTA_FNS`, where ``first`` starts the running sum from
+    the first delta (not zero + delta), as :func:`_fold_running_sum` does.
+    ``encodings`` is the source's (name, Encoding) tuple: the fused step
+    decodes its physical columns, every other path decodes the slice
+    first (one decode launch either way).  Returns (new states, round
+    views)."""
+    if encodings and path != "kernel_fused":
+        slice_cols = ENC.decode_cols(slice_cols, encodings)
+    if path == "scan":
+        return scan_round_step(gla, states, slice_cols, lanes)
+    if path == "kernel_fused":
+        new = fused_round_step(gla, states, slice_cols, encodings)
+        return new, new
+    delta = ROUND_DELTA_FNS[path](gla, slice_cols)
+    new = delta if first else tree_map(torch.add, states, delta)
+    return new, new
 
 
 # ---------------------------------------------------------------------------

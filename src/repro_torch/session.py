@@ -41,7 +41,13 @@ the per-partition carries and the scan cursor (``repro_torch.ckpt``);
 :meth:`Session.resume` continues from that round boundary, in this process
 or another, bitwise the uninterrupted run, or on another partition count
 (elastic resume: ``scan.merge_carries``/``split_carries`` over a
-``RepartitionedSource``).  Meshes come in a later slice.
+``RepartitionedSource``).
+
+``mesh=`` (a ``repro_torch.sharded.PartitionGroup``) makes the session one
+rank of several: every rank builds it with the same plan and calls the same
+methods in the same order; each steps its own partitions, and the rounds'
+merges, estimates, stopping decisions, failures and checkpoints are the
+whole query's, bitwise the one-process session's (``repro_torch.sharded``).
 """
 from __future__ import annotations
 
@@ -56,11 +62,12 @@ from repro_torch import ckpt
 from repro_torch import engine as EN
 from repro_torch import fault as FT
 from repro_torch import scan as SC
+from repro_torch import sharded as SH
 from repro_torch import spec as QS
 from repro_torch._device import resolve_device
 from repro_torch.data import encodings as ENC
 from repro_torch.data import source as DS
-from repro_torch.uda import GLA, Estimate, tree_map, tree_stack
+from repro_torch.uda import GLA, Estimate, tree_stack
 
 Pytree = Any
 
@@ -226,55 +233,6 @@ def _map_member_ests(fn, est):
     if isinstance(est, Estimate):
         return fn(est)
     return tuple(None if e is None else fn(e) for e in est)
-
-
-# ---------------------------------------------------------------------------
-# one round-slice
-# ---------------------------------------------------------------------------
-
-def _merge_estimate(gla: GLA, views, w_r: torch.Tensor, d_local: torch.Tensor,
-                    d_total: torch.Tensor, confidence: float, all_alive: bool):
-    """EstimatorTerminate per partition with its |D_i|, EstimatorMerge
-    over partitions under the round's weights, and the round's Estimate
-    (None without an estimation model).  Returns (merged, estimate)."""
-    term = gla.estimator_terminate(views, {"d_local": d_local})
-    merged = EN._merge_rounds(
-        gla, tree_map(lambda x: x[:, None], term), w_r[:, None],
-        gla.estimator_merge, all_alive)
-    merged = tree_map(lambda x: x[0], merged)
-    est = None
-    if gla.estimate is not None:
-        est = gla.estimate(merged, confidence, {"d_total": d_total})
-    return merged, est
-
-
-def _step(gla: GLA, states, slice_shards: dict, w_r: torch.Tensor,
-          d_local: torch.Tensor, d_total: torch.Tensor, *, path: str,
-          lanes: int, confidence: float, all_alive: bool, first: bool,
-          encodings: tuple = ()):
-    """Advance one round-slice of every partition.
-
-    ``first`` matters on the delta-style legacy paths only: the running
-    sum starts from the first delta (not zero + delta), as
-    ``scan._fold_running_sum`` does.  ``encodings`` is the source's
-    (name, Encoding) tuple: the fused step decodes its physical columns,
-    every other path decodes the slice first (one decode launch either
-    way).  Returns (new per-partition states, per-partition round views,
-    merged round state, round Estimate-or-None)."""
-    if encodings and path != "kernel_fused":
-        slice_shards = ENC.decode_cols(slice_shards, encodings)
-    if path == "scan":
-        new_states, views = SC.scan_round_step(gla, states, slice_shards, lanes)
-    elif path == "kernel_fused":  # carry-style, one K1 launch for every partition
-        new_states = views = SC.fused_round_step(gla, states, slice_shards,
-                                                 encodings)
-    else:
-        delta = SC.ROUND_DELTA_FNS[path](gla, slice_shards)
-        new_states = views = (delta if first
-                              else tree_map(torch.add, states, delta))
-    merged, est = _merge_estimate(gla, views, w_r, d_local, d_total,
-                                  confidence, all_alive)
-    return new_states, views, merged, est
 
 
 # ---------------------------------------------------------------------------
@@ -447,13 +405,26 @@ class Session:
       * :meth:`pause` / :meth:`resume` — checkpoint between rounds and
         continue later, bitwise, in this process or another, or on another
         partition count.
+
+    With ``mesh`` (a :class:`repro_torch.sharded.PartitionGroup`) the
+    session is this process's rank of a partition group and runs on the
+    group's device: ``data`` is this rank's resident block ``[P/W, C, L]``
+    or a source over the whole layout, whose partitions
+    :meth:`repro_torch.sharded.PartitionGroup.bounds` gives this rank.
     """
 
-    def __init__(self, spec, data, *, device="cuda", **plan):
+    def __init__(self, spec, data, *, device=None, mesh=None, **plan):
         qspec = QS.coerce_spec(spec, plan, caller="Session")
-        dev = resolve_device(device)
-        source = DS.place(DS.as_source(data), dev)
-        qspec = EN.normalize_plan(qspec, source)
+        self._mesh = mesh
+        if mesh is None:
+            dev = resolve_device("cuda" if device is None else device)
+            source, whole = DS.as_source(data), None
+        else:
+            dev = SH.resolve_device(mesh, device)
+            source, whole = SH.rank_view(mesh, data)
+        source = DS.place(source, dev)
+        self._whole = whole or source.spec  # the whole layout's spec
+        qspec = EN.normalize_plan(qspec, self._whole)
         self.spec = qspec  # the resolved plan, for introspection
         gla: GLA = qspec.gla
         self._gla = gla
@@ -469,8 +440,10 @@ class Session:
         self._emit = qspec.emit
         self._lanes = qspec.lanes
         self._snapshots = qspec.snapshots
-        P, C, L = source.spec.P, source.spec.C, source.spec.L
+        self._sync_cost_model = qspec.sync_cost_model
+        P, C, L = self._whole.P, self._whole.C, self._whole.L
         self._P, self._C, self._L = P, C, L
+        self._n = source.spec.P  # partitions this process steps
 
         alive_np = None if qspec.alive is None else np.asarray(qspec.alive)
         self._alive_np = alive_np  # as given, for the checkpoint
@@ -529,7 +502,7 @@ class Session:
         self._w_pr = self._w_final = None
         self._mask_cum: Optional[np.ndarray] = None
         self._states: Optional[Pytree] = None
-        self._views: Optional[Pytree] = None
+        self._views: Optional[Pytree] = None  # every partition's, gathered under a mesh
         self._merged: List[Pytree] = []
         self._ests: List[Any] = []
         self._steps = 0
@@ -576,9 +549,10 @@ class Session:
 
     # -- the incremental driver ----------------------------------------------
 
-    def _init_states(self) -> Pytree:
-        batch = (self._P,) if self._path != "scan" or self._lanes == 1 else (
-            self._P, self._lanes)
+    def _init_states(self, n: Optional[int] = None) -> Pytree:
+        """Initial states of ``n`` partitions (this process's by default)."""
+        n = self._n if n is None else n
+        batch = (n,) if self._path != "scan" or self._lanes == 1 else (n, self._lanes)
         return SC.stack_init(self._gla, batch, self._device)
 
     def _ensure_stats(self) -> None:
@@ -586,6 +560,8 @@ class Session:
             # per-chunk live counts from the source (host float64, exact):
             # no resident _mask needed
             counts = self._source.mask_chunk_sums()  # [P, C]
+            if self._mesh is not None:  # every rank's, in partition order
+                counts = self._mesh.gather(torch.from_numpy(counts)).cpu().numpy()
             self._d_local = torch.from_numpy(counts.sum(axis=1)).to(
                 self._device, torch.float32)
             self._d_total = self._d_local.sum()
@@ -682,8 +658,25 @@ class Session:
         self._ensure_stats()
         r = self._steps
         lo, hi = int(self._sched[0, r]), int(self._sched[0, r + 1])
-        slice_shards = self._fetch_slice(r, lo, hi)
         states = self._states if self._states is not None else self._init_states()
+        first = self._path not in ("scan", "kernel_fused") and r == 0
+
+        def advance():
+            known = set(self._fail_at)
+            slice_shards = self._fetch_slice(r, lo, hi)
+            out = SC.round_step(self._gla, states, slice_shards, path=self._path,
+                                lanes=self._lanes, first=first,
+                                encodings=self._encodings)
+            return out, set(self._fail_at) - known
+
+        if self._mesh is None:
+            (new_states, views), _ = advance()
+        else:
+            # every rank learns every rank's outcome (and losses) before
+            # the round's merge
+            (new_states, views), lost = SH.checked(self._mesh, self._P, advance)
+            for p in lost:
+                self._record_failure(p, r)
         w_r, all_alive = self._w_pr[:, r], self._all_alive
         if self._fail_at:
             alive_now = self._alive_now(r)
@@ -692,12 +685,13 @@ class Session:
                 # carry keeps stepping (weight 0 from now on)
                 w_r = w_r * torch.as_tensor(alive_now, device=w_r.device)
                 all_alive = False
-        new_states, views, merged, est = _step(
-            self._gla, states, slice_shards, w_r, self._d_local,
-            self._d_total, path=self._path, lanes=self._lanes,
-            confidence=self._confidence, all_alive=all_alive,
-            first=self._path not in ("scan", "kernel_fused") and r == 0,
-            encodings=self._encodings)
+        if self._mesh is None:
+            merged, est = EN._merge_round(self._gla, views, w_r, self._d_local,
+                                          self._d_total, self._confidence, all_alive)
+        else:
+            views, merged, est = SH.session_step_sharded(
+                self._gla, views, w_r, self._d_local, self._d_total,
+                mesh=self._mesh, confidence=self._confidence, all_alive=all_alive)
         if self._policy is not None:
             est = self._apply_policy_est(est, r)
         self._states, self._views = new_states, views
@@ -711,7 +705,11 @@ class Session:
             round=self._steps, rounds_total=self._rounds, estimates=est,
             scanned=scanned, d_total=float(self._d_total),
             elapsed_s=self._elapsed)
-        if self._stop is not None and self._stop(prog):
+        if self._stop is not None and (
+                self._stop(prog) if self._mesh is None
+                # rank 0 decides for every rank: a time budget must not
+                # stop the ranks at different rounds
+                else self._mesh.decide(lambda: self._stop(prog))):
             self._converged = True
         if self.done:
             self._close_prefetch()
@@ -733,11 +731,12 @@ class Session:
                 # as an [R, P] schedule, as fault.run_with_failures ships it
                 alive = FT.failure_schedule(self._P, self._rounds, self._fail_at)
                 all_alive = False
-            self._result = EN._run_vmapped(
+            self._result = EN._execute_full(
                 self._gla, self._shards, self._sched, alive,
                 mode=self._mode, emit=self._emit, lanes=self._lanes,
                 snapshots=self._snapshots, confidence=self._confidence,
-                all_alive=all_alive)
+                all_alive=all_alive, mesh=self._mesh,
+                sync_cost_model=self._sync_cost_model)
             fr = self._first_fail_round()
             post = None if fr is None or fr >= self._rounds else {
                 "multiple": lambda e: FT._poison(e, fr),
@@ -806,10 +805,18 @@ class Session:
             "fault_estimator": (None if self._policy is None
                                 else self._policy.estimator),
             "elapsed_s": self._elapsed, "converged": self._converged,
-            # resume refuses other data, same-shape data included
-            "source": self._source.spec.meta(),
-            "fingerprint": self._source.fingerprint(),
+            # resume refuses other data, same-shape data included; under a
+            # mesh both are the whole layout's, as one process sees it
+            "source": self._whole.meta(),
+            "fingerprint": self._fingerprint(),
         }
+
+    def _fingerprint(self) -> str:
+        """The data's content fingerprint — the whole layout's, gathered
+        from every rank's partitions under a mesh."""
+        if self._mesh is None:
+            return self._source.fingerprint()
+        return SH.fingerprint(self._mesh, self._source, self._whole)
 
     def _payload_like(self, steps: int) -> dict:
         """The checkpoint payload's structure, rebuilt from the session's
@@ -818,8 +825,8 @@ class Session:
         gives (a few tensors of the state's size; no data is read, so it
         works for any source)."""
         self._ensure_stats()
-        states = self._init_states()
-        merged, est = _merge_estimate(
+        states = self._init_states(self._P)
+        merged, est = EN._merge_round(
             self._gla, states, self._w_pr[:, 0], self._d_local, self._d_total,
             self._confidence, self._all_alive)
         hist = steps if self._snapshots else 0  # no history retained
@@ -833,23 +840,43 @@ class Session:
         estimates, and the scan cursor (``repro_torch.ckpt``).  Resume with
         :meth:`Session.resume`, in this process or another: the remaining
         rounds replay the same program, so finals are bitwise the
-        uninterrupted session's."""
+        uninterrupted session's.
+
+        Under a mesh every rank calls it: the ranks' carries are gathered,
+        rank 0 writes the envelope a one-process pause writes (the whole
+        layout's P, schedule, cursors and fingerprint; every partition's
+        carries), and no rank returns before the file is written."""
         if self._fused:
             raise RuntimeError(
                 "session ran the whole-scan program — there is no incremental "
                 "carry to pause; attach a stopping rule or step() instead")
         self._close_prefetch()  # a paused session holds no worker thread
-        blob = b""
-        if self._steps:
-            blob = ckpt.serialize_state({
-                "states": self._states, "views": self._views,
-                "merged": tuple(self._merged), "ests": tuple(self._ests)})
-        ckpt.save_envelope(path, self._meta(), blob)
+        states = self._states
+        if self._mesh is not None and self._steps:
+            states = self._mesh.gather(states)
+        meta = self._meta()
+
+        def write():
+            blob = b""
+            if self._steps:
+                blob = ckpt.serialize_state({
+                    "states": states, "views": self._views,
+                    "merged": tuple(self._merged), "ests": tuple(self._ests)})
+            ckpt.save_envelope(path, meta, blob)
+            return None, ()
+
+        if self._mesh is None:
+            write()
+        elif self._mesh.rank == 0:
+            SH.checked(self._mesh, self._P, write)
+        else:  # waits for rank 0's write, and fails with it
+            SH.checked(self._mesh, self._P, lambda: (None, ()))
 
     @classmethod
     def resume(cls, path, gla: GLA, data, *, stop: Optional[StoppingRule] = None,
                partitions: Optional[int] = None,
-               fault: Optional[FaultPolicy] = None, device="cuda") -> "Session":
+               fault: Optional[FaultPolicy] = None, device=None,
+               mesh=None) -> "Session":
         """Rebuild a paused session from ``path`` and the same GLA and data.
 
         The checkpoint stores configuration and state, not code or data: the
@@ -874,30 +901,52 @@ class Session:
         ``synchronized`` sessions restore the frozen estimate from the
         snapshot history; with ``snapshots=False`` there is none, and
         rounds after a failure get infinite bounds.
+
+        ``mesh`` resumes as a rank of a partition group (every rank calls
+        this with the same path and its ``data``, as :class:`Session`
+        takes it): each rank reads the file and keeps its own rows of the
+        carries, after any merge or split.  The envelope does not record
+        how many processes wrote it: one written by W ranks resumes in one
+        process, on W' ranks, or on another partition count (W' must
+        divide both counts).
         """
         meta, blob = ckpt.load_envelope(path)
         ckpt.require_version(meta, (_CKPT_VERSION,), what="session checkpoint")
 
         # -- the supplied plan against the envelope, before any device work
-        src = DS.as_source(data)
+        if mesh is None:
+            view = SH.RankView(DS.as_source(data), None)
+        else:
+            view = SH.rank_view(mesh, data)
+
+        def spec_of(v):
+            return v.spec or v.source.spec
+
+        def relayout(v, P_new):
+            if mesh is None:
+                return SH.RankView(DS.repartition(v.source, P_new), None)
+            return SH.repartition_view(v, mesh, P_new)
+
+        src = spec_of(view)
         if meta["gla"] != gla.name:
             raise ValueError(f"checkpoint mismatch: gla was {meta['gla']!r} at "
                              f"pause time, got {gla.name!r} now")
-        if meta["L"] != src.spec.L:
+        if meta["L"] != src.L:
             raise ValueError(f"checkpoint mismatch: L was {meta['L']!r} at "
-                             f"pause time, got {src.spec.L!r} now")
-        if src.spec.P != int(meta["P"]):
+                             f"pause time, got {src.L!r} now")
+        if src.P != int(meta["P"]):
             # the data may come in its original layout while the session was
             # paused on a view of it (or the other way round)
             try:
-                src = DS.repartition(src, int(meta["P"]))
+                view = relayout(view, int(meta["P"]))
             except ValueError as err:
                 raise ValueError(
                     f"checkpoint mismatch: P was {meta['P']!r} at pause time, "
-                    f"got {src.spec.P!r} now ({err})") from None
-        if meta["C"] != src.spec.C:
+                    f"got {src.P!r} now ({err})") from None
+            src = spec_of(view)
+        if meta["C"] != src.C:
             raise ValueError(f"checkpoint mismatch: C was {meta['C']!r} at "
-                             f"pause time, got {src.spec.C!r} now")
+                             f"pause time, got {src.C!r} now")
         sched = np.asarray(meta["schedule"], np.int32)
         if (sched.ndim != 2 or sched.shape[0] != meta["P"]
                 or meta["rounds"] != sched.shape[1] - 1
@@ -906,7 +955,9 @@ class Session:
                 f"checkpoint mismatch: rounds {meta['rounds']!r} / steps "
                 f"{meta['steps']!r} do not agree with the stored "
                 f"{list(sched.shape)}-shaped schedule")
-        if meta["fingerprint"] != src.fingerprint():
+        fp = (view.source.fingerprint() if mesh is None
+              else SH.fingerprint(mesh, view.source, src))
+        if meta["fingerprint"] != fp:
             raise ValueError(
                 "checkpoint mismatch: data content fingerprint differs — the "
                 "supplied data is not what this session was paused over (same "
@@ -941,7 +992,7 @@ class Session:
             bounds = sched[0]
             if not np.all(sched == bounds):
                 raise ValueError("elastic resume requires a partition-uniform schedule")
-            src = DS.repartition(src, P_new)  # validates divisibility
+            view = relayout(view, P_new)  # validates divisibility
             if P_new <= P_old:
                 factor = P_old // P_new
                 bounds = bounds * factor
@@ -959,7 +1010,8 @@ class Session:
             gla, rounds=int(sched.shape[1] - 1), stop=stop, schedule=sched,
             alive=alive, fault=fault, confidence=meta["confidence"],
             sync=meta["mode"] == "sync", emit=meta["emit"], lanes=meta["lanes"],
-            snapshots=meta["snapshots"]), src, device=device)
+            snapshots=meta["snapshots"]), view if mesh else view.source,
+            device=device, mesh=mesh)
         if meta["steps"]:
             # the skeleton gives the structure; shapes (the old layout's
             # carries among them) come from the blob
@@ -969,6 +1021,9 @@ class Session:
             if factor > 1:
                 xform = SC.split_carries if split else SC.merge_carries
                 states, views = xform(states, factor), xform(views, factor)
+            if mesh is not None:  # this rank steps its own rows; the
+                # merges read every partition's views
+                states = SH.device_put_carry(states, mesh=mesh)
             sess._states, sess._views = states, views
             # the history is already merged over partitions: any layout
             sess._merged = list(payload["merged"])

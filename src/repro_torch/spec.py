@@ -16,7 +16,7 @@ from typing import Any, Optional
 #: ``run_query``/``Session`` shims.  ``mode`` maps onto ``QuerySpec.sync``.
 DEPRECATED_PLAN_KWARGS = (
     "rounds", "schedule", "stop", "confidence", "mode", "emit", "lanes",
-    "snapshots", "alive", "fault", "estimator_merge",
+    "snapshots", "alive", "fault", "estimator_merge", "sync_cost_model",
 )
 
 
@@ -44,6 +44,9 @@ class QuerySpec:
                   "multiple" | "synchronized"): resolves to
                   ``FaultPolicy(estimator_merge)`` when ``fault`` is not
                   given.
+      sync_cost_model  sharded sync mode only: pay the per-chunk
+                  coordination collective (``repro_torch.sharded``); the
+                  single-process paths ignore it.
     """
 
     gla: Any
@@ -58,6 +61,7 @@ class QuerySpec:
     alive: Optional[Any] = None
     fault: Optional[Any] = None
     estimator_merge: Optional[str] = None
+    sync_cost_model: bool = True
 
     def __post_init__(self):
         if self.fault is not None and self.estimator_merge is not None:

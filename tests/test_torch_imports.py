@@ -41,10 +41,23 @@ def test_import_walk_sees_the_whole_port():
     names = {p.relative_to(PORT).as_posix() for p in FILES if PORT in p.parents}
     assert {"engine.py", "session.py", "kernels/fused_agg.py", "kernels/ops.py",
             "kernels/_runtime.py", "kernels/decode.py", "data/tpch.py",
-            "data/source.py", "data/encodings.py", "fault.py", "ckpt.py"} <= names
+            "data/source.py", "data/encodings.py", "fault.py", "ckpt.py",
+            "sharded.py"} <= names
     # the contract linter matches core/scan.py, core/estimators.py and
     # core/session.py by path suffix: the port keeps its modules flat
     assert not (PORT / "core").exists()
+
+
+def test_no_port_module_ends_in_a_reference_linted_suffix():
+    """The contract linter (``repro/analysis/contracts.py``) applies JAX
+    rules to files by path suffix; no port module may end in one."""
+    from repro.analysis import contracts
+
+    suffixes = {*contracts.JIT_REGION_FILES, "core/estimators.py", "core/session.py"}
+    assert "dist/shard_engine.py" in suffixes
+    hits = [f"{p.relative_to(REPO)} ends in {s}" for p in FILES if PORT in p.parents
+            for s in suffixes if p.relative_to(REPO).as_posix().endswith(s)]
+    assert not hits, hits
 
 
 def test_import_repro_torch_loads_no_jax():
@@ -52,7 +65,7 @@ def test_import_repro_torch_loads_no_jax():
             "repro_torch.kernels.fused_agg, repro_torch.kernels.ops, "
             "repro_torch.kernels.decode, repro_torch.data.tpch, "
             "repro_torch.data.source, repro_torch.data.encodings, "
-            "repro_torch.fault, repro_torch.ckpt; "
+            "repro_torch.fault, repro_torch.ckpt, repro_torch.sharded; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'msgpack', 'zstandard')); "
             "assert not bad, bad")

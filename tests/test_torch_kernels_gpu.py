@@ -2,7 +2,8 @@
 K1 (scalar, group, bundle, and its column decode ``pf_decode``), K2, K3,
 K4, K5 ``chunk_agg`` and K6 ``q6_agg``, K1 from carries merged or split
 for another partition count, a small streamed session, a streamed
-partition loss and an elastic resume.
+partition loss, an elastic resume, and two gloo ranks sharing the card
+(``repro_torch.sharded``).
 
 Every test here is marked ``gpu`` and skips without a CUDA device.  The file
 imports no JAX, so it runs on a machine that has a card but not the JAX
@@ -755,3 +756,76 @@ def test_elastic_resume_on_the_card(tmp_path, pnew):
         _close(got.final, want.final)
         assert torch.equal(got.snapshots.scanned, want.snapshots.scanned)
         assert torch.equal(got.snapshots.matched, want.snapshots.matched)
+
+
+# -- partitions across processes: two gloo ranks sharing the card ----------
+
+def _gloo_rank(rank, store, out):
+    """One of two gloo ranks on the card: K1 on its half of a round-slice,
+    and Q6 / Q1 sessions on emit='kernel' over its block, with its launch
+    counts."""
+    import pickle
+
+    from repro_torch import sharded
+
+    dev = torch.device("cuda", 0)
+    mesh = sharded.init_partition_group("gloo", f"file://{store}", rank, 2, dev,
+                                        timeout=120)
+    try:
+        shards, q6, q1 = _slice6_data(dev)
+        lo, hi = mesh.bounds(8)
+        block = {k: v[lo:hi].contiguous() for k, v in shards.items()}
+        res = {"k1": {}, "sessions": {}, "launches": {}}
+        for name, gla in (("q6", q6), ("q1", q1)):
+            args = FK._member_args(gla.fused, scan.stack_init(gla, (hi - lo,), dev),
+                                   {k: v[:, :2] for k, v in block.items()})
+            res["k1"][name] = (FK.scalar_round_step(args[0], args[1], args[3])
+                               if args[2] is None else FK.group_round_step(*args))
+            before = FK.launch_counts()
+            res["sessions"][name] = _drive(T.Session(
+                T.QuerySpec(gla, rounds=8, emit="kernel"), block, mesh=mesh))
+            torch.cuda.synchronize()
+            res["launches"][name] = _delta(before)
+        for k in ("k1", "sessions"):
+            res[k] = tree_map(lambda x: x.cpu(), res[k])
+    finally:
+        mesh.close()
+    with open(out, "wb") as f:
+        pickle.dump(res, f)
+
+
+@pytest.mark.gpu
+def test_two_gloo_ranks_on_the_card_bitwise_one_process(tmp_path):
+    """Two gloo ranks sharing the card, each with four of eight partitions:
+    K1 scalar and group on a rank's partitions bitwise the one-process
+    launch's rows (the kernels' per-partition results do not depend on the
+    launch's P), and the ranks' Q6 and Q1 sessions bitwise the one-process
+    sessions, eight K1 launches a session a rank."""
+    import multiprocessing
+    import pickle
+
+    dev = _cuda()
+    ctx = multiprocessing.get_context("spawn")
+    outs = [tmp_path / f"{r}.pkl" for r in range(2)]
+    procs = [ctx.Process(target=_gloo_rank, args=(r, str(tmp_path / "store"), str(outs[r])))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(300)
+    assert [p.exitcode for p in procs] == [0, 0]
+    shards, q6, q1 = _slice6_data(dev)
+    for r, out in enumerate(outs):
+        got = pickle.loads(out.read_bytes())
+        lo, hi = 4 * r, 4 * r + 4
+        for name, gla in (("q6", q6), ("q1", q1)):
+            args = FK._member_args(gla.fused, scan.stack_init(gla, (8,), dev),
+                                   {k: v[:, :2] for k, v in shards.items()})
+            full = (FK.scalar_round_step(args[0], args[1], args[3])
+                    if args[2] is None else FK.group_round_step(*args))
+            assert _same(got["k1"][name], tree_map(lambda x: x[lo:hi].cpu(), full))
+            want = _drive(T.Session(T.QuerySpec(gla, rounds=8, emit="kernel"), shards,
+                                    device=dev))
+            assert _same(got["sessions"][name], tree_map(lambda x: x.cpu(), want))
+            kname = "fused_round_step/" + ("scalar" if name == "q6" else "group")
+            assert got["launches"][name] == {kname: 8}
