@@ -22,7 +22,13 @@ processes (``repro_torch.sharded``): four gloo ranks sharing the card and
 one NCCL rank, spawned with ``torch.multiprocessing`` under a file store,
 each reading its partitions of the npy copy — sessions, ``run_query``,
 sync mode, failures and a pause resumed on two ranks, every result held
-to the one-process run and every rank's launches counted.
+to the one-process run and every rank's launches counted.  Last, serving
+(``repro_torch.service``): slot queries attaching to and leaving one
+shared cyclic scan of 8 rounds, each live bank of slots stepped by K1 in
+bundle mode — late joiners bitwise a solo session over the rounds they
+witnessed, capacity growth to 32 slots under churn, the asyncio service
+on a seeded Poisson stream against one session per query, the streamed
+copies and four gloo ranks bitwise the resident run.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.  The last line is the run's JSON summary.
@@ -102,6 +108,15 @@ DIST_TIMEOUT = 300  # seconds a rank waits in a collective before it fails
 DIST_JOIN_S = 600  # seconds a group of ranks may take in all
 SYNC_C = C // 8  # the sync-mode phase's chunks per partition (a cut depth)
 DIST_AT = 4  # [dist-elastic] pauses after this many rounds
+#: the serving phases: the service's default rounds (one step is one
+#: round-slice of C/8 = 1,792 chunks a partition); late joiners attach
+#: after SERVE_JOIN steps and are held after SERVE_LATE more
+SERVE_ROUNDS, SERVE_JOIN, SERVE_LATE = 8, 3, 4
+#: [serve-churn]: four `supp` slots join at this step, the first at K=32
+SERVE_CHURN_SUPP = 4
+#: [serve-svc]: benchmarks/serve.py's workload (its QPS and eps) over 200
+#: arrivals, about 8 s at 25 QPS, so that p50/p99 are percentiles
+SERVE_QPS, SERVE_EPS, SERVE_N, SERVE_GRACE = 25.0, 0.05, 200, 0.05
 
 
 def fail(msg: str):
@@ -413,7 +428,90 @@ def _dist_resume(mesh, work: Path) -> dict:
     return {"phases": ph}
 
 
-DIST_JOBS = {"gloo": _dist_gloo, "nccl": _dist_nccl, "resume": _dist_resume}
+# ---------------------------------------------------------------------------
+# serving: the slot family and the [serve] schedule (also run by the
+# [serve-dist] ranks)
+# ---------------------------------------------------------------------------
+
+def serve_family():
+    """The reference service's family (``tests/test_service.py``) plus
+    ``supp``: the Q1-large suppliers folded into 2^13 buckets."""
+    import repro_torch as T
+    from repro_torch.data import tpch
+
+    return T.SlotFamily(
+        exprs={"q6": tpch.q6_func, "qty": lambda c: c["quantity"]},
+        pred_cols=("shipdate", "discount"),
+        groups={"rfls": (tpch.q1_group_small, 4),
+                "supp": (lambda c: T.hash_bucket(tpch.q1_group_large(c),
+                                                 tpch.Q1_LARGE_BUCKET_BITS),
+                         1 << tpch.Q1_LARGE_BUCKET_BITS)})
+
+
+def serve_queries(having: float) -> dict:
+    """[serve]'s slots: the full-pass scalar slot and the late joiners."""
+    from repro_torch import SlotQuery
+
+    return {"scalar": SlotQuery("q6", {"shipdate": (420.0, 785.0)}),
+            "late": SlotQuery("qty", {"discount": (0.02, 0.08)}),
+            "rfls": SlotQuery("q6", {"shipdate": (100.0, 2000.0)}, group="rfls"),
+            "supp": SlotQuery("qty", {"shipdate": (0.0, 1500.0)}, group="supp"),
+            "having": SlotQuery("qty", {"shipdate": (0.0, 1500.0)}, group="rfls",
+                                having=having)}
+
+
+def serve_schedule(scan, qs: dict, late, hook=None):
+    """The [serve] schedule: the scalar slot attaches, SERVE_JOIN steps
+    run, the ``late`` slots attach (``hook(scan)`` runs then), SERVE_LATE
+    more steps run — each late joiner's estimate and witnessed ranges are
+    kept — and the remaining steps complete the scalar slot's pass.
+    Returns (records, {late name: (estimate, witnessed)}, step seconds)."""
+    import torch
+
+    recs = {"scalar": scan.attach(qs["scalar"])}
+    held, secs = {}, []
+    for i in range(SERVE_ROUNDS):
+        if i == SERVE_JOIN:
+            recs.update((n, scan.attach(qs[n])) for n in late)
+            if hook is not None:
+                hook(scan)
+        t0 = time.perf_counter()
+        scan.step()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if i == SERVE_JOIN + SERVE_LATE - 1:
+            held = {n: (recs[n].estimate, list(recs[n].witnessed)) for n in late}
+    return recs, held, secs
+
+
+def serve_launches(late) -> dict:
+    """[serve]'s exact K1 bundle launches: one a step for the scalar bank
+    (K <= 2), then one more a step for every other bank the late joiners
+    open (K = 1 each)."""
+    banks = {serve_family().bank_of(serve_queries(0.0)[n]) for n in late} - {"scalar"}
+    return {"fused_round_step/bundle": SERVE_ROUNDS + (SERVE_ROUNDS - SERVE_JOIN) * len(banks)}
+
+
+def _dist_serve(mesh, work: Path) -> dict:
+    """[serve-dist]: the [serve] schedule (no ``supp`` slot: the npy copy
+    holds no suppkey) on this rank's P/W partitions of the npy copy."""
+    import repro_torch as T
+
+    block = _rank_block(mesh, work)
+    having = json.loads((work / "dist" / "serve.json").read_text())["having"]
+    late = ("late", "rfls", "having")
+
+    def run():
+        scan = T.SharedScan(serve_family(), block, rounds=SERVE_ROUNDS, mesh=mesh)
+        recs, held, secs = serve_schedule(scan, serve_queries(having), late)
+        return {"held": held, "scalar": (recs["scalar"].estimate, recs["scalar"].scanned),
+                "step_s": secs}
+
+    return {"phases": {"serve": _rank_phase(mesh, run, SERVE_ROUNDS)}}
+
+
+DIST_JOBS = {"gloo": _dist_gloo, "nccl": _dist_nccl, "resume": _dist_resume,
+             "serve": _dist_serve}
 
 
 def spawn_ranks(groups, work: Path) -> dict:
@@ -1439,6 +1537,403 @@ def run(work: Path) -> None:
         rank_launches={k: n for k, n in rank_launches.items() if n})
     for k, n in rank_launches.items():
         launches[k] += n
+
+    # -- 4d. serving: one shared scan, many queries (repro_torch.service) ---
+    # The reference service's slot family plus `supp` (2^13 buckets), at
+    # the service's 8 rounds: each live bank of K slots is one K-member K1
+    # bundle, ceil(K/16) pf_bundle launches a step.  [serve] holds every
+    # late joiner bitwise to a solo session over the ranges it witnessed and
+    # the full pass to the oracle; [serve-churn] the step-plan bound under
+    # churn; [serve-svc] the asyncio service to the oracle; [serve-stream]
+    # the streamed copies and [serve-dist] four gloo ranks bitwise to
+    # [serve].  Each phase's peak device memory is above what was allocated
+    # before it (the resident table among it).
+    import asyncio
+
+    import numpy as np
+
+    from repro_torch import service as SV
+
+    fam = serve_family()
+    sw = C // SERVE_ROUNDS  # chunks a partition in one serving step
+    bundle_k = "fused_round_step/bundle"
+
+    def mem_base():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated()
+
+    def slot_exact(q):
+        """The float64 oracle of one slot query over the whole table."""
+        fs = fam.solo_gla(q, d_total=d).fused
+        if fs.group is None:
+            return exact_of(fs)[0]
+        return exact_of(fs, group=fs.group, num_groups=fs.num_groups)
+
+    # the HAVING threshold: halfway between the 2nd and 3rd of the four group
+    # estimates the late joiner ends with, from its rounds in float64, so
+    # that two groups pass and two do not
+    hq = serve_queries(0.0)["having"]._replace(having=None)
+    hfs = fam.solo_gla(hq, d_total=d).fused
+    win = {k: shards[k][:, SERVE_JOIN * sw:(SERVE_JOIN + SERVE_LATE) * sw].reshape(-1)
+           for k in ("shipdate", "discount", "quantity", "rfls", "_mask")}
+    g_sums = tpch.exact_answer(win, hfs.func, hfs.cond, group=hfs.group, num_groups=4)[:, 0]
+    g_est = sorted((d / float(win["_mask"].sum(dtype=torch.float64)) * g_sums).tolist())
+    having = (g_est[1] + g_est[2]) / 2
+    del win
+    qs = serve_queries(having)
+
+    # [serve]: the scalar slot from round 0; four slots join at round 3
+    late_all = ("late", "rfls", "supp", "having")
+    op_err = []
+
+    def operands(scan_, tag="serve"):
+        """The next step's bundle operands of every bank against the plain
+        version (counters exact, sums within SUM_RTOL); these launches do
+        not count.  Returns the largest |kernel - plain|."""
+        seg = FK.launch_counts()
+        r = scan_.cursor % scan_.rounds
+        cols = {k: v[:, r * sw:(r + 1) * sw] for k, v in shards.items()}
+        errs = [0.0]
+        for name in scan_.banks:
+            gla, states, path = scan_.step_inputs(name)
+            check(path == "kernel_fused", f"[{tag}] bank {name} routes to {path}")
+            args = [FK._member_args(m.fused, st, cols) for m, st in zip(gla.members, states)]
+            got_, want_ = FK.bundle_round_step(args), ref.bundle_round_step(args)
+            for m, a, r_ in zip(args, got_, want_):
+                if m[2] is None:
+                    A = m[0].shape[-1]
+                    errs.append(compare(f"[{tag}] {name} operands", (a[:, :2 * A], a[:, 2 * A]),
+                                        (r_[:, :2 * A], r_[:, 2 * A]), {1}))
+                else:
+                    errs.append(compare(f"[{tag}] {name} operands", a, r_, {2}))
+            del args, got_, want_
+        torch.cuda.synchronize()
+        FK.reset_launch_counts()
+        FK.LAUNCHES.update(seg)
+        return max(errs)
+
+    FK.reset_launch_counts()
+    base = mem_base()
+    t0 = time.perf_counter()
+    scan_r = T.SharedScan(fam, shards, rounds=SERVE_ROUNDS, device=dev)
+    check(scan_r.rounds == SERVE_ROUNDS and scan_r.width == sw and scan_r.d_total == d,
+          f"[serve] scan of {scan_r.rounds} rounds of {scan_r.width} chunks, d={scan_r.d_total}")
+    recs, held, step_s = serve_schedule(scan_r, qs, late_all,
+                                        hook=lambda s_: op_err.append(operands(s_)))
+    e2e["serve"] = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    got = path_launches("serve", serve_launches(late_all))
+    checks[bundle_k] = max(checks[bundle_k], *op_err)
+    banks = {n: b.K for n, b in scan_r.banks.items()}
+    check(banks == {"scalar": 2, "rfls": 1, "supp": 1, "rfls:having": 1},
+          f"[serve] bank capacities {banks}")
+    # every late joiner bitwise a solo Session(emit="kernel") over its ranges
+    ranges = held["late"][1]
+    check(all(h[1] == ranges for h in held.values())
+          and [lo for lo, _ in ranges] == [c * sw for c in range(SERVE_JOIN, SERVE_JOIN + SERVE_LATE)],
+          f"[serve] witnessed ranges {ranges}")
+
+    def solo_twin(tag, q, ranges_, est, view):
+        """A fresh Session(emit="kernel") over ``view`` (the ranges a slot
+        witnessed): the slot's estimate, lower and upper must be its last
+        round's, bitwise.  Returns the session's seconds."""
+        gla = fam.solo_gla(q, d_total=d)
+        kname = "fused_round_step/" + ("scalar" if q.group is None else "group")
+        FK.reset_launch_counts()
+        t0 = time.perf_counter()
+        sess = T.Session(T.QuerySpec(gla, rounds=len(ranges_), emit="kernel"), view,
+                         device=dev)
+        while not sess.done:
+            prog = sess.step()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        path_launches(f"{tag}: solo {q}", {kname: len(ranges_)})
+        check(all(torch.equal(a, b) for a, b in zip(est[:3], prog.estimates[:3])),
+              f"[{tag}] slot {q} differs from its solo session")
+        return secs
+
+    view = SV.witnessed_view(shards, ranges)
+    solo_s = {n: solo_twin("serve", qs[n], ranges, held[n][0], view) for n in late_all}
+    del view
+    keep = held["having"][0].info["keep"].reshape(-1)
+    check(keep.min().item() == 0 and keep.max().item() == 1,
+          f"[serve] the HAVING threshold passes groups {keep.tolist()}")
+    # the full-pass slot: its estimate is the whole table's answer
+    full = recs["scalar"]
+    check(full.done and not full.converged and len(full.witnessed) == SERVE_ROUNDS
+          and full.scanned == scan_r.d_total, "[serve] the scalar slot's full pass")
+    ex_full = slot_exact(qs["scalar"])
+    err_full = abs(float(full.estimate.estimate) - float(ex_full)) / abs(float(ex_full))
+    check(err_full <= ORACLE_RTOL, f"[serve] full-pass estimate off the oracle by {err_full:.3e}")
+    say("serve", rows=ROWS, rounds=SERVE_ROUNDS, chunks_per_step=sw, banks=banks,
+        step_plans={n: sorted(b.plans) for n, b in scan_r.banks.items()},
+        having_threshold=having, having_keep=keep.int().tolist(),
+        late_joiners_vs_solo_session="bitwise", operands_vs_plain_max_abs_err=max(op_err),
+        full_pass_rel_err=f"{err_full:.3e}",
+        step_s=[f"{x:.6f}" for x in step_s], seconds=f"{e2e['serve']:.3f}",
+        solo_session_s={n: f"{x:.3f}" for n, x in solo_s.items()},
+        peak_device_bytes=peak, launches=got)
+
+    # [serve-churn]: five arrivals and two departures a step grow the scalar
+    # bank to K=32 (two pf_bundle launches a step) from its fifth step, when
+    # four `supp` slots open a group bank at K=4.  That step's operands are
+    # held against the plain version, and slots of both banks (of both
+    # launches of the scalar bank) bitwise against their solo sessions.
+    rng = np.random.default_rng(SEED)
+    FK.reset_launch_counts()
+    base = mem_base()
+    plans0 = SV.serve_step_cache_sizes()
+    t0 = time.perf_counter()
+    scan_c = T.SharedScan(fam, shards, rounds=SERVE_ROUNDS, device=dev)
+    live, gens, ks, churn_s, every, supp_recs = [], {}, [], [], [], []
+    arrivals = reclaims = want = 0
+    churn_err = None
+    for step in range(SERVE_ROUNDS):
+        for _ in range(5):
+            lo_ = float(rng.integers(0, 2000))
+            q = T.SlotQuery("q6" if arrivals % 2 else "qty",
+                            {"shipdate": (lo_, lo_ + 500.0),
+                             "discount": (0.0, float(rng.uniform(0.03, 0.11)))})
+            bank = scan_c.banks.get("scalar")
+            free = None if bank is None or None not in bank.slots else bank.slots.index(None)
+            rec = scan_c.attach(q)
+            check(rec.generation == gens.get(rec.slot, 0) + 1
+                  and (free is None or rec.slot == free),
+                  f"[serve-churn] slot {rec.slot} at generation {rec.generation}")
+            reclaims += rec.generation > 1
+            gens[rec.slot] = rec.generation
+            live.append(rec)
+            every.append(rec)
+            arrivals += 1
+        for j in sorted(rng.choice(len(live), 2, replace=False), reverse=True):
+            scan_c.detach(live.pop(int(j)))
+        if step == SERVE_CHURN_SUPP:
+            supp_recs = [scan_c.attach(T.SlotQuery(["qty", "q6"][i % 2],
+                                                   {"shipdate": (200.0 * i, 2200.0)},
+                                                   group="supp")) for i in range(4)]
+        bank = scan_c.banks["scalar"]
+        ks.append(bank.K)
+        want += sum(-(-b.K // FK.MAX_BUNDLE_MEMBERS) for b in scan_c.banks.values() if b.active)
+        if bank.K == 32 and churn_err is None:
+            churn_err = operands(scan_c, "serve-churn")
+        t1 = time.perf_counter()
+        out = scan_c.step()
+        torch.cuda.synchronize()
+        churn_s.append(time.perf_counter() - t1)
+        for rec, prog in out:
+            e = prog.estimates
+            check(bool(torch.isfinite(e.estimate).all() and (e.lower <= e.upper).all()),
+                  f"[serve-churn] slot {rec.slot}: estimate or bounds")
+            if rec.done:
+                scan_c.detach(rec)
+                live.remove(rec)
+    e2e["serve-churn"] = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    got = path_launches("serve-churn", {bundle_k: want})
+    check(churn_err is not None and scan_c.banks["supp"].K == 4,
+          f"[serve-churn] K {ks}: no K=32 step, or supp at K={scan_c.banks['supp'].K}")
+    checks[bundle_k] = max(checks[bundle_k], churn_err)
+    bank = scan_c.banks["scalar"]
+    built = SV.serve_step_cache_sizes() - plans0
+    check(max(ks) == 32 and all(len(b.plans) <= 1 + b.doublings for b in scan_c.banks.values())
+          and built == scan_c.compile_budget() < arrivals and reclaims > 0,
+          f"[serve-churn] K {ks}, plans {[sorted(b.plans) for b in scan_c.banks.values()]}, "
+          f"built {built}, doublings {bank.doublings}, arrivals {arrivals}, "
+          f"reclaims {reclaims}")
+    # slots that rode the K=32 steps, in the first and the second launch,
+    # and two supp slots, each bitwise its solo session
+    k32 = {i * sw for i, k in enumerate(ks) if k == 32}  # ranges stepped at K=32
+    twins = ([r for r in every if r.slot >= 16 and len(r.witnessed) >= 2][:2]
+             + [r for r in every if r.slot < 16 and 2 <= len(r.witnessed) <= 4
+                and any(lo in k32 for lo, _ in r.witnessed)][:1] + supp_recs[:2])
+    check(len(twins) == 5, f"[serve-churn] {len(twins)} slots to hold against solo sessions")
+    twin_s = []
+    for rec in twins:
+        view = SV.witnessed_view(shards, rec.witnessed)
+        twin_s.append(solo_twin("serve-churn", rec.query, rec.witnessed, rec.estimate, view))
+        del view
+    say("serve-churn", arrivals=arrivals, departures=arrivals - len(live), reclaims=reclaims,
+        capacity_per_step=ks, bundle_launches_per_step=[-(-k // 16) for k in ks],
+        supp_capacity=scan_c.banks["supp"].K,
+        step_plans={n: sorted(b.plans) for n, b in scan_c.banks.items()},
+        doublings=bank.doublings, plans_built=built,
+        k32_operands_vs_plain_max_abs_err=churn_err,
+        slots_vs_solo_session={f"{r.bank}:{r.slot}": len(r.witnessed) for r in twins},
+        solo_session_s=[f"{x:.3f}" for x in twin_s],
+        step_s=[f"{x:.6f}" for x in churn_s], seconds=f"{e2e['serve-churn']:.3f}",
+        peak_device_bytes=peak, launches=got)
+    del scan_c, live, out, every, supp_recs, twins
+
+    # [serve-svc]: benchmarks/serve.py's Poisson stream through OLAService,
+    # then the same queries as one Session each, run one after another.
+    # submit() is timed on its own (the first one builds the scan and
+    # fingerprints the table); time-to-eps runs from submit to result.
+    rng = np.random.default_rng(SEED)
+    arr = np.cumsum(rng.exponential(1.0 / SERVE_QPS, size=SERVE_N))
+    queries = []
+    for i in range(SERVE_N):
+        year = float(int(rng.integers(0, 6)) * 365)
+        queries.append(T.SlotQuery("qty" if i % 3 == 2 else "q6",
+                                   {"shipdate": (year, year + 730.0), "discount": (0.0, 1.0)},
+                                   group="rfls" if i % 4 == 3 else None))
+    svc_want = {bundle_k: 0}
+    real_step = SV.SharedScan.step
+
+    def counted_step(self_):
+        """The step, counting the launches it must make: ceil(K/16) a live bank."""
+        svc_want[bundle_k] += sum(-(-b.K // FK.MAX_BUNDLE_MEMBERS)
+                                  for b in self_.banks.values() if b.active)
+        return real_step(self_)
+
+    async def drive_shared():
+        outs, t_eps, t_sub = [None] * SERVE_N, [0.0] * SERVE_N, [0.0] * SERVE_N
+
+        async def one(i, svc):
+            await asyncio.sleep(float(arr[i]))
+            t0_ = time.perf_counter()
+            h = await svc.submit(T.QuerySpec(queries[i], stop=T.rel_width(SERVE_EPS)), shards)
+            t_sub[i] = time.perf_counter() - t0_
+            outs[i] = await h.result()
+            t_eps[i] = time.perf_counter() - t0_
+
+        async with SV.OLAService(fam, rounds=SERVE_ROUNDS, grace_s=SERVE_GRACE,
+                                 device=dev) as svc:
+            t0_ = time.perf_counter()
+            await asyncio.gather(*(one(i, svc) for i in range(SERVE_N)))
+            makespan = time.perf_counter() - t0_ - float(arr[0])
+            first = svc.scan_for(shards)
+            steps = first.steps_done
+            await asyncio.sleep(6 * SERVE_GRACE)
+            parked = svc.is_parked(shards)
+            h = await svc.submit(T.QuerySpec(queries[0], stop=T.rel_width(SERVE_EPS)), shards)
+            after = await h.result()
+            reused = svc.scan_for(shards) is first and first.steps_done > steps
+        return outs, t_eps, t_sub, makespan, steps, parked, after, reused
+
+    FK.reset_launch_counts()
+    base = mem_base()
+    SV.SharedScan.step = counted_step
+    try:
+        outs, t_eps, t_sub, makespan, steps, parked, after, reused = asyncio.run(
+            asyncio.wait_for(drive_shared(), 300))
+    finally:
+        SV.SharedScan.step = real_step
+    peak = torch.cuda.max_memory_allocated() - base
+    got = path_launches("serve-svc", svc_want)
+    check(parked and reused, f"[serve-svc] parked={parked}, the same scan reused={reused}")
+    exacts, err_max = {}, 0.0
+    for q, o in zip(queries + [queries[0]], outs + [after]):
+        key = (q.expr, tuple(sorted(q.ranges.items())), q.group)
+        if key not in exacts:  # the float64 oracle, once per distinct query
+            exacts[key] = slot_exact(q).cpu()
+        ex = exacts[key].reshape(o.estimate.estimate.shape)  # outcomes are on the CPU
+        est, lo_, hi_ = (x.double() for x in o.estimate[:3])
+        err = (est - ex).abs()
+        bound = (3 * (hi_ - lo_) / 2 if o.converged else 0.0) + ORACLE_RTOL * ex.abs()
+        check(bool((err <= bound).all()),
+              f"[serve-svc] {q}: off the oracle (converged={o.converged})")
+        err_max = max(err_max, (err / ex.abs().clamp(min=1e-300)).max().item())
+    # the contender: one Session per query, one after another, from the
+    # same arrival times
+    FK.reset_launch_counts()
+    solo_want = {}
+    solo_eps, clock = [], 0.0
+    for i, q in enumerate(queries):
+        gla = fam.solo_gla(q, d_total=d)
+        t1 = time.perf_counter()
+        sess = T.Session(T.QuerySpec(gla, rounds=SERVE_ROUNDS, emit="kernel",
+                                     stop=T.rel_width(SERVE_EPS)), shards, device=dev)
+        sess.run()
+        torch.cuda.synchronize()
+        dur = time.perf_counter() - t1
+        kname = "fused_round_step/" + ("scalar" if q.group is None else "group")
+        solo_want[kname] = solo_want.get(kname, 0) + sess.steps_taken
+        clock = max(float(arr[i]), clock) + dur
+        solo_eps.append(clock - float(arr[i]))
+    solo_mk = clock - float(arr[0])
+    path_launches("serve-svc: one session per query", solo_want)
+    pct = [50, 99]
+    p50s, p99s = np.percentile(t_eps, pct) * 1e3
+    p50o, p99o = np.percentile(solo_eps, pct) * 1e3
+    p50u, p99u = np.percentile(t_sub[1:], pct) * 1e3
+    rounds_seen = {n: sum(o.rounds_witnessed == n for o in outs)
+                   for n in sorted({o.rounds_witnessed for o in outs})}
+    e2e["serve-svc"] = makespan
+    say("serve-svc", queries=SERVE_N, qps_offered=SERVE_QPS, eps=SERVE_EPS,
+        qps_shared=SERVE_N / makespan, qps_one_session_per_query=SERVE_N / solo_mk,
+        p50_time_to_eps_ms=p50s, p99_time_to_eps_ms=p99s,
+        p50_time_to_eps_one_session_ms=p50o, p99_time_to_eps_one_session_ms=p99o,
+        first_submit_ms=t_sub[0] * 1e3, p50_submit_ms=p50u, p99_submit_ms=p99u,
+        shared_scan_steps=steps, converged=sum(o.converged for o in outs),
+        queries_by_rounds_witnessed=rounds_seen, distinct_queries=len(exacts),
+        oracle_max_rel_err=f"{err_max:.3e}", parked_then_reused=True,
+        peak_device_bytes=peak, launches=got, one_session_launches=solo_want)
+
+    # [serve-stream]: the [serve] schedule over the npy and the encoded copy
+    # (no `supp` slot: the copies hold no suppkey), bitwise the [serve] run
+    late_s = ("late", "rfls", "having")
+    for sname, src in (("npy", npy_src), ("encoded", enc_src)):
+        FK.reset_launch_counts()
+        base = mem_base()
+        t0 = time.perf_counter()
+        scan_s = T.SharedScan(fam, src, rounds=SERVE_ROUNDS, device=dev)
+        try:
+            recs_s, held_s, secs_s = serve_schedule(scan_s, qs, late_s)
+            io = scan_s.io_stats
+        finally:
+            scan_s.close()
+        e2e[f"serve-stream {sname}"] = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        want = serve_launches(late_s)
+        if src.encodings:
+            want["decode"] = SERVE_ROUNDS  # one decode a step, for every bank
+        got = path_launches(f"serve-stream {sname}", want)
+        check(all(same(held_s[n][0], held[n][0]) and held_s[n][1] == held[n][1]
+                  for n in late_s)
+              and same(recs_s["scalar"].estimate, full.estimate)
+              and recs_s["scalar"].scanned == full.scanned,
+              f"[serve-stream] {sname}: differs from the resident [serve] run")
+        say("serve-stream", source=sname, slots=["scalar", *late_s],
+            vs_resident_serve="bitwise", step_s=[f"{x:.6f}" for x in secs_s],
+            seconds=f"{e2e[f'serve-stream {sname}']:.3f}",
+            resident_seconds=f"{e2e['serve']:.3f}", h2d_bytes_per_step=io["bytes"] // io["slices"],
+            host_read_s=io["read_s"], h2d_copy_ms=io["copy_ms"], waited_s=io["wait_s"],
+            peak_device_bytes=peak, launches=got)
+    del scan_s, recs_s, held_s
+
+    # [serve-dist]: four gloo ranks sharing the card, each over 2 partitions
+    # of the npy copy, with [serve-stream]'s slots, bitwise the [serve] run
+    (work / "dist").mkdir(exist_ok=True)
+    (work / "dist" / "serve.json").write_text(json.dumps({"having": having}))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks_s = spawn_ranks({"serve": DIST_WORLD}, work)["serve"]
+    t_spawn = time.perf_counter() - t0
+    want = serve_launches(late_s)
+    cpu = {n: _to_cpu(held[n]) for n in late_s}
+    full_cpu = _to_cpu((full.estimate, full.scanned))
+    for k, r in enumerate(ranks_s):
+        g_ = r["phases"]["serve"]
+        o = g_["out"]
+        check(all(same(o["held"][n][0], cpu[n][0]) and o["held"][n][1] == cpu[n][1]
+                  for n in late_s) and same(o["scalar"][0], full_cpu[0])
+              and o["scalar"][1] == full_cpu[1],
+              f"[serve-dist] rank {k}'s slots differ from the one-process [serve] run")
+        check(g_["launches"] == want,
+              f"[serve-dist] rank {k} launched {g_['launches']}, expected {want}")
+        for kn, n in g_["launches"].items():
+            launches[kn] += n
+    gs = [r["phases"]["serve"] for r in ranks_s]
+    say("serve-dist", ranks=DIST_WORLD, backend="gloo", partitions_per_rank=P // DIST_WORLD,
+        vs_one_process="bitwise", seconds=[f"{g_['seconds']:.3f}" for g_ in gs],
+        one_process_seconds=f"{e2e['serve']:.3f}",
+        step_s_rank0=[f"{x:.6f}" for x in gs[0]["out"]["step_s"]],
+        collective_s_per_step=[f"{g_['collective_s_per_round']:.6f}" for g_ in gs],
+        gathered_bytes_per_step=[int(g_["gathered_bytes_per_round"]) for g_ in gs],
+        collectives=[g_["collectives"] for g_ in gs],
+        peak_device_bytes=[g_["peak_bytes"] for g_ in gs], spawn_to_end_s=f"{t_spawn:.3f}",
+        launches_per_rank=gs[0]["launches"])
 
     say("main-path launches", **launches)
     for k, n in launches.items():

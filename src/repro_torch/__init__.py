@@ -38,6 +38,13 @@ entry point takes ``mesh=`` the ``PartitionGroup`` it returns — each rank
 steps its own partitions, and the results are bitwise the one-process
 run's (``repro_torch.sharded``).
 
+Serving: ``OLAService`` (asyncio) and ``SharedScan`` serve many
+dynamically arriving ``SlotQuery``s of one ``SlotFamily`` from ONE cyclic
+scan; each live bank of slots is a bundle that K1 steps in one launch a
+round-slice per 16 slots (``repro_torch.service``; the CLI is ``python -m
+repro_torch.serve``).  ``compose``/``make_having_gla`` nest the Deep OLA
+HAVING estimator over a group-by.
+
 Entry points take ``device=`` and default to ``"cuda"``; with no card they
 raise unless the caller asks for ``"cpu"``.  The package imports ``torch``
 and ``numpy`` only — never ``jax`` and nothing of ``repro`` (nor
@@ -64,9 +71,13 @@ from repro_torch.engine import (
 )
 from repro_torch.gla import (
     GLABundle,
+    SlotFamily,
+    SlotQuery,
+    compose,
     debucket,
     hash_bucket,
     make_groupby_gla,
+    make_having_gla,
     make_join_groupby_gla,
     make_sum_gla,
 )
@@ -80,6 +91,7 @@ from repro_torch.session import (
     budget,
     rel_width,
 )
+from repro_torch.service import OLAService, SharedScan
 from repro_torch.sharded import PartitionGroup, init_partition_group
 from repro_torch.spec import QuerySpec
 from repro_torch.uda import GLA, Estimate, FusedSpec, ProbeTable
@@ -96,6 +108,7 @@ __all__ = [
     "GLABundle",
     "InMemorySource",
     "NpyMmapSource",
+    "OLAService",
     "PartitionGroup",
     "PartitionLostError",
     "PartitionRangeSource",
@@ -105,17 +118,22 @@ __all__ = [
     "RepartitionedSource",
     "RoundProgress",
     "Session",
+    "SharedScan",
+    "SlotFamily",
+    "SlotQuery",
     "abs_width",
     "all_of",
     "as_source",
     "any_of",
     "budget",
     "ckpt",
+    "compose",
     "debucket",
     "fault",
     "hash_bucket",
     "init_partition_group",
     "make_groupby_gla",
+    "make_having_gla",
     "make_join_groupby_gla",
     "make_sum_gla",
     "rel_width",

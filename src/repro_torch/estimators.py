@@ -1,10 +1,11 @@
 """Sampling estimators for parallel on-line aggregation — paper §4.
 
-Port of ``repro/core/estimators.py:40-176,192-202``: the generic sampling-without-
+Port of ``repro/core/estimators.py:40-176,192-233``: the generic sampling-without-
 replacement estimator (Eq. 2) with its unbiased variance estimator (Eq. 4),
 the single-estimator model (paper Alg. 1, corrected: ``scanned`` = |S|
-counts every live item, ``sum``/``sumsq`` only predicate matches) and the
-multiple-estimators (stratified) model (paper Alg. 2, :class:`MultState`).
+counts every live item, ``sum``/``sumsq`` only predicate matches), the
+multiple-estimators (stratified) model (paper Alg. 2, :class:`MultState`)
+and the Deep OLA nested HAVING estimate (:func:`nested_group_estimate`).
 
 The functions broadcast: ``scanned`` may carry fewer trailing axes than
 ``sum_`` (one count per round or partition against ``[..., A]`` or
@@ -151,3 +152,33 @@ def join_scale(d_fact, s_fact, d_dim, s_dim):
     dev = next((x.device for x in xs if x.device.type != "cpu"), xs[0].device)
     d_f, s_f, d_d, s_d = (x.to(dev, torch.float32) for x in xs)
     return d_f / torch.clamp(s_f, min=1.0) * (d_d / torch.clamp(s_d, min=1.0))
+
+
+def nested_group_estimate(inner: Estimate, having, confidence) -> Estimate:
+    """Deep OLA nested aggregate: SUM over the groups whose *estimated*
+    inner aggregate passes a HAVING predicate (port of
+    ``repro/core/estimators.py:205-233``).
+
+    ``inner`` holds per-group arrays (estimate/lower/upper ``[..., G, A]``
+    or ``[G]``, with ``info["var"]`` alike); ``having`` maps the inner
+    point estimates to a 0/1 keep mask ``[..., G]``.  The outer estimate
+    sums the passing groups' inner estimates and its variance their inner
+    variances (independent strata: each group's state comes from disjoint
+    rows).  A passing group with |S| <= 1 carries +inf inner variance and
+    poisons the outer bounds to ±inf, never NaN: the mask is applied with
+    ``torch.where`` (0 · inf is NaN under IEEE multiply), and the point
+    estimate stays finite.
+    """
+    est_g = inner.estimate
+    keep = having(est_g).to(est_g.dtype)
+    var_g = inner.info["var"] if isinstance(inner.info, dict) else inner.info
+    if keep.ndim < est_g.ndim:  # [..., G] mask over [..., G, A] estimates
+        keep = keep.unsqueeze(-1)
+    axis = -2 if est_g.ndim >= 2 else -1  # the group axis
+    zero = torch.zeros((), dtype=est_g.dtype, device=est_g.device)
+    est = torch.where(keep > 0, est_g, zero).sum(dim=axis)
+    var = torch.where(keep > 0, var_g, zero).sum(dim=axis)
+    if est.ndim and est.shape[-1] == 1:
+        est, var = est[..., 0], var[..., 0]
+    lo, hi = normal_bounds(est, var, confidence)
+    return Estimate(est, lo, hi, info={"var": var, "keep": keep, "inner_var": var_g})

@@ -1,6 +1,6 @@
 """Concrete GLAs — paper Algorithms 1, 3 and 4, and multi-query bundles.
 
-Port of ``repro/core/gla.py:37-133,149-523``:
+Port of ``repro/core/gla.py:37-133,149-826``:
 
   * :func:`make_sum_gla`          — §4.3 single-table SUM/COUNT (Alg. 1;
                                     Alg. 2 with ``estimator="multiple"``)
@@ -9,6 +9,10 @@ Port of ``repro/core/gla.py:37-133,149-523``:
   * :func:`make_join_groupby_gla` — §4.5 join group-by with a replicated
                                     dimension table (Alg. 4)
   * :func:`GLABundle`             — §3 any number of queries over one scan
+  * :func:`compose`, :func:`make_having_gla` — Deep OLA nesting: an outer
+                                    estimator over the inner estimate
+  * :class:`SlotFamily`           — padded-slot query families, the
+                                    serving layer's dynamic bundle
 
 Queries are ``func(chunk) -> [..., L] or [..., L, A]`` values (A
 simultaneous aggregates, like TPC-H Q1's four SUMs) and ``cond(chunk) ->
@@ -25,9 +29,10 @@ the reference): it runs on ``emit="chunk"`` and ``"round"``.
 """
 from __future__ import annotations
 
-from functools import lru_cache
-from typing import Callable, Optional, Sequence
+from functools import lru_cache, partial
+from typing import Callable, Mapping, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import estimators as E
@@ -443,3 +448,285 @@ def make_join_groupby_gla(
                             info={**e.info, "var": var, "dim_scale": k})
 
     return inner.with_(name=f"join-{estimator}", fused=fused, estimate=est_fn)
+
+
+# ---------------------------------------------------------------------------
+# Deep OLA composition — an outer estimator over the inner OLA estimate
+# (port of repro/core/gla.py:531-593)
+# ---------------------------------------------------------------------------
+
+def compose(inner: GLA, outer_estimate: Callable[[Estimate, float], Estimate],
+            *, name: Optional[str] = None) -> GLA:
+    """Nest an outer estimator over the inner GLA's *estimate*.
+
+    The execution scaffolding — init/accumulate/merge/terminate, the
+    estimator extensions, the kernel contracts (``fused``,
+    ``kernel_cols``), additivity — is the inner GLA's verbatim, so a
+    composed plan rides every path the inner one does (K1 group
+    included) with bitwise-equal states.  Only ``estimate`` differs: the
+    inner estimate first, then ``outer_estimate(inner_est, confidence)``.
+    """
+    if inner.estimate is None:
+        raise ValueError(
+            f"compose() needs an inner GLA with an estimation model, "
+            f"got {inner.name!r}")
+    if inner.members:
+        raise ValueError("compose() nests a single GLA, not a bundle — "
+                         "bundle the composed GLAs instead")
+    inner_estimate = inner.estimate
+
+    def estimate(state, confidence, ctx=None) -> Estimate:
+        return outer_estimate(inner_estimate(state, confidence, ctx), confidence)
+
+    return inner.with_(estimate=estimate, name=name or f"compose[{inner.name}]")
+
+
+_HAVING_CMPS = {">=": torch.ge, ">": torch.gt, "<=": torch.le, "<": torch.lt}
+
+
+def make_having_gla(inner: GLA, threshold, *, mode: str = ">=", agg: int = 0,
+                    name: Optional[str] = None) -> GLA:
+    """GROUP BY + HAVING over *estimated* aggregates (the Deep OLA query
+    shape): the sum of the inner group-by's per-group estimates over the
+    groups whose point estimate (aggregate column ``agg``) passes
+    ``estimate <mode> threshold``, with the passing groups' inner variances
+    summed (:func:`estimators.nested_group_estimate`: a passing group at
+    |S| <= 1 gives ±inf bounds, never NaN).  ``threshold`` is a host float
+    or a 0-d tensor.  Bounds can widen for a round when a group flips."""
+    if mode not in _HAVING_CMPS:
+        raise ValueError(f"unknown HAVING mode {mode!r}")
+    cmp = _HAVING_CMPS[mode]
+
+    def having(est_g):
+        v = est_g[..., agg] if est_g.ndim >= 2 else est_g
+        return cmp(v, threshold)
+
+    def outer(inner_est: Estimate, confidence) -> Estimate:
+        return E.nested_group_estimate(inner_est, having, confidence)
+
+    return compose(inner, outer, name=name or f"having[{inner.name}{mode}{threshold!r}]")
+
+
+# ---------------------------------------------------------------------------
+# Padded-slot query families — the serving layer's dynamic bundle (port of
+# repro/core/gla.py:595-826; repro_torch/service.py drives them).
+#
+# A family fixes the query *shape* (a basis of value expressions, the
+# range-predicate columns, optional group keys); each slot picks a basis
+# expression and half-open ranges.  The reference makes those per-slot
+# parameters dynamic jit inputs so that one compiled step serves every
+# arrival; with no trace here they are host values the slot closures
+# capture, and a bank of K slots is a K-member bundle that K1 steps in
+# ceil(K/16) launches.  Each slot's program is built from the same
+# constructors, the same predicate closure and the same d_total as the
+# solo query (:meth:`SlotFamily.solo_gla`), so its states and estimates
+# are bitwise a fresh solo session's over the rounds it witnessed.
+# ---------------------------------------------------------------------------
+
+_INACTIVE_LO = np.float32(np.inf)  # the empty half-open range: weight exactly 0
+_INACTIVE_HI = np.float32(-np.inf)
+
+
+class SlotQuery(NamedTuple):
+    """One query expressible in a :class:`SlotFamily`.
+
+    ``SUM(exprs[expr](d)) WHERE AND_j lo_j <= pred_col_j(d) < hi_j
+    [GROUP BY group [HAVING est >= having]]``: ``ranges`` maps predicate
+    column -> (lo, hi) half-open (columns not named are unconstrained);
+    ``group`` names one of the family's group keys (None: a scalar
+    aggregate); ``having`` (needs ``group``) nests the HAVING estimator
+    over the group estimates (:func:`make_having_gla`).
+    """
+
+    expr: str
+    ranges: Mapping[str, Tuple[float, float]] = {}
+    group: Optional[str] = None
+    having: Optional[float] = None
+
+
+class SlotParams(NamedTuple):
+    """Per-slot parameters of one bank of capacity K (host arrays; the
+    reference's dynamic jit inputs).  Inactive slots carry the empty range
+    (lo=+inf, hi=-inf): their predicate weight is exactly 0 on every row.
+    ``hv`` is the per-slot HAVING threshold (having banks only; +inf on an
+    inactive slot, so no group passes and its estimate is 0 ± 0)."""
+
+    expr: np.ndarray  # int32 [K]: row of the family's expression basis
+    lo: np.ndarray  # float32 [K, n_pred]
+    hi: np.ndarray  # float32 [K, n_pred]
+    fresh: np.ndarray  # bool [K]: the slot was (re)claimed since its last step
+    hv: Optional[np.ndarray] = None  # float32 [K]: HAVING thresholds
+
+
+def _range_cond(pred_cols: Tuple[str, ...], lo, hi):
+    """Predicate closure over host float32 bounds, shared verbatim by a
+    slot's in-bundle program and its solo GLA, so the 0/1 weights are
+    bitwise-equal.  Unconstrained columns carry (-inf, +inf)."""
+    bounds = [(float(a), float(b)) for a, b in zip(lo, hi)]
+
+    def cond(chunk):
+        w = None
+        for col, (a, b) in zip(pred_cols, bounds):
+            c = (chunk[col] >= a) & (chunk[col] < b)
+            w = c if w is None else w & c
+        if w is None:  # a family with no predicate columns
+            return torch.ones_like(chunk["_mask"], dtype=_F32)
+        return w.to(_F32)
+
+    return cond
+
+
+class _Basis:
+    """The family's basis expressions and the bank's group key evaluated
+    once per chunk dict and shared by every slot: the reference's CSE of
+    the stacked basis.  A K-slot bank over one round-slice materializes
+    each expression once (contiguous float32) and its group ids once
+    (contiguous int32), so the kernel wrapper hands the same tensors to
+    every member, not K copies.  The family's ids lie in [0, num_groups),
+    so the int32 ids are the group function's own."""
+
+    def __init__(self, fns):
+        self._fns = fns
+        self._cols = None
+        self._vals = {}
+
+    def _cached(self, key, make):
+        def value(chunk):
+            if chunk is not self._cols:  # a new slice or chunk: forget the last
+                self._cols, self._vals = chunk, {}
+            v = self._vals.get(key)
+            if v is None:
+                v = self._vals[key] = make(chunk)
+            return v
+
+        return value
+
+    def func(self, i: int):
+        fn = self._fns[i]
+        return self._cached(i, lambda c: fn(c).to(_F32).contiguous())
+
+    def group(self, gfn):
+        return self._cached("group", lambda c: gfn(c).to(torch.int32).contiguous())
+
+
+class SlotFamily:
+    """A parametric family of slot queries over a fixed expression basis.
+
+    Args:
+      exprs: ordered mapping name -> (chunk -> [..., L] float32) value
+        expressions, the basis a slot selects from.
+      pred_cols: the columns range predicates may constrain.
+      groups: optional mapping name -> (group_fn, num_groups) for group-by
+        slots (ids already in [0, num_groups): a large domain is bucketed
+        by the caller, e.g. with :func:`hash_bucket`); each group key gets
+        its own bank.
+    """
+
+    def __init__(self, exprs: Mapping[str, Callable[[Chunk], torch.Tensor]],
+                 pred_cols: Sequence[str],
+                 groups: Optional[Mapping[str, Tuple[Callable, int]]] = None):
+        self.expr_names: Tuple[str, ...] = tuple(exprs)
+        self._expr_fns = tuple(exprs[n] for n in self.expr_names)
+        if not self._expr_fns:
+            raise ValueError("SlotFamily needs at least one basis expression")
+        self.pred_cols: Tuple[str, ...] = tuple(pred_cols)
+        self.groups = dict(groups or {})
+
+    # -- host-side parameter rows -------------------------------------------
+
+    def bank_of(self, q: SlotQuery) -> str:
+        """The bank a query lands in: its group key, "scalar", or
+        ``"<group>:having"`` for a nested HAVING query (same states as the
+        group bank, another estimate)."""
+        if q.group is not None and q.group not in self.groups:
+            raise KeyError(f"unknown group key {q.group!r}; family has "
+                           f"{sorted(self.groups)}")
+        if q.having is not None:
+            if q.group is None:
+                raise ValueError(
+                    "SlotQuery.having needs a group key — HAVING nests "
+                    "over per-group estimates")
+            return f"{q.group}:having"
+        return q.group if q.group is not None else "scalar"
+
+    def slot_row(self, q: SlotQuery):
+        """Host (expr_idx, lo[n_pred], hi[n_pred]) float32 row for ``q``."""
+        if q.expr not in self.expr_names:
+            raise KeyError(f"unknown expression {q.expr!r}; family basis is "
+                           f"{list(self.expr_names)}")
+        unknown = sorted(set(q.ranges) - set(self.pred_cols))
+        if unknown:
+            raise KeyError(f"query constrains {unknown}, not in the "
+                           f"family's pred_cols {list(self.pred_cols)}")
+        lo = np.full(len(self.pred_cols), -np.inf, np.float32)
+        hi = np.full(len(self.pred_cols), np.inf, np.float32)
+        for j, col in enumerate(self.pred_cols):
+            if col in q.ranges:
+                lo[j], hi[j] = (np.float32(q.ranges[col][0]),
+                                np.float32(q.ranges[col][1]))
+        return self.expr_names.index(q.expr), lo, hi
+
+    def inactive_row(self):
+        """(expr_idx, lo, hi) of a parked slot: the empty range."""
+        n = len(self.pred_cols)
+        return (0, np.full(n, _INACTIVE_LO, np.float32),
+                np.full(n, _INACTIVE_HI, np.float32))
+
+    # -- per-slot GLA programs ----------------------------------------------
+
+    def _member_gla(self, bank: str, func, cond, d_total: float, hv=None,
+                    basis: Optional[_Basis] = None) -> GLA:
+        if bank == "scalar":
+            return make_sum_gla(func, cond, d_total=d_total)
+        base, _, nested = bank.partition(":")
+        gfn, G = self.groups[base]
+        if basis is not None:
+            gfn = basis.group(gfn)
+        inner = make_groupby_gla(func, cond, gfn, num_groups=G, d_total=d_total)
+        if nested != "having":
+            return inner
+        # the slot's state IS the group bank's; only the estimate nests, and
+        # the threshold stays out of the name
+        return make_having_gla(inner, hv, name=f"having[{base}]")
+
+    def solo_gla(self, q: SlotQuery, *, d_total: float) -> GLA:
+        """The stand-alone GLA of one slot query — what a fresh Session
+        would run, and the bitwise reference of a late joiner."""
+        expr_idx, lo, hi = self.slot_row(q)
+        cond = _range_cond(self.pred_cols, lo, hi)
+        hv = None if q.having is None else float(np.float32(q.having))
+        return self._member_gla(self.bank_of(q), self._expr_fns[expr_idx], cond,
+                                d_total, hv)
+
+    def bind(self, bank: str, params: SlotParams, d_total: float) -> GLA:
+        """The K-slot bundle GLA of one bank over ``params``: member k is
+        slot k's program, every basis expression evaluated once per chunk
+        dict for all of them, and so is a group bank's key
+        (:class:`_Basis`).  Built with the uncached
+        tuple combinator, never :func:`GLABundle`'s cache: the members'
+        closures capture per-step parameters, so a cache would only hold
+        dead closures (and their chunk) alive."""
+        basis = _Basis(self._expr_fns)
+        members = []
+        for k in range(len(params.expr)):
+            cond = _range_cond(self.pred_cols, params.lo[k], params.hi[k])
+            hv = None if params.hv is None else float(params.hv[k])
+            members.append(self._member_gla(bank, basis.func(int(params.expr[k])),
+                                            cond, d_total, hv, basis))
+        return _combine_members(tuple(members), f"slots-{bank}x{len(members)}")
+
+    def zero_slot_state(self, bank: str, device) -> E.SumState:
+        """One slot's init state, without a partition axis (the state a
+        fresh or reclaimed slot starts from)."""
+        if bank == "scalar":
+            shape, matched = (1,), ()
+        else:
+            G = self.groups[bank.partition(":")[0]][1]
+            shape, matched = (G, 1), (G,)
+        z = partial(torch.zeros, dtype=_F32, device=device)
+        return E.SumState(sum=z(shape), sumsq=z(shape), scanned=z(()), matched=z(matched))
+
+
+def next_pow2(n: int) -> int:
+    """Smallest power of two >= n (and >= 1): the slot-capacity rule."""
+    return 1 << max(0, int(n - 1).bit_length())

@@ -42,7 +42,7 @@ def test_import_walk_sees_the_whole_port():
     assert {"engine.py", "session.py", "kernels/fused_agg.py", "kernels/ops.py",
             "kernels/_runtime.py", "kernels/decode.py", "data/tpch.py",
             "data/source.py", "data/encodings.py", "fault.py", "ckpt.py",
-            "sharded.py"} <= names
+            "sharded.py", "service.py", "serve.py"} <= names
     # the contract linter matches core/scan.py, core/estimators.py and
     # core/session.py by path suffix: the port keeps its modules flat
     assert not (PORT / "core").exists()
@@ -65,7 +65,8 @@ def test_import_repro_torch_loads_no_jax():
             "repro_torch.kernels.fused_agg, repro_torch.kernels.ops, "
             "repro_torch.kernels.decode, repro_torch.data.tpch, "
             "repro_torch.data.source, repro_torch.data.encodings, "
-            "repro_torch.fault, repro_torch.ckpt, repro_torch.sharded; "
+            "repro_torch.fault, repro_torch.ckpt, repro_torch.sharded, "
+            "repro_torch.service, repro_torch.serve; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'msgpack', 'zstandard')); "
             "assert not bad, bad")

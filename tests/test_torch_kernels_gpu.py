@@ -2,8 +2,10 @@
 K1 (scalar, group, bundle, and its column decode ``pf_decode``), K2, K3,
 K4, K5 ``chunk_agg`` and K6 ``q6_agg``, K1 from carries merged or split
 for another partition count, a small streamed session, a streamed
-partition loss, an elastic resume, and two gloo ranks sharing the card
-(``repro_torch.sharded``).
+partition loss, an elastic resume, two gloo ranks sharing the card
+(``repro_torch.sharded``), and serving banks (``repro_torch.service``: a
+32-slot bank in two bundle launches, a late joiner bitwise its solo
+session).
 
 Every test here is marked ``gpu`` and skips without a CUDA device.  The file
 imports no JAX, so it runs on a machine that has a card but not the JAX
@@ -829,3 +831,114 @@ def test_two_gloo_ranks_on_the_card_bitwise_one_process(tmp_path):
             assert _same(got["sessions"][name], tree_map(lambda x: x.cpu(), want))
             kname = "fused_round_step/" + ("scalar" if name == "q6" else "group")
             assert got["launches"][name] == {kname: 8}
+
+
+def _serve_family():
+    return T.SlotFamily(
+        exprs={"q6": tpch.q6_func, "qty": lambda c: c["quantity"]},
+        pred_cols=("shipdate", "discount"),
+        groups={"rfls": (tpch.q1_group_small, 4)})
+
+
+def _bank_step_vs_plain(scan, name):
+    """The bank's next K1 bundle launch on its first round-slice against the
+    plain version (counters exact, sums within RTOL); returns the launches
+    it took."""
+    gla, states, path = scan.step_inputs(name)
+    assert path == "kernel_fused"
+    cols = {k: v[:, :scan.width] for k, v in scan.source.shards.items()}
+    args = [FK._member_args(m.fused, st, cols) for m, st in zip(gla.members, states)]
+    before = FK.launch_counts()
+    got = FK.bundle_round_step(args)
+    torch.cuda.synchronize()
+    launches = _delta(before)
+    for m, a, r in zip(args, got, ref.bundle_round_step(args)):
+        if m[2] is None:
+            A = m[0].shape[-1]
+            _close(a[:, :2 * A], r[:, :2 * A])
+            assert torch.equal(a[:, 2 * A], r[:, 2 * A])
+        else:
+            _close(a[0], r[0])
+            _close(a[1], r[1])
+            assert torch.equal(a[2], r[2])
+    return launches
+
+
+@pytest.mark.gpu
+def test_serving_banks_against_plain_versions():
+    """A K=32 scalar bank (two pf_bundle launches of 16 members) and a K=4
+    rfls bank, each step held against the plain versions; the scan's own
+    step launches ceil(K/16) bundles per bank."""
+    from repro_torch import service as SV
+
+    dev = _cuda()
+    shards, _, _ = _slice6_data(dev)
+    scan = SV.SharedScan(_serve_family(), shards, rounds=8, device=dev)
+    for i in range(20):
+        scan.attach(T.SlotQuery("q6" if i % 2 else "qty",
+                                {"discount": (0.0, 0.005 * (i + 1))}))
+    for i in range(3):
+        scan.attach(T.SlotQuery("q6", {"shipdate": (300.0 * i, 300.0 * i + 900.0)},
+                                group="rfls"))
+    assert scan.banks["scalar"].K == 32 and scan.banks["rfls"].K == 4
+    assert _bank_step_vs_plain(scan, "scalar") == {"fused_round_step/bundle": 2}
+    assert _bank_step_vs_plain(scan, "rfls") == {"fused_round_step/bundle": 1}
+    before = FK.launch_counts()
+    scan.step()
+    torch.cuda.synchronize()
+    assert _delta(before) == {"fused_round_step/bundle": 3}
+
+
+@pytest.mark.gpu
+def test_serving_late_join_on_the_card_bitwise_solo_session():
+    """A scalar and a group slot joining at round 3 on the card: each
+    estimate bitwise a fresh solo Session(emit="kernel") over the ranges
+    it witnessed (K1 bundle member vs K1 solo launch)."""
+    from repro_torch import service as SV
+
+    dev = _cuda()
+    shards, _, _ = _slice6_data(dev)
+    fam = _serve_family()
+    scan = SV.SharedScan(fam, shards, rounds=8, device=dev)
+    scan.attach(T.SlotQuery("q6", {"shipdate": (420.0, 785.0)}))
+    for _ in range(3):
+        scan.step()
+    late = [scan.attach(q) for q in (
+        T.SlotQuery("qty", {"discount": (0.02, 0.08)}),
+        T.SlotQuery("q6", {"shipdate": (100.0, 2000.0)}, group="rfls"))]
+    for _ in range(4):
+        scan.step()
+    for rec in late:
+        view = SV.witnessed_view(shards, rec.witnessed)
+        sess = T.Session(T.QuerySpec(fam.solo_gla(rec.query, d_total=scan.d_total),
+                                     rounds=4, emit="kernel"), view, device=dev)
+        while not sess.done:
+            prog = sess.step()
+        assert _same(tuple(rec.estimate[:3]), tuple(prog.estimates[:3]))
+
+
+@pytest.mark.gpu
+def test_service_on_the_card_converges_parks_and_unparks():
+    """OLAService steps its scan on a worker thread bound to the card: a
+    query converges, the scan parks, and the next arrival reuses it."""
+    import asyncio
+
+    from repro_torch import service as SV
+
+    dev = _cuda()
+    shards, _, _ = _slice6_data(dev)
+
+    async def main():
+        async with SV.OLAService(_serve_family(), rounds=8, grace_s=0.05) as svc:
+            assert svc.device.type == "cuda" and svc.device.index is not None
+            q = T.SlotQuery("q6", {"shipdate": (0.0, 2000.0)})
+            out = await (await svc.submit(T.QuerySpec(q, stop=T.rel_width(0.5)),
+                                          shards)).result()
+            assert out.converged and out.estimate.estimate.device.type == "cpu"
+            scan = svc.scan_for(shards)
+            await asyncio.sleep(0.3)
+            assert svc.is_parked(shards)
+            again = await (await svc.submit(q, shards)).result()
+            assert svc.scan_for(shards) is scan and again.rounds_witnessed == 8
+
+    asyncio.run(asyncio.wait_for(main(), 120))
