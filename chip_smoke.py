@@ -28,7 +28,13 @@ shared cyclic scan of 8 rounds, each live bank of slots stepped by K1 in
 bundle mode — late joiners bitwise a solo session over the rounds they
 witnessed, capacity growth to 32 slots under churn, the asyncio service
 on a seeded Poisson stream against one session per query, the streamed
-copies and four gloo ranks bitwise the resident run.
+copies and four gloo ranks bitwise the resident run.  Then the query
+construction surface: plan trees (``QuerySpec`` lowering ``PlanNode``
+trees) run beside their flat GLAs through K1, K2, K3 and the decode, each
+bitwise its flat twin with the same launches; the sketch GLAs (HLL,
+quantile, count-min) on the per-chunk scan path held to one-pass oracles;
+``monotone_envelope`` over a HAVING tree's bounds; and the online-eval
+bridge (``repro_torch.metrics``) through K2 and K1.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.  The last line is the run's JSON summary.
@@ -45,6 +51,7 @@ import subprocess
 import sys
 import time
 import traceback
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -117,6 +124,12 @@ SERVE_CHURN_SUPP = 4
 #: [serve-svc]: benchmarks/serve.py's workload (its QPS and eps) over 200
 #: arrivals, about 8 s at 25 QPS, so that p50/p99 are percentiles
 SERVE_QPS, SERVE_EPS, SERVE_N, SERVE_GRACE = 25.0, 0.05, 200, 0.05
+#: [sketch]: HLL registers 2**SKETCH_LOG2M over suppkey; the histogram of
+#: extendedprice over [QUANTILE_LO, QUANTILE_HI); the count-min sketch of
+#: quantity (its 50 values the candidates)
+SKETCH_LOG2M = 12
+QUANTILE_LO, QUANTILE_HI, QUANTILE_BINS = 0.9, 105.0, 256
+CMS_W, CMS_D = 1024, 4
 
 
 def fail(msg: str):
@@ -542,6 +555,366 @@ def spawn_ranks(groups, work: Path) -> dict:
             errs.append(f"[{job} rank {r}] exit code {p.exitcode}\n{tail}")
     check(not errs, "a [dist] rank failed:\n" + "\n".join(errs))
     return out
+
+
+def _timed(ctx, name, fn, expected):
+    """Run ``fn`` as one path of the main path: launch counts set to 0 just
+    before it and held to ``expected`` just after (``ctx.path_launches``; a
+    callable is asked after the run, for a session that stops on its own);
+    its seconds into ``ctx.e2e``.  Returns (result, launches)."""
+    import torch
+
+    from repro_torch.kernels import fused_agg as FK
+
+    torch.cuda.synchronize()
+    FK.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    ctx.e2e[name] = time.perf_counter() - t0
+    return res, ctx.path_launches(name, expected() if callable(expected) else expected)
+
+
+def _result_tree(res):
+    """Finals, snapshots and (estimate, lower, upper) of a QueryResult or a
+    list of them: what a tree must share with its flat GLA."""
+    rs = res if isinstance(res, list) else [res]
+    return [(r.final, r.snapshots, tuple(r.estimates[:3])) for r in rs]
+
+
+def plan_phase(ctx):
+    """[plan]: every plan tree of the main path lowered by QuerySpec and run
+    beside its flat GLA through the same entry point on emit="kernel" —
+    the same launches and the same digest of finals, snapshots and bounds.
+    Returns the Having tree's result (the [envelope] phase's bounds)."""
+    import torch
+
+    import repro_torch as T
+    from repro_torch.data import tpch
+
+    dev, shards, d, g = ctx.dev, ctx.shards, ctx.d, ctx.glas
+    spec = lambda x, **kw: T.QuerySpec(x, rounds=ROUNDS, emit="kernel", **kw)  # noqa: E731
+    runners = {
+        "run_query": lambda x: T.run_query(spec(x), shards, device=dev),
+        "run_queries": lambda x: T.run_queries(spec(x), shards, device=dev),
+        "session": lambda x: drive(T.Session(spec(x), shards, device=dev)),
+        "encoded session": lambda x: drive(T.Session(spec(x), ctx.enc_src, device=dev)),
+    }
+    S = T.Scan(d)
+    q1_where = T.Filter(S, tpch.q1_cond)
+    trees = {
+        "q6": T.SumAgg(T.Filter(S, g["q6"].fused.cond), g["q6"].fused.func),
+        "q1-small": T.GroupAgg(q1_where, tpch.q1_func, num_groups=4,
+                               group=tpch.q1_group_small, num_aggs=4),
+        "q1-large": T.GroupAgg(q1_where, tpch.q1_func,
+                               num_groups=tpch.Q1_LARGE_SUPPLIERS,
+                               group=tpch.q1_group_large, num_aggs=4,
+                               bucket_bits=tpch.Q1_LARGE_BUCKET_BITS),
+        "nation": T.GroupAgg(T.Join(q1_where, tpch.q1_group_large, *ctx.nation, device=dev),
+                             tpch.q1_func, num_groups=tpch.NUM_NATIONS, num_aggs=4),
+        "q3": T.GroupAgg(T.Join(q1_where, tpch.orderkey, *ctx.orders, device=dev),
+                         tpch.q6_func, num_groups=tpch.NUM_SEGMENTS),
+    }
+    # HAVING at one Q1-small group's exact sum: the groups are near equal,
+    # so the passing set flips as the estimates move
+    having_at = float(ctx.exact1s[:, 0].sort().values[1])
+    trees["having"] = T.Having(trees["q1-small"], having_at)
+    g = {**g, "having": T.make_having_gla(g["q1-small"], having_at)}
+    four = ["q6", "q1-small", "q1-large", "nation"]
+    K1G = "fused_round_step/group"
+    cases = (
+        ("q6", "run_query", g["q6"], trees["q6"], {"fused_prefix_states": 1}),
+        ("q6", "session", g["q6"], trees["q6"], {"fused_round_step/scalar": ROUNDS}),
+        ("q1-small", "run_query", g["q1-small"], trees["q1-small"], {K1G: ROUNDS}),
+        ("q1-large(2^13 buckets)", "run_query", g["q1-large"], trees["q1-large"],
+         {K1G: ROUNDS}),
+        ("having(q1-small)", "run_query", g["having"], trees["having"], {K1G: ROUNDS}),
+        ("supplier-nation join", "run_query", g["nation"], trees["nation"], {K1G: ROUNDS}),
+        ("q3-orders join", "run_query", g["q3"], trees["q3"], {"group_agg": ROUNDS}),
+        ("[q6, q1-small, q1-large, nation]", "run_queries", [g[k] for k in four],
+         [trees[k] for k in four], {"fused_round_step/bundle": ROUNDS}),
+        ("q6", "encoded session", g["q6"], trees["q6"],
+         {"fused_round_step/scalar": ROUNDS, "decode": ROUNDS}),
+    )
+    having = None
+    for name, how, flat_gla, tree, expected in cases:
+        got = {}
+        for kind, x in (("flat", flat_gla), ("tree", tree)):
+            res, n = _timed(ctx, f"plan {how} {name} {kind}",
+                            lambda x=x: runners[how](x), expected)
+            got[kind] = (res, n, digest(_result_tree(res)))
+        check(got["tree"][2] == got["flat"][2],
+              f"[plan] {how} {name}: the tree's result differs from its flat GLA's")
+        if name.startswith("having"):
+            having = got["tree"][0]
+        say("plan", tree=name, entry=how, vs_flat="bitwise", digest=got["tree"][2][:16],
+            seconds=f"{ctx.e2e[f'plan {how} {name} tree']:.3f}",
+            flat_seconds=f"{ctx.e2e[f'plan {how} {name} flat']:.3f}",
+            launches=got["tree"][1])
+
+    # a stopping rule: the Q1-large tree's session stops at the flat one's round
+    stops = {}
+    for kind, x in (("flat", g["q1-large"]), ("tree", trees["q1-large"])):
+        sess = T.Session(spec(x, stop=T.rel_width(0.01)), shards, device=dev)
+        res, _ = _timed(ctx, f"plan q1-large rel_width(0.01) {kind}", sess.run,
+                        lambda sess=sess: {K1G: sess.steps_taken})
+        stops[kind] = (sess.steps_taken, digest(_result_tree(res)))
+    check(stops["tree"] == stops["flat"],
+          f"[plan] q1-large rel_width(0.01): tree {stops['tree'][0]} rounds, flat "
+          f"{stops['flat'][0]}, or the estimates differ")
+    say("plan", tree="q1-large", entry="session", stop="rel_width(0.01)",
+        steps_taken=stops["tree"][0], vs_flat="bitwise",
+        seconds=f"{ctx.e2e['plan q1-large rel_width(0.01) tree']:.3f}",
+        flat_seconds=f"{ctx.e2e['plan q1-large rel_width(0.01) flat']:.3f}")
+
+    # two stacked Filters against one combined predicate
+    lo, hi = tpch.Q6_LOW_WINDOW
+
+    def c_lo(c):
+        return (c["shipdate"] >= lo).to(torch.float32)
+
+    def c_hi(c):
+        return (c["shipdate"] < hi).to(torch.float32)
+
+    two = T.SumAgg(T.Filter(T.Filter(S, c_lo), c_hi), tpch.q6_func)
+    one = T.make_sum_gla(tpch.q6_func, lambda c: c_lo(c) * c_hi(c), d_total=d)
+    finals = {}
+    for kind, x in (("two filters", two), ("one predicate", one)):
+        res, _ = _timed(ctx, f"plan {kind}", lambda x=x: runners["run_query"](x),
+                        {"fused_prefix_states": 1})
+        finals[kind] = float(res.final)
+    rel = abs(finals["two filters"] - finals["one predicate"]) / abs(finals["one predicate"])
+    check(rel <= 1e-6, f"[plan] two Filters off one combined predicate by {rel:.3e}")
+    say("plan", tree="q6 Filter(Filter(Scan))", vs_one_predicate=f"{rel:.3e}",
+        seconds=f"{ctx.e2e['plan two filters']:.3f}",
+        flat_seconds=f"{ctx.e2e['plan one predicate']:.3f}")
+    return having
+
+
+def envelope_phase(ctx, having):
+    """[envelope]: monotone_envelope over the Having tree's per-round
+    bounds, on the card: lower never drops, upper never rises, lo <= hi."""
+    import torch
+
+    import repro_torch as T
+
+    e = having.estimates
+    t0 = time.perf_counter()
+    lo, hi = T.monotone_envelope(e.lower, e.upper)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(lo.device == e.lower.device and lo.dtype == e.lower.dtype,
+          "[envelope] not on the bounds' device, in their dtype")
+    check(bool((lo[1:] >= lo[:-1]).all()), "[envelope] the lower bound drops")
+    check(bool((hi[1:] <= hi[:-1]).all()), "[envelope] the upper bound rises")
+    check(bool((lo <= hi).all()), "[envelope] lower above upper")
+    R = lo.shape[0]
+
+    def rows(x):  # [R, ...] -> [R, n]
+        return x.reshape(R, -1)
+
+    width = rows(e.upper - e.lower)
+    keep = rows(e.info["keep"])
+    say("envelope", rounds=R, device=str(lo.device), shape=tuple(lo.shape),
+        raw_widened_rounds=int((width[1:] > width[:-1]).any(dim=1).sum()),
+        tightened_rounds=int(((rows(lo) != rows(e.lower)) | (rows(hi) != rows(e.upper)))
+                             .any(dim=1).sum()),
+        having_flips=int((keep[1:] != keep[:-1]).any(dim=1).sum()),
+        last_raw=[e.lower[-1].tolist(), e.upper[-1].tolist()],
+        last_envelope=[lo[-1].tolist(), hi[-1].tolist()], seconds=f"{secs:.6f}")
+
+
+def sketch_trees(d: float) -> dict:
+    """The [sketch] phase's queries over a table of ``d`` rows."""
+    import numpy as np
+    import torch
+
+    import repro_torch as T
+    from repro_torch.data import tpch
+
+    S = T.Scan(d)
+    return {
+        "count-distinct": T.CountDistinct(S, lambda c: c["suppkey"], log2m=SKETCH_LOG2M),
+        "quantile": T.Quantile(T.Filter(S, tpch.q1_cond), lambda c: c["extendedprice"],
+                               lo=QUANTILE_LO, hi=QUANTILE_HI, bins=QUANTILE_BINS, q=0.5),
+        "heavy-hitters": T.HeavyHitters(S, lambda c: c["quantity"].to(torch.int32),
+                                        np.arange(1, 51), width=CMS_W, depth=CMS_D),
+    }
+
+
+def sketch_phase(ctx):
+    """[sketch]: the three sketch GLAs on the per-chunk scan path — (a) a
+    session over the whole resident table for its first 2 rounds, (b)
+    run_query(emit="round") over the first SYNC_C chunks a partition,
+    held to oracles taken in one vectorized pass over the same rows."""
+    import numpy as np
+    import torch
+
+    import repro_torch as T
+    from repro_torch import sketch as SK
+    from repro_torch.data import tpch
+    from repro_torch.uda import tree_map
+
+    dev, shards = ctx.dev, ctx.shards
+    steps = SYNC_C // (C // ROUNDS)
+    cut = {k: v[:, :SYNC_C] for k, v in shards.items()}
+    d_cut = float(cut["_mask"].double().sum())
+    rows = {k: cut[k].reshape(-1) for k in ("suppkey", "extendedprice", "quantity",
+                                             "shipdate", "_mask")}
+    live = rows["_mask"] > 0
+    n_cut = int(live.sum())
+    full_trees, cut_trees = sketch_trees(ctx.d), sketch_trees(d_cut)
+    for name in full_trees:
+        sess = T.Session(T.QuerySpec(full_trees[name], rounds=ROUNDS), shards, device=dev)
+
+        def two_rounds():
+            for _ in range(steps):
+                sess.step()
+            return sess.result()
+
+        ra, got_a = _timed(ctx, f"sketch {name} session", two_rounds, {})
+        rb, got_b = _timed(ctx, f"sketch {name} run_query", lambda: T.run_query(
+            T.QuerySpec(cut_trees[name], rounds=steps, emit="round"), cut, device=dev), {})
+        st = tree_map(lambda x: x[-1], rb.snapshots)
+        check(digest(tree_map(lambda x: x[steps - 1], ra.snapshots)) == digest(st),
+              f"[sketch] {name}: the session's round {steps} differs from run_query's")
+        est = tuple(x[-1] for x in rb.estimates[:3])
+        check(float(st.scanned) == d_cut, f"[sketch] {name}: scanned {float(st.scanned)}")
+        check(all(torch.isfinite(x).all().item() for x in est),
+              f"[sketch] {name}: estimates not finite")
+        facts = {}
+        if name == "count-distinct":
+            m = 1 << SKETCH_LOG2M
+            h = SK._mix32(rows["suppkey"][live])
+            rest = h >> SKETCH_LOG2M
+            bits = torch.zeros_like(rest)
+            for k in range(32):  # bit length by comparisons, not frexp
+                bits += (rest >= (1 << k)).to(rest.dtype)
+            rank = (32 - SKETCH_LOG2M + 1 - bits).to(torch.float32)
+            regs = torch.zeros(m, device=dev).scatter_reduce_(0, h & (m - 1), rank, "amax")
+            check(torch.equal(st.registers, regs),
+                  "[sketch] count-distinct: registers differ from the one-pass amax")
+            distinct = torch.unique(rows["suppkey"][live]).numel()
+            rel = abs(float(est[0]) - distinct) / distinct
+            check(rel <= 3 * 1.04 / math.sqrt(m),
+                  f"[sketch] count-distinct: estimate {float(est[0])} vs {distinct} distinct")
+            facts = {"registers": "bitwise one-pass amax", "distinct": distinct,
+                     "estimate": float(est[0]), "rel_err": f"{rel:.3e}",
+                     "bound": f"{3 * 1.04 / math.sqrt(m):.3e}"}
+        elif name == "quantile":
+            w = tpch.q1_cond(rows) * rows["_mask"]
+            sel = w > 0
+            lo32 = torch.tensor(np.float32(QUANTILE_LO), device=dev)
+            width32 = torch.tensor(
+                np.float32((QUANTILE_HI - QUANTILE_LO) / QUANTILE_BINS), device=dev)
+            b = torch.floor((rows["extendedprice"] - lo32) / width32)
+            b = torch.clamp(b, 0, QUANTILE_BINS - 1).long()
+            counts = torch.bincount(b[sel], minlength=QUANTILE_BINS).to(torch.float32)
+            check(torch.equal(st.counts, counts),
+                  "[sketch] quantile: counts differ from the one-pass bincount")
+            vals = rows["extendedprice"][sel]
+            x = float(torch.kthvalue(vals, max(1, math.ceil(0.5 * vals.numel()))).values)
+            check(float(est[1]) <= x <= float(est[2]),
+                  f"[sketch] quantile: DKW band [{float(est[1])}, {float(est[2])}] misses {x}")
+            check(float(st.matched) == vals.numel(), "[sketch] quantile: matched")
+            facts = {"counts": "bitwise one-pass bincount", "exact_median": x,
+                     "estimate": float(est[0]), "band": [float(est[1]), float(est[2])]}
+        else:
+            q = rows["quantity"][live].to(torch.int32)
+            bk = SK._cms_buckets(q, CMS_W, CMS_D)
+            table = torch.stack([torch.bincount(bk[r], minlength=CMS_W)
+                                 for r in range(CMS_D)]).to(torch.float32)
+            check(torch.equal(st.table, table),
+                  "[sketch] heavy-hitters: table differs from the one-pass count")
+            exact = torch.bincount(q, minlength=51)[1:51].to(torch.float64)
+            fin = rb.final.double()
+            check(bool((fin >= exact).all()), "[sketch] heavy-hitters: the CMS undercounts")
+            lo_, hi_ = est[1].double(), est[2].double()
+            check(bool(((lo_ <= exact) & (exact <= hi_)).all()),
+                  "[sketch] heavy-hitters: an exact count outside its bounds")
+            facts = {"table": "bitwise one-pass count",
+                     "overcount_max": float((fin - exact).max()),
+                     "bound_width_max": float((hi_ - lo_).max())}
+        say("sketch", query=name, session_rounds=steps, rows=ROWS,
+            session_s_per_round=f"{ctx.e2e[f'sketch {name} session'] / steps:.3f}",
+            run_query_rows=n_cut, run_query_s=f"{ctx.e2e[f'sketch {name} run_query']:.3f}",
+            per_chunk_ms=f"{ctx.e2e[f'sketch {name} run_query'] / SYNC_C * 1e3:.4f}",
+            session_vs_run_query="bitwise",
+            kernel_launches=sum(got_a.values()) + sum(got_b.values()), **facts)
+
+    # the refusals of a max monoid, with the reference's messages
+    hll = full_trees["count-distinct"]
+    refusals = {
+        "fault": (lambda: T.Session(T.QuerySpec(hll, rounds=ROUNDS,
+                                                fault=T.FaultPolicy("single")),
+                                    shards, device=dev),
+                  "FaultPolicy needs additive merges: excluding dead partitions is a "
+                  "weighted merge, which non-additive GLAs cannot honor"),
+        "kernel": (lambda: T.run_query(T.QuerySpec(hll, rounds=ROUNDS, emit="kernel"),
+                                       shards, device=dev),
+                   f"GLA 'hll-distinct-m{1 << SKETCH_LOG2M}' publishes neither "
+                   "kernel_cols nor a fused kernel contract"),
+    }
+    for what, (fn, want) in refusals.items():
+        try:
+            fn()
+            fail(f"[sketch] count-distinct under {what}: not refused")
+        except ValueError as e:
+            check(str(e) == want, f"[sketch] count-distinct under {what}: refused with {e}")
+    say("sketch", query="count-distinct", refused=list(refusals), messages="the reference's")
+
+
+def eval_phase(ctx):
+    """[eval]: the online-eval bridge — make_loss_gla over one column as a
+    per-row loss, A=2 (the loss and a count) through K2 and K1 scalar."""
+    import torch
+
+    import repro_torch as T
+    from repro_torch import metrics as TM
+    from repro_torch.data import tpch
+    from repro_torch.kernels import fused_agg as FK
+    from repro_torch.kernels import ref
+
+    dev, shards = ctx.dev, ctx.shards
+    loss = TM.make_loss_gla(lambda c: c["extendedprice"], d_total=ctx.d)
+    truth = float(tpch.exact_answer(ctx.flat, lambda c: c["extendedprice"],
+                                    lambda c: torch.ones_like(c["extendedprice"]))[0]) / ROWS
+    # the A=2 shapes against the plain versions (K1 scalar on a round-slice, K2)
+    vals, w, _ = FK.project(loss.fused, {k: v[:, :C // ROUNDS] for k, v in shards.items()})
+    carry = torch.zeros((P, 5), device=dev)
+    a, b = FK.scalar_round_step(vals, w, carry), ref.scalar_round_step(vals, w, carry)
+    check(torch.equal(a[:, 4], b[:, 4]) and torch.allclose(
+        a, b, rtol=SUM_RTOL, atol=SUM_RTOL * b.abs().max().item()),
+        "[eval] K1 scalar at A=2 differs from its plain version")
+    vals, w, _ = FK.project(loss.fused, shards)
+    a, b = FK.scalar_prefix(vals, w), ref.scalar_prefix(vals, w)
+    check(torch.equal(a[..., 4], b[..., 4]) and torch.allclose(
+        a, b, rtol=SUM_RTOL, atol=SUM_RTOL * b.abs().max().item()),
+        "[eval] K2 at A=2 differs from its plain version")
+    del vals, w, a, b
+    spec = lambda **kw: T.QuerySpec(loss, rounds=ROUNDS, emit="kernel", **kw)  # noqa: E731
+    res, got = _timed(ctx, "eval run_query", lambda: T.run_query(spec(), shards, device=dev),
+                      {"fused_prefix_states": 1})
+    mean, lo, hi = TM.mean_with_bounds(res.estimates)
+    check(lo[0] <= truth <= hi[0], f"[eval] round 1's bounds [{lo[0]}, {hi[0]}] miss {truth}")
+    rel = abs(mean[-1] - truth) / truth
+    check(rel <= ORACLE_RTOL, f"[eval] final mean {mean[-1]} vs {truth}")
+    count_err = abs(float(res.final[1]) - ROWS) / ROWS
+    check(count_err <= SUM_RTOL, f"[eval] the count aggregate is off the rows by {count_err:.3e}")
+    say("eval", entry="run_query", truth=truth,
+        round1=[float(lo[0]), float(mean[0]), float(hi[0])],
+        final_mean=float(mean[-1]), rel_err=f"{rel:.3e}",
+        seconds=f"{ctx.e2e['eval run_query']:.3f}", launches=got)
+    sess = T.Session(spec(stop=T.rel_width(0.001)), shards, device=dev)
+    res, got = _timed(ctx, "eval session", sess.run,
+                      lambda: {"fused_round_step/scalar": sess.steps_taken})
+    mean, lo, hi = TM.mean_with_bounds(res.estimates)
+    check(sess.converged and lo[-1] <= truth <= hi[-1],
+          f"[eval] the session stopped at [{lo[-1]}, {hi[-1]}], which misses {truth}")
+    say("eval", entry="session", stop="rel_width(0.001)", steps_taken=sess.steps_taken,
+        rounds_total=sess.rounds_total,
+        mean=[float(lo[-1]), float(mean[-1]), float(hi[-1])],
+        seconds=f"{ctx.e2e['eval session']:.3f}", launches=got)
 
 
 def run(work: Path) -> None:
@@ -1934,6 +2307,17 @@ def run(work: Path) -> None:
         collectives=[g_["collectives"] for g_ in gs],
         peak_device_bytes=[g_["peak_bytes"] for g_ in gs], spawn_to_end_s=f"{t_spawn:.3f}",
         launches_per_rank=gs[0]["launches"])
+
+    # -- 4e. plan trees, the sketch GLAs, the monotone envelope and the eval
+    # bridge: each path held to its own launch counts, as above
+    ctx = types.SimpleNamespace(
+        dev=dev, d=d, shards=shards, flat=flat, enc_src=enc_src, orders=orders,
+        nation=nation, exact1s=exact1s, path_launches=path_launches, e2e=e2e,
+        glas={"q6": q6, "q1-small": q1s, "q1-large": q1l, "nation": jn, "q3": q3})
+    having = plan_phase(ctx)
+    envelope_phase(ctx, having)
+    sketch_phase(ctx)
+    eval_phase(ctx)
 
     say("main-path launches", **launches)
     for k, n in launches.items():

@@ -45,12 +45,21 @@ round-slice per 16 slots (``repro_torch.service``; the CLI is ``python -m
 repro_torch.serve``).  ``compose``/``make_having_gla`` nest the Deep OLA
 HAVING estimator over a group-by.
 
+Plan trees: ``QuerySpec`` (and so every entry point) also takes a
+``PlanNode`` tree — ``Scan``, ``Filter``, ``Join`` stages under a
+``SumAgg``, ``GroupAgg``, ``Having`` or sketch root (``CountDistinct``,
+``Quantile``, ``HeavyHitters``) — and lowers it with ``lower_plan`` onto
+the GLA constructors, so a one-node tree runs bitwise its flat GLA through
+the same kernels.  The sketch GLAs (``repro_torch.sketch``) run on the scan
+paths; ``monotone_envelope`` turns per-round bounds into non-widening ones,
+and ``repro_torch.metrics`` estimates a mean per-example loss on line.
+
 Entry points take ``device=`` and default to ``"cuda"``; with no card they
 raise unless the caller asks for ``"cpu"``.  The package imports ``torch``
 and ``numpy`` only — never ``jax`` and nothing of ``repro`` (nor
 ``msgpack`` or ``zstandard``).
 """
-from repro_torch import ckpt, fault, sharded
+from repro_torch import ckpt, fault, metrics, sharded, sketch
 from repro_torch.data.encodings import BitPackedEncoding, DictEncoding
 from repro_torch.data.source import (
     ChunkSource,
@@ -69,6 +78,7 @@ from repro_torch.engine import (
     run_query,
     straggler_schedule,
 )
+from repro_torch.estimators import monotone_envelope
 from repro_torch.gla import (
     GLABundle,
     SlotFamily,
@@ -93,38 +103,66 @@ from repro_torch.session import (
 )
 from repro_torch.service import OLAService, SharedScan
 from repro_torch.sharded import PartitionGroup, init_partition_group
-from repro_torch.spec import QuerySpec
+from repro_torch.sketch import (
+    make_count_distinct_gla,
+    make_heavy_hitters_gla,
+    make_quantile_gla,
+)
+from repro_torch.spec import (
+    CountDistinct,
+    Filter,
+    GroupAgg,
+    Having,
+    HeavyHitters,
+    Join,
+    PlanNode,
+    Quantile,
+    QuerySpec,
+    Scan,
+    SumAgg,
+    lower_plan,
+)
 from repro_torch.uda import GLA, Estimate, FusedSpec, ProbeTable
 
 __all__ = [
     "BitPackedEncoding",
     "ChunkSource",
+    "CountDistinct",
     "DictEncoding",
     "EncodedSource",
     "Estimate",
     "FaultPolicy",
+    "Filter",
     "FusedSpec",
     "GLA",
     "GLABundle",
+    "GroupAgg",
+    "Having",
+    "HeavyHitters",
     "InMemorySource",
+    "Join",
     "NpyMmapSource",
     "OLAService",
     "PartitionGroup",
     "PartitionLostError",
     "PartitionRangeSource",
+    "PlanNode",
     "ProbeTable",
+    "Quantile",
     "QueryResult",
     "QuerySpec",
     "RepartitionedSource",
     "RoundProgress",
+    "Scan",
     "Session",
     "SharedScan",
     "SlotFamily",
     "SlotQuery",
+    "SumAgg",
     "abs_width",
     "all_of",
-    "as_source",
     "any_of",
+    "as_source",
     "budget",
     "ckpt",
     "compose",
@@ -132,14 +170,21 @@ __all__ = [
     "fault",
     "hash_bucket",
     "init_partition_group",
+    "lower_plan",
+    "make_count_distinct_gla",
     "make_groupby_gla",
     "make_having_gla",
+    "make_heavy_hitters_gla",
     "make_join_groupby_gla",
+    "make_quantile_gla",
     "make_sum_gla",
+    "metrics",
+    "monotone_envelope",
     "rel_width",
     "repartition",
     "run_queries",
     "run_query",
     "sharded",
+    "sketch",
     "straggler_schedule",
 ]

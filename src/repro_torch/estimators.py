@@ -1,11 +1,12 @@
 """Sampling estimators for parallel on-line aggregation — paper §4.
 
-Port of ``repro/core/estimators.py:40-176,192-233``: the generic sampling-without-
+Port of ``repro/core/estimators.py:40-176,192-266``: the generic sampling-without-
 replacement estimator (Eq. 2) with its unbiased variance estimator (Eq. 4),
 the single-estimator model (paper Alg. 1, corrected: ``scanned`` = |S|
 counts every live item, ``sum``/``sumsq`` only predicate matches), the
-multiple-estimators (stratified) model (paper Alg. 2, :class:`MultState`)
-and the Deep OLA nested HAVING estimate (:func:`nested_group_estimate`).
+multiple-estimators (stratified) model (paper Alg. 2, :class:`MultState`),
+the Deep OLA nested HAVING estimate (:func:`nested_group_estimate`) and the
+post-hoc :func:`monotone_envelope` of per-round bounds.
 
 The functions broadcast: ``scanned`` may carry fewer trailing axes than
 ``sum_`` (one count per round or partition against ``[..., A]`` or
@@ -182,3 +183,35 @@ def nested_group_estimate(inner: Estimate, having, confidence) -> Estimate:
         est, var = est[..., 0], var[..., 0]
     lo, hi = normal_bounds(est, var, confidence)
     return Estimate(est, lo, hi, info={"var": var, "keep": keep, "inner_var": var_g})
+
+
+def monotone_envelope(lower, upper):
+    """Running intersection of per-round confidence intervals.
+
+    OLA UIs want bounds that only tighten; raw per-round CIs can widen
+    transiently when a HAVING predicate flips a group in or out of the
+    outer sum.  Each round's CI holds at the stated confidence, so their
+    running intersection [cummax(lo), cummin(hi)] along the round axis
+    (dim 0) is a valid, conservative envelope that never widens.  A round
+    whose CI is disjoint from the intersection so far crosses the running
+    bounds (cummax(lo) > cummin(hi)); since they only drift further apart
+    from there, the envelope freezes at the last consistent round, and a
+    crossing at round 0 collapses to that round's midpoint.  Applied
+    post-hoc, never inside the runtime, where it would change published
+    bounds.
+
+    ``lower``/``upper`` are numpy arrays or tensors ``[R, ...]``; the
+    result is a pair of tensors on the input's device, in its dtype.
+    """
+    lo = torch.cummax(torch.as_tensor(lower), dim=0).values
+    hi = torch.cummin(torch.as_tensor(upper), dim=0).values
+    crossed = lo > hi  # monotone along rounds: a suffix
+    idx = torch.argmax(crossed.to(torch.int32), dim=0)  # first crossed round
+    prev = torch.clamp(idx - 1, min=0)[None]
+    frozen_lo = torch.take_along_dim(lo, prev, dim=0)[0]
+    frozen_hi = torch.take_along_dim(hi, prev, dim=0)[0]
+    mid0 = 0.5 * (lo[0] + hi[0])
+    frozen_lo = torch.where(idx > 0, frozen_lo, mid0)
+    frozen_hi = torch.where(idx > 0, frozen_hi, mid0)
+    return (torch.where(crossed, frozen_lo, lo),
+            torch.where(crossed, frozen_hi, hi))

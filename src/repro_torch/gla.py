@@ -130,18 +130,23 @@ def _combine_members(members: tuple, name: Optional[str]) -> GLA:
 # ---------------------------------------------------------------------------
 
 _BUCKET_MULT = 2654435761  # 2**32 / golden ratio (Knuth), odd
-_MULT_HI, _MULT_LO = _BUCKET_MULT >> 16, _BUCKET_MULT & 0xFFFF
+
+
+def mul32(u: torch.Tensor, mult: int) -> torch.Tensor:
+    """``u * mult`` mod 2**32 for int64 ``u`` in [0, 2**32): the
+    reference's wrapping uint32 product.  Formed from the multiplier's two
+    16-bit halves, so no intermediate exceeds 2**48 and the low 32 bits
+    are exact."""
+    hi, lo = mult >> 16, mult & 0xFFFF
+    return (u * lo + (((u * hi) & 0xFFFF) << 16)) & 0xFFFFFFFF
 
 
 def hash_bucket(gids: torch.Tensor, bucket_bits: int) -> torch.Tensor:
     """Raw group ids -> int32 bucket ids in [0, 2**bucket_bits).
 
-    The reference multiplies in uint32, wrapping mod 2**32.  Here the
-    product is formed in int64 from the multiplier's two 16-bit halves, so
-    no intermediate exceeds 2**48 and the low 32 bits — hence the bucket
-    ids — equal the reference's exactly."""
-    g = gids.to(torch.int64) & 0xFFFFFFFF
-    h = (g * _MULT_LO + (((g * _MULT_HI) & 0xFFFF) << 16)) & 0xFFFFFFFF
+    The reference multiplies in uint32, wrapping mod 2**32; :func:`mul32`
+    gives the same low 32 bits, hence the same bucket ids."""
+    h = mul32(gids.to(torch.int64) & 0xFFFFFFFF, _BUCKET_MULT)
     return (h & ((1 << bucket_bits) - 1)).to(torch.int32)
 
 

@@ -462,7 +462,8 @@ class Session:
             if not gla.merge_is_additive:
                 raise ValueError(
                     "FaultPolicy needs additive merges: excluding dead "
-                    "partitions is a weighted merge")
+                    "partitions is a weighted merge, which non-additive "
+                    "GLAs cannot honor")
             for p in self._fail_at:
                 if p >= P:
                     raise ValueError(f"FaultPolicy.fail_at names partition "

@@ -5,7 +5,8 @@ for another partition count, a small streamed session, a streamed
 partition loss, an elastic resume, two gloo ranks sharing the card
 (``repro_torch.sharded``), and serving banks (``repro_torch.service``: a
 32-slot bank in two bundle launches, a late joiner bitwise its solo
-session).
+session), and the sketch GLAs' states (``repro_torch.sketch``) on the card
+bitwise the CPU port's.
 
 Every test here is marked ``gpu`` and skips without a CUDA device.  The file
 imports no JAX, so it runs on a machine that has a card but not the JAX
@@ -942,3 +943,45 @@ def test_service_on_the_card_converges_parks_and_unparks():
             assert svc.scan_for(shards) is scan and again.rounds_witnessed == 8
 
     asyncio.run(asyncio.wait_for(main(), 120))
+
+
+def _sketch_trees(d):
+    """The [sketch] phase's three sketch trees, at a small size."""
+    return {
+        "count-distinct": T.CountDistinct(T.Scan(d), lambda c: c["suppkey"], log2m=12),
+        "quantile": T.Quantile(T.Filter(T.Scan(d), tpch.q1_cond),
+                               lambda c: c["extendedprice"], lo=0.9, hi=105.0,
+                               bins=256, q=0.5),
+        "heavy-hitters": T.HeavyHitters(T.Scan(d), lambda c: c["quantity"].to(torch.int32),
+                                        np.arange(1, 51), width=1024, depth=4)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("emit,lanes", [("round", 1), ("chunk", 2)])
+@pytest.mark.parametrize("name", ["count-distinct", "quantile", "heavy-hitters"])
+def test_sketch_states_on_the_card_bitwise_the_cpu(name, emit, lanes):
+    """The sketch GLAs on the card (int32 scatter-adds, the float amax, a
+    true division for the bin ids) bitwise the CPU port's: states, finals
+    and the quantile's bounds; the HLL and CMS estimates within 1e-6."""
+    dev = _cuda()
+    P, C, L = 4, 8, 256
+    cols = tpch.generate_lineitem(P * C * L - 300, seed=5, device="cpu")
+    shards = randomize.pack_partitions(
+        randomize.randomize_global(cols, torch.Generator().manual_seed(5), P), chunk_len=L)
+    runs = []
+    for where in ("cpu", dev):
+        tree = _sketch_trees(float(P * C * L - 300))[name]
+        data = {k: v.to(where) for k, v in shards.items()}
+        runs.append(T.run_query(T.QuerySpec(tree, rounds=4, emit=emit, lanes=lanes), data,
+                                device=where))
+    cpu, card = runs
+    for a, b in zip(cpu.snapshots, card.snapshots):
+        assert torch.equal(a, b.cpu())
+    if name == "quantile":
+        assert torch.equal(cpu.final, card.final.cpu())
+        for a, b in zip(cpu.estimates[:3], card.estimates[:3]):
+            assert torch.equal(a, b.cpu())
+    else:
+        torch.testing.assert_close(card.final.cpu(), cpu.final, rtol=1e-6, atol=0)
+        for a, b in zip(cpu.estimates[:3], card.estimates[:3]):
+            torch.testing.assert_close(b.cpu(), a, rtol=1e-6, atol=0)

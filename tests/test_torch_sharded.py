@@ -8,8 +8,10 @@ the port's entry points with ``mesh=``, its data as its own resident block
 ``[P/W, C, L]`` or as a source over the whole layout, and writes what it got;
 this process runs the same cases without a mesh and holds every rank's
 results to them bit for bit: finals, every merged round state, every
-estimate, the failure record and the stopping round.  Also: the reference's
-refusals with its messages, pause on W=4 resumed on W=2 (at P=8 and at
+estimate, the failure record and the stopping round — a one-node plan tree
+and a Quantile sketch tree among the cases, the tree also bitwise its flat
+GLA's run on every rank.  Also: the reference's refusals with its messages
+(the max-monoid CountDistinct sketch among them), pause on W=4 resumed on W=2 (at P=8 and at
 ``partitions=4``) and in this process, a rank that raises failing the others
 at once, the port's W=4 Q6 estimates within the reference's ``rtol=2e-5`` of
 the reference's vmapped ``run_query``, and the three live-row sums that no
@@ -121,7 +123,23 @@ def _entry_cases():
             T.QuerySpec(_q6(), schedule=_straggler(d), sync=True, emit="kernel",
                         sync_cost_model=False), d["block"], **kw))
     cases["stop rule decided once"] = _stop_rule
+    # plan trees: a one-node SumAgg tree (held to the flat Q6 run below) and
+    # a Quantile sketch, an additive monoid
+    cases["run_query q6 tree chunk"] = (
+        lambda d, kw: T.run_query(_spec(_q6_tree(), emit="chunk"), d["block"], **kw))
+    cases["run_query quantile tree chunk"] = (
+        lambda d, kw: T.run_query(_spec(_quantile_tree(), emit="chunk"), d["block"], **kw))
     return cases
+
+
+def _q6_tree():
+    return T.SumAgg(T.Filter(T.Scan(float(ROWS)), TT.q6_cond(TT.Q6_LOW_WINDOW)),
+                    TT.q6_func)
+
+
+def _quantile_tree():
+    return T.Quantile(T.Filter(T.Scan(float(ROWS)), TT.q1_cond),
+                      lambda c: c["extendedprice"], lo=0.9, hi=105.0, bins=256, q=0.5)
 
 
 def _stop_rule(d, kw):
@@ -195,6 +213,8 @@ def _refusals(d, kw):
             ("round sync", lambda: T.run_query(
                 T.QuerySpec(_q6(), sync=True, emit="round", sync_cost_model=False),
                 d["block"], **kw)),
+            ("count distinct", lambda: T.run_query(_spec(T.CountDistinct(
+                T.Scan(float(ROWS)), lambda c: c["suppkey"])), d["block"], **kw)),
             ("P % W", lambda: T.Session(_spec(_q6()), TD.InMemorySource(
                 {k: v[:6] for k, v in d["resident"].shards.items()}), **kw))):
         try:
@@ -413,6 +433,7 @@ def test_refusals_with_the_reference_messages(run):
     for res in run["main"]:
         got = res["refusals"]
         assert got["non-additive"] == "sharded path requires additive merges"
+        assert got["count distinct"] == "sharded path requires additive merges"
         assert got["kernel sync cost"].startswith(
             "emit='kernel' is incompatible with mode='sync' + sync_cost_model=True")
         assert got["group kernel sync"].startswith(
@@ -420,6 +441,13 @@ def test_refusals_with_the_reference_messages(run):
         assert got["round sync"].startswith(
             "emit='round' emits round states only; mode='sync' needs prefix states")
         assert "do not split evenly over 4 ranks" in got["P % W"]
+
+
+def test_flat_vs_tree_bitwise_sharded(run):
+    """Under mesh= the lowered tree is the flat GLA: every rank's one-node
+    SumAgg tree run is bitwise its flat Q6 run."""
+    for rank, res in enumerate(run["main"]):
+        assert _bitwise(res["run_query q6 tree chunk"], res["run_query q6 chunk"]), rank
 
 
 def test_collectives_are_counted(run):
