@@ -34,7 +34,14 @@ trees) run beside their flat GLAs through K1, K2, K3 and the decode, each
 bitwise its flat twin with the same launches; the sketch GLAs (HLL,
 quantile, count-min) on the per-chunk scan path held to one-pass oracles;
 ``monotone_envelope`` over a HAVING tree's bounds; and the online-eval
-bridge (``repro_torch.metrics``) through K2 and K1.
+bridge (``repro_torch.metrics``) through K2 and K1.  Last, the rest of
+the OLA surface: the service across processes (``OLAService(mesh=)``:
+four gloo ranks, rank 0 taking the arrivals, every rank's scan equal after
+every step and every outcome bitwise a one-process replay), a stream of
+queries that need several rounds against one session per query, the
+streamed sessions read from a parquet copy (where ``pyarrow`` imports),
+and the paper's two-stage ``randomize_distributed`` over the rows in
+their clustered order, with an unrandomized control whose estimate misses.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.  The last line is the run's JSON summary.
@@ -124,6 +131,13 @@ SERVE_CHURN_SUPP = 4
 #: [serve-svc]: benchmarks/serve.py's workload (its QPS and eps) over 200
 #: arrivals, about 8 s at 25 QPS, so that p50/p99 are percentiles
 SERVE_QPS, SERVE_EPS, SERVE_N, SERVE_GRACE = 25.0, 0.05, 200, 0.05
+#: [serve-svc-long]: the same queries at 16 rounds, arriving at 200 QPS, with
+#: an eps at which the median query stops after SERVE_LONG_AT rounds (chosen
+#: from the round-1 half-widths in the run; each later round shrinks a
+#: half-width by the finite-population factor sqrt(R/k - 1))
+SERVE_LONG_ROUNDS, SERVE_LONG_QPS, SERVE_LONG_AT = 16, 200.0, 4
+#: [randomize-dist]: the 6-sigma limits of its statistical checks
+SIGMAS = 6.0
 #: [sketch]: HLL registers 2**SKETCH_LOG2M over suppkey; the histogram of
 #: extendedprice over [QUANTILE_LO, QUANTILE_HI); the count-min sketch of
 #: quantity (its 50 values the candidates)
@@ -523,8 +537,193 @@ def _dist_serve(mesh, work: Path) -> dict:
     return {"phases": {"serve": _rank_phase(mesh, run, SERVE_ROUNDS)}}
 
 
+def serve_stream(n: int, qps: float):
+    """benchmarks/serve.py's Poisson stream from SEED: ``n`` arrival times
+    (seconds) at ``qps`` and their slot queries — two-year shipdate windows
+    over q6 or qty, one in four grouped by rfls."""
+    import numpy as np
+
+    import repro_torch as T
+
+    rng = np.random.default_rng(SEED)
+    arr = np.cumsum(rng.exponential(1.0 / qps, size=n))
+    queries = []
+    for i in range(n):
+        year = float(int(rng.integers(0, 6)) * 365)
+        queries.append(T.SlotQuery("qty" if i % 3 == 2 else "q6",
+                                   {"shipdate": (year, year + 730.0), "discount": (0.0, 1.0)},
+                                   group="rfls" if i % 4 == 3 else None))
+    return arr, queries
+
+
+async def serve_arrivals(svc, data, arr, queries, eps: float):
+    """Submit query i at ``arr[i]`` seconds (from now) under
+    ``rel_width(eps)`` and await every result: (outcomes, time-to-eps and
+    submit seconds a query, makespan from the first arrival, the query
+    indices in submit order — over a mesh, query ``order[n]`` is op id n)."""
+    import asyncio
+
+    import repro_torch as T
+
+    n = len(queries)
+    outs, t_eps, t_sub, order = [None] * n, [0.0] * n, [0.0] * n, []
+
+    async def one(i):
+        await asyncio.sleep(float(arr[i]))
+        t0 = time.perf_counter()
+        h = await svc.submit(T.QuerySpec(queries[i], stop=T.rel_width(eps)), data)
+        order.append(i)  # submit has no await: this is the attach order
+        t_sub[i] = time.perf_counter() - t0
+        outs[i] = await h.result()
+        t_eps[i] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    await asyncio.gather(*(one(i) for i in range(n)))
+    return outs, t_eps, t_sub, time.perf_counter() - t0 - float(arr[0]), order
+
+
+def bank_launches(scan) -> int:
+    """The K1 bundle launches the scan's next step must make: one for every
+    16 slots of each live bank."""
+    from repro_torch.kernels import fused_agg as FK
+
+    return sum(-(-b.K // FK.MAX_BUNDLE_MEMBERS) for b in scan.banks.values() if b.active)
+
+
+def scan_digest(scan) -> str:
+    """A shared scan's observable state after a step: cursor, every bank's
+    slot parameters and every attached slot's estimate, lower and upper
+    bytes, ``scanned`` and rounds witnessed — equal on every rank of a
+    group (each holds the merged estimates)."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256(str((scan.cursor, scan.steps_done)).encode())
+    for name in sorted(scan.banks):
+        b = scan.banks[name]
+        for a in (b.expr, b.lo, b.hi, b.hv, b.generation):
+            h.update(np.ascontiguousarray(a).tobytes())
+        for rec in b.slots:
+            if rec is None or rec.estimate is None:
+                continue
+            h.update(str((rec.slot, rec.scanned, len(rec.witnessed))).encode())
+            for x in rec.estimate[:3]:
+                h.update(x.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def replay_log(scan, log, steps: int, eps: float):
+    """Drive ``scan`` by a service's operation log — before step s the
+    operations logged at ``steps_done == s``, in order; every attach under
+    ``rel_width(eps)`` when it had a rule — for ``steps`` steps, detaching
+    every slot a step completes, as the service does.  Returns ({op id:
+    record}, the digest after each step, the K1 bundle launches made)."""
+    import repro_torch as T
+
+    recs, digests, want = {}, [], 0
+    for s_ in range(steps + 1):
+        for at, op in log:
+            if at != s_:
+                continue
+            if op["op"] == "attach":
+                expr, ranges, group, having = op["query"]
+                q = T.SlotQuery(expr, {k: tuple(v) for k, v in ranges.items()}, group, having)
+                recs[op["id"]] = scan.attach(q, T.rel_width(eps) if op["stop"] else None)
+            else:
+                scan.detach(recs[op["id"]])
+        if s_ == steps:
+            break
+        want += bank_launches(scan)
+        out = scan.step()
+        check(bool(out), f"the replay of a service's log has no live slot at step {s_}")
+        digests.append(scan_digest(scan))
+        for rec, _ in out:
+            if rec.done:
+                scan.detach(rec)
+    return recs, digests, want
+
+
+def _dist_serve_svc(mesh, work: Path) -> dict:
+    """[serve-dist-svc] and the ranks' [serve-svc-long]: each stream served
+    through ``OLAService(mesh=)`` over this rank's 2 partitions of the npy
+    copy — rank 0 submits, the other ranks follow — with the service's
+    operation log, the scan's digest after every step, the K1 bundle
+    launches each step must make and the seconds of each store record."""
+    import asyncio
+
+    import torch
+
+    from repro_torch import service as SV
+    from repro_torch import sharded as SH
+
+    block = _rank_block(mesh, work)
+    eps_long = json.loads((work / "dist" / "serve-svc.json").read_text())["eps"]
+    record = {"digests": [], "want": 0, "step_s": [], "tick_s": [], "record_s": []}
+    real_step, real_send = SV.SharedScan.step, SV.OLAService._post_step
+    real_post, real_fetch = SH.PartitionGroup.post, SH.PartitionGroup.fetch
+
+    def step(self):
+        record["want"] += bank_launches(self)
+        t0 = time.perf_counter()
+        out = real_step(self)
+        torch.cuda.synchronize()
+        record["step_s"].append(time.perf_counter() - t0)
+        record["digests"].append(scan_digest(self))
+        return out
+
+    def send(self, runner):
+        """Rank 0's record and the step: its seconds."""
+        t0 = time.perf_counter()
+        out = real_send(self, runner)
+        record["tick_s"].append(time.perf_counter() - t0)
+        return out
+
+    def timed(real):
+        def io(self, *args):
+            """A store record posted (rank 0) or fetched: its seconds."""
+            t0 = time.perf_counter()
+            out = real(self, *args)
+            record["record_s"].append(time.perf_counter() - t0)
+            return out
+        return io
+
+    SV.SharedScan.step, SV.OLAService._post_step = step, send
+    SH.PartitionGroup.post, SH.PartitionGroup.fetch = timed(real_post), timed(real_fetch)
+    phases = {}
+    for name, rounds, qps, eps in (("serve-dist-svc", SERVE_ROUNDS, SERVE_QPS, SERVE_EPS),
+                                   ("serve-svc-long", SERVE_LONG_ROUNDS, SERVE_LONG_QPS,
+                                    eps_long)):
+        record.update(digests=[], want=0, step_s=[], tick_s=[], record_s=[])
+        svc = SV.OLAService(serve_family(), rounds=rounds, grace_s=SERVE_GRACE, mesh=mesh)
+        arr, queries = serve_stream(SERVE_N, qps)
+
+        def run(svc=svc, arr=arr, queries=queries, eps=eps):
+            if mesh.rank:
+                svc.follow(block)
+                return {}
+
+            async def main():
+                async with svc:
+                    got = await serve_arrivals(svc, block, arr, queries, eps)
+                    return got, svc.scan_for(block).steps_done
+
+            (outs, t_eps, _, makespan, order), steps = asyncio.run(
+                asyncio.wait_for(main(), DIST_JOIN_S / 2))
+            return {"outcomes": [(o.estimate, o.scanned, o.rounds_witnessed, o.converged)
+                                 for o in outs],
+                    "t_eps": t_eps, "makespan": makespan, "steps": steps, "order": order}
+
+        ph = phases[name] = _rank_phase(mesh, run, 1)
+        ph.update(log=svc.op_log, digests=record["digests"], want=record["want"],
+                  step_s=record["step_s"], tick_s=record["tick_s"],
+                  record_s=record["record_s"])
+        torch.cuda.synchronize()
+    return {"phases": phases}
+
+
 DIST_JOBS = {"gloo": _dist_gloo, "nccl": _dist_nccl, "resume": _dist_resume,
-             "serve": _dist_serve}
+             "serve": _dist_serve, "serve-svc": _dist_serve_svc}
 
 
 def spawn_ranks(groups, work: Path) -> dict:
@@ -915,6 +1114,190 @@ def eval_phase(ctx):
         rounds_total=sess.rounds_total,
         mean=[float(lo[-1]), float(mean[-1]), float(hi[-1])],
         seconds=f"{ctx.e2e['eval session']:.3f}", launches=got)
+
+
+def randomize_phase(ctx):
+    """[randomize-dist]: the paper's two-stage randomization on the card over
+    the main table's rows in their clustered order (sorted by shipdate,
+    split into P contiguous origins), beside randomize_global on the same
+    rows; its output held by multiset and statistically, packed, and run
+    through K2, K1 scalar and K1 group against the float64 oracle; the Q6
+    session over the clustered packing is the control that misses it."""
+    import numpy as np
+    import torch
+
+    import repro_torch as T
+    from repro_torch import randomize
+    from repro_torch.data import tpch
+
+    dev, d = ctx.dev, ctx.d
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    # the main table's lineitem rows (make_data's draws), clustered by
+    # shipdate, with each row's origin partition as an eighth 4-byte column
+    cols = tpch.generate_lineitem(ROWS, num_suppliers=tpch.Q1_LARGE_SUPPLIERS, seed=SEED,
+                                  device=dev)
+    order = torch.argsort(cols["shipdate"], stable=True)
+    cols = {k: cols.pop(k)[order] for k in list(cols)}
+    del order
+    n = ROWS // P
+    cols["origin"] = torch.arange(P, dtype=torch.int32, device=dev).repeat_interleave(n)
+    parts = [{k: v[i * n:(i + 1) * n] for k, v in cols.items()} for i in range(P)]
+    # each randomizer from the same start: the clustered columns held (in
+    # both peaks), nothing else
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    glob = randomize.randomize_global(cols, gen, P)
+    torch.cuda.synchronize()
+    t_glob = time.perf_counter() - t0
+    peak_glob = torch.cuda.max_memory_allocated() - base
+    del glob
+    gen.manual_seed(SEED + 3)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = randomize.randomize_distributed(parts, gen)
+    torch.cuda.synchronize()
+    t_dist = time.perf_counter() - t0
+    peak_dist = torch.cuda.max_memory_allocated() - base
+    del parts
+
+    # the multiset: every column's sorted bit patterns equal the input's
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    for k, v in cols.items():
+        got = torch.sort(bits(torch.cat([o[k] for o in out]))).values
+        check(torch.equal(got, torch.sort(bits(v)).values),
+              f"[randomize-dist] column {k}: the output is not the input's multiset")
+        del got
+    # bucket sizes around N/P, and each origin's count in each target's
+    # first round-slice around its expectation, within SIGMAS standard
+    # deviations
+    sizes = np.array([o["origin"].shape[0] for o in out])
+    sigma = math.sqrt(ROWS * (1 / P) * (1 - 1 / P))
+    check(sizes.sum() == ROWS and bool((np.abs(sizes - ROWS / P) <= SIGMAS * sigma).all()),
+          f"[randomize-dist] bucket sizes {sizes.tolist()} (sigma {sigma:.1f})")
+    c_need = max(-(-int(x) // L) for x in sizes)
+    min_chunks = -(-c_need // ROUNDS) * ROUNDS
+    m = min_chunks // ROUNDS * L  # rows of a target's first round-slice
+    chi2, dev_max = [], 0.0
+    for j, o in enumerate(out):
+        counts = torch.bincount(o["origin"][:m], minlength=P).cpu().numpy()
+        exp, sd = m / P, math.sqrt(m * (1 / P) * (1 - 1 / P))
+        dev_max = max(dev_max, float(np.abs(counts - exp).max() / sd))
+        chi2.append(float(((counts - exp) ** 2 / exp).sum()))
+        check(bool((np.abs(counts - exp) <= SIGMAS * sd).all()),
+              f"[randomize-dist] target {j}'s first round-slice holds {counts.tolist()}")
+    for o in out:
+        del o["origin"]
+    packed = randomize.pack_partitions(out, chunk_len=L, min_chunks=min_chunks)
+    del out
+    check(tuple(packed["_mask"].shape) == (P, min_chunks, L) and min_chunks % ROUNDS == 0,
+          f"[randomize-dist] packed {tuple(packed['_mask'].shape)}")
+    say("randomize-dist", rows=ROWS, origins=P, columns=sorted(cols), clustered_by="shipdate",
+        randomize_distributed_s=f"{t_dist:.6f}", randomize_global_s=f"{t_glob:.6f}",
+        peak_device_bytes_distributed=peak_dist, peak_device_bytes_global=peak_glob,
+        multiset="bitwise", bucket_sizes=sizes.tolist(), bucket_sigma=f"{sigma:.1f}",
+        first_round_slice_rows=m, origin_mix_max_sigmas=f"{dev_max:.3f}",
+        origin_mix_chi2_df7=[f"{x:.3f}" for x in chi2], min_chunks=min_chunks,
+        packed_shape=tuple(packed["_mask"].shape), card=ctx.smi)
+
+    # the sessions: finals through K2 and K1 group, certified estimates
+    # through K1 scalar and K1 group
+    q6, q1s = q6_q1s(d)
+    exacts = {"q6": ctx.exact6, "q1-small": ctx.exact1s}
+    spec = lambda g, **kw: T.QuerySpec(g, rounds=ROUNDS, emit="kernel", **kw)  # noqa: E731
+    for qname, gla, kernel in (("q6", q6, "fused_prefix_states"),
+                               ("q1-small", q1s, "fused_round_step/group")):
+        res, got = _timed(ctx, f"randomize-dist run_query {qname}",
+                          lambda gla=gla: T.run_query(spec(gla), packed, device=dev),
+                          {kernel: 1 if kernel == "fused_prefix_states" else ROUNDS})
+        ex = exacts[qname].double()
+        fin = res.final.double().reshape(ex.shape)
+        rel = ((fin - ex).abs() / ex.abs()).max().item()
+        check(rel <= ORACLE_RTOL, f"[randomize-dist] run_query {qname}: final off by {rel:.3e}")
+        say("randomize-dist", run=f"run_query {qname}", final_max_rel_err=f"{rel:.3e}",
+            seconds=f"{ctx.e2e[f'randomize-dist run_query {qname}']:.3f}", launches=got)
+    for qname, gla, kernel in (("q6", q6, "fused_round_step/scalar"),
+                               ("q1-small", q1s, "fused_round_step/group")):
+        sess = T.Session(spec(gla, stop=T.rel_width(0.01)), packed, device=dev)
+        res, got = _timed(ctx, f"randomize-dist session {qname}", sess.run,
+                          lambda sess=sess, kernel=kernel: {kernel: sess.steps_taken})
+        e = res.estimates
+        last, lo, hi = (x[-1].double() for x in (e.estimate, e.lower, e.upper))
+        ex = exacts[qname].to(last.device).reshape(last.shape)
+        half = (hi - lo) / 2
+        check(bool(((last - ex).abs() <= 3 * half + ORACLE_RTOL * ex.abs()).all()),
+              f"[randomize-dist] session {qname}: the certified estimate misses the oracle")
+        say("randomize-dist", run=f"session {qname}", stop="rel_width(0.01)",
+            steps_taken=sess.steps_taken,
+            error_in_half_widths=[round(x, 4) for x in
+                                  ((last - ex).abs() / half).reshape(-1).tolist()],
+            seconds=f"{ctx.e2e[f'randomize-dist session {qname}']:.3f}", launches=got)
+    del packed
+    # the control: the clustered order, unrandomized (no padding: N/P rows
+    # fill C chunks a partition) — its round-1 estimate misses
+    clustered = {k: v.reshape(P, C, L) for k, v in cols.items() if k != "origin"}
+    clustered["_mask"] = torch.ones((P, C, L), dtype=torch.float32, device=dev)
+    sess = T.Session(spec(q6), clustered, device=dev)
+    prog, got = _timed(ctx, "randomize-dist control", sess.step,
+                       {"fused_round_step/scalar": 1})
+    e = prog.estimates
+    err = abs(float(e.estimate) - float(ctx.exact6))
+    half = (float(e.upper) - float(e.lower)) / 2
+    off = err / half if half > 0 else math.inf
+    check(off > 3, f"[randomize-dist] the clustered control's round 1 lies {off:.3f} "
+          "half-widths from the oracle: the coverage check could not fail")
+    say("randomize-dist", run="control: q6 session over the clustered order, round 1",
+        estimate=float(e.estimate), oracle=float(ctx.exact6), half_width=half,
+        error_in_half_widths=f"{off:.3f}", launches=got)
+    del clustered, cols, sess
+    torch.cuda.empty_cache()
+
+
+def parquet_phase(ctx):
+    """[parquet]: the npy copy's rows saved as parquet under build/ and the
+    streamed Q6, Q1-small and [Q6, Q1-small] sessions read back through
+    ParquetSource, each bitwise its resident twin — or, where pyarrow does
+    not import, one skip line."""
+    import numpy as np
+    import torch
+
+    import repro_torch as T
+    from repro_torch.data import source as DS
+
+    try:
+        import pyarrow  # noqa: F401
+    except ImportError:
+        print("[parquet] skipped=no pyarrow", flush=True)
+        return
+    npy = DS.NpyMmapSource(ctx.work / "npy")
+    names = [k for k in STREAM_COLS if k != "_mask"]
+    cols = {k: np.load(ctx.work / "npy" / f"{k}.npy", mmap_mode="r") for k in names}
+    t0 = time.perf_counter()  # the copy is full: every partition's rows are live
+    d = DS.ParquetSource.save([{k: v[p].reshape(-1) for k, v in cols.items()}
+                               for p in range(P)], ctx.work / "parquet")
+    t_save = time.perf_counter() - t0
+    src = DS.ParquetSource(d, chunk_len=L, min_chunks=C)
+    check(src.spec == npy.spec and src.fingerprint() == npy.fingerprint(),
+          "[parquet] the parquet copy's spec or fingerprint differs from the npy copy's")
+    say("parquet", rows=ROWS, columns=names, write_s=f"{t_save:.3f}",
+        bytes=sum(f.stat().st_size for f in d.iterdir()), card=ctx.smi)
+    for qname, gla, kernel in ctx.streamed:
+        name = f"parquet {qname}"
+        sess = T.Session(T.QuerySpec(gla, rounds=ROUNDS, emit="kernel"), src, device=ctx.dev)
+        res, got = _timed(ctx, name, sess.run, {kernel: ROUNDS})
+        check(ctx.same(res, ctx.twins[qname]), f"[parquet] {qname} differs from its resident twin")
+        io = sess.io_stats
+        say("parquet", query=qname, vs_resident="bitwise", seconds=f"{ctx.e2e[name]:.3f}",
+            h2d_bytes_per_round=io["bytes"] // io["slices"], host_read_s=io["read_s"],
+            h2d_copy_ms=io["copy_ms"], waited_s=io["wait_s"], launches=got)
+    del src
+    shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.synchronize()
 
 
 def run(work: Path) -> None:
@@ -2117,12 +2500,13 @@ def run(work: Path) -> None:
     # slots that rode the K=32 steps, in the first and the second launch,
     # and two supp slots, each bitwise its solo session
     k32 = {i * sw for i, k in enumerate(ks) if k == 32}  # ranges stepped at K=32
-    twins = ([r for r in every if r.slot >= 16 and len(r.witnessed) >= 2][:2]
+    churn_twins = ([r for r in every if r.slot >= 16 and len(r.witnessed) >= 2][:2]
              + [r for r in every if r.slot < 16 and 2 <= len(r.witnessed) <= 4
                 and any(lo in k32 for lo, _ in r.witnessed)][:1] + supp_recs[:2])
-    check(len(twins) == 5, f"[serve-churn] {len(twins)} slots to hold against solo sessions")
+    check(len(churn_twins) == 5,
+          f"[serve-churn] {len(churn_twins)} slots to hold against solo sessions")
     twin_s = []
-    for rec in twins:
+    for rec in churn_twins:
         view = SV.witnessed_view(shards, rec.witnessed)
         twin_s.append(solo_twin("serve-churn", rec.query, rec.witnessed, rec.estimate, view))
         del view
@@ -2132,49 +2516,31 @@ def run(work: Path) -> None:
         step_plans={n: sorted(b.plans) for n, b in scan_c.banks.items()},
         doublings=bank.doublings, plans_built=built,
         k32_operands_vs_plain_max_abs_err=churn_err,
-        slots_vs_solo_session={f"{r.bank}:{r.slot}": len(r.witnessed) for r in twins},
+        slots_vs_solo_session={f"{r.bank}:{r.slot}": len(r.witnessed) for r in churn_twins},
         solo_session_s=[f"{x:.3f}" for x in twin_s],
         step_s=[f"{x:.6f}" for x in churn_s], seconds=f"{e2e['serve-churn']:.3f}",
         peak_device_bytes=peak, launches=got)
-    del scan_c, live, out, every, supp_recs, twins
+    del scan_c, live, out, every, supp_recs, churn_twins
 
     # [serve-svc]: benchmarks/serve.py's Poisson stream through OLAService,
     # then the same queries as one Session each, run one after another.
     # submit() is timed on its own (the first one builds the scan and
     # fingerprints the table); time-to-eps runs from submit to result.
-    rng = np.random.default_rng(SEED)
-    arr = np.cumsum(rng.exponential(1.0 / SERVE_QPS, size=SERVE_N))
-    queries = []
-    for i in range(SERVE_N):
-        year = float(int(rng.integers(0, 6)) * 365)
-        queries.append(T.SlotQuery("qty" if i % 3 == 2 else "q6",
-                                   {"shipdate": (year, year + 730.0), "discount": (0.0, 1.0)},
-                                   group="rfls" if i % 4 == 3 else None))
-    svc_want = {bundle_k: 0}
+    arr, queries = serve_stream(SERVE_N, SERVE_QPS)
     real_step = SV.SharedScan.step
 
-    def counted_step(self_):
-        """The step, counting the launches it must make: ceil(K/16) a live bank."""
-        svc_want[bundle_k] += sum(-(-b.K // FK.MAX_BUNDLE_MEMBERS)
-                                  for b in self_.banks.values() if b.active)
-        return real_step(self_)
+    def counting(want):
+        """``SharedScan.step``, adding to ``want`` the launches it must make."""
+        def step(self_):
+            want[bundle_k] += bank_launches(self_)
+            return real_step(self_)
+        return step
 
     async def drive_shared():
-        outs, t_eps, t_sub = [None] * SERVE_N, [0.0] * SERVE_N, [0.0] * SERVE_N
-
-        async def one(i, svc):
-            await asyncio.sleep(float(arr[i]))
-            t0_ = time.perf_counter()
-            h = await svc.submit(T.QuerySpec(queries[i], stop=T.rel_width(SERVE_EPS)), shards)
-            t_sub[i] = time.perf_counter() - t0_
-            outs[i] = await h.result()
-            t_eps[i] = time.perf_counter() - t0_
-
         async with SV.OLAService(fam, rounds=SERVE_ROUNDS, grace_s=SERVE_GRACE,
                                  device=dev) as svc:
-            t0_ = time.perf_counter()
-            await asyncio.gather(*(one(i, svc) for i in range(SERVE_N)))
-            makespan = time.perf_counter() - t0_ - float(arr[0])
+            outs, t_eps, t_sub, makespan, _ = await serve_arrivals(svc, shards, arr,
+                                                                   queries, SERVE_EPS)
             first = svc.scan_for(shards)
             steps = first.steps_done
             await asyncio.sleep(6 * SERVE_GRACE)
@@ -2184,9 +2550,10 @@ def run(work: Path) -> None:
             reused = svc.scan_for(shards) is first and first.steps_done > steps
         return outs, t_eps, t_sub, makespan, steps, parked, after, reused
 
+    svc_want = {bundle_k: 0}
     FK.reset_launch_counts()
     base = mem_base()
-    SV.SharedScan.step = counted_step
+    SV.SharedScan.step = counting(svc_want)
     try:
         outs, t_eps, t_sub, makespan, steps, parked, after, reused = asyncio.run(
             asyncio.wait_for(drive_shared(), 300))
@@ -2195,37 +2562,52 @@ def run(work: Path) -> None:
     peak = torch.cuda.max_memory_allocated() - base
     got = path_launches("serve-svc", svc_want)
     check(parked and reused, f"[serve-svc] parked={parked}, the same scan reused={reused}")
-    exacts, err_max = {}, 0.0
-    for q, o in zip(queries + [queries[0]], outs + [after]):
-        key = (q.expr, tuple(sorted(q.ranges.items())), q.group)
-        if key not in exacts:  # the float64 oracle, once per distinct query
-            exacts[key] = slot_exact(q).cpu()
-        ex = exacts[key].reshape(o.estimate.estimate.shape)  # outcomes are on the CPU
-        est, lo_, hi_ = (x.double() for x in o.estimate[:3])
-        err = (est - ex).abs()
-        bound = (3 * (hi_ - lo_) / 2 if o.converged else 0.0) + ORACLE_RTOL * ex.abs()
-        check(bool((err <= bound).all()),
-              f"[serve-svc] {q}: off the oracle (converged={o.converged})")
-        err_max = max(err_max, (err / ex.abs().clamp(min=1e-300)).max().item())
-    # the contender: one Session per query, one after another, from the
-    # same arrival times
-    FK.reset_launch_counts()
-    solo_want = {}
-    solo_eps, clock = [], 0.0
-    for i, q in enumerate(queries):
-        gla = fam.solo_gla(q, d_total=d)
-        t1 = time.perf_counter()
-        sess = T.Session(T.QuerySpec(gla, rounds=SERVE_ROUNDS, emit="kernel",
-                                     stop=T.rel_width(SERVE_EPS)), shards, device=dev)
-        sess.run()
-        torch.cuda.synchronize()
-        dur = time.perf_counter() - t1
-        kname = "fused_round_step/" + ("scalar" if q.group is None else "group")
-        solo_want[kname] = solo_want.get(kname, 0) + sess.steps_taken
-        clock = max(float(arr[i]), clock) + dur
-        solo_eps.append(clock - float(arr[i]))
-    solo_mk = clock - float(arr[0])
-    path_launches("serve-svc: one session per query", solo_want)
+    exacts = {}
+
+    def oracle_check(tag, qs_, outs_):
+        """Every outcome against the float64 oracle of its query over the
+        whole table: within 3 half-widths when its rule stopped it, else
+        (a full pass) within ORACLE_RTOL.  Returns the largest relative
+        error."""
+        err_max = 0.0
+        for q, o in zip(qs_, outs_):
+            key = (q.expr, tuple(sorted(q.ranges.items())), q.group)
+            if key not in exacts:  # the float64 oracle, once per distinct query
+                exacts[key] = slot_exact(q).cpu()
+            ex = exacts[key].reshape(o.estimate.estimate.shape)  # outcomes are on the CPU
+            est, lo_, hi_ = (x.double() for x in o.estimate[:3])
+            err = (est - ex).abs()
+            bound = (3 * (hi_ - lo_) / 2 if o.converged else 0.0) + ORACLE_RTOL * ex.abs()
+            check(bool((err <= bound).all()),
+                  f"[{tag}] {q}: off the oracle (converged={o.converged})")
+            err_max = max(err_max, (err / ex.abs().clamp(min=1e-300)).max().item())
+        return err_max
+
+    err_max = oracle_check("serve-svc", queries + [queries[0]], outs + [after])
+
+    def one_session_per_query(tag, qs_, arr_, rounds, eps):
+        """The contender: one Session(emit="kernel", stop=rel_width(eps))
+        per query, one after another from the same arrival times, held to
+        its launches.  Returns (time-to-eps a query, makespan, launches)."""
+        FK.reset_launch_counts()
+        want_, eps_s, clock = {}, [], 0.0
+        for i, q in enumerate(qs_):
+            gla = fam.solo_gla(q, d_total=d)
+            t1 = time.perf_counter()
+            sess = T.Session(T.QuerySpec(gla, rounds=rounds, emit="kernel",
+                                         stop=T.rel_width(eps)), shards, device=dev)
+            sess.run()
+            torch.cuda.synchronize()
+            dur = time.perf_counter() - t1
+            kname = "fused_round_step/" + ("scalar" if q.group is None else "group")
+            want_[kname] = want_.get(kname, 0) + sess.steps_taken
+            clock = max(float(arr_[i]), clock) + dur
+            eps_s.append(clock - float(arr_[i]))
+        path_launches(f"{tag}: one session per query", want_)
+        return eps_s, clock - float(arr_[0]), want_
+
+    solo_eps, solo_mk, solo_want = one_session_per_query(
+        "serve-svc", queries, arr, SERVE_ROUNDS, SERVE_EPS)
     pct = [50, 99]
     p50s, p99s = np.percentile(t_eps, pct) * 1e3
     p50o, p99o = np.percentile(solo_eps, pct) * 1e3
@@ -2242,6 +2624,77 @@ def run(work: Path) -> None:
         queries_by_rounds_witnessed=rounds_seen, distinct_queries=len(exacts),
         oracle_max_rel_err=f"{err_max:.3e}", parked_then_reused=True,
         peak_device_bytes=peak, launches=got, one_session_launches=solo_want)
+
+    # [serve-svc-long]: the same queries at SERVE_LONG_ROUNDS rounds, at
+    # SERVE_LONG_QPS, with an eps at which they need several rounds: the
+    # median query's round-1 relative half-width shrunk by the finite-
+    # population factor to round SERVE_LONG_AT.  The round-1 half-widths
+    # come from one step of a scan with every distinct query attached.
+    R = SERVE_LONG_ROUNDS
+    arr_l, queries_l = serve_stream(SERVE_N, SERVE_LONG_QPS)
+
+    def key_of(q):
+        return (q.expr, tuple(sorted(q.ranges.items())), q.group)
+
+    distinct = {key_of(q): q for q in queries_l}
+    scan1 = T.SharedScan(fam, shards, rounds=R, device=dev)
+    recs1 = {k: scan1.attach(q) for k, q in distinct.items()}
+    want1 = {bundle_k: bank_launches(scan1)}
+    FK.reset_launch_counts()
+    scan1.step()
+    path_launches("serve-svc-long: round 1", want1)
+
+    def rel_width_of(e):  # what rel_width(eps) compares with eps
+        half = (e.upper.double() - e.lower.double()) / 2
+        mid = e.estimate.double().abs().clamp(min=1e-300)
+        return torch.where(half == 0, 0.0, half / mid).max().item()
+
+    rel1 = {k: rel_width_of(r.estimate) for k, r in recs1.items()}
+    del scan1, recs1
+    per_query = np.array([rel1[key_of(q)] for q in queries_l])
+    shrink = math.sqrt((R / SERVE_LONG_AT - 1) / (R - 1))
+    eps_l = float(np.median(per_query)) * shrink * 1.0001
+    svc_want = {bundle_k: 0}
+    FK.reset_launch_counts()
+    base = mem_base()
+
+    async def drive_long():
+        async with SV.OLAService(fam, rounds=R, grace_s=SERVE_GRACE, device=dev) as svc:
+            got_ = await serve_arrivals(svc, shards, arr_l, queries_l, eps_l)
+            return got_, svc.scan_for(shards).steps_done
+
+    SV.SharedScan.step = counting(svc_want)
+    try:
+        (outs_l, t_eps_l, _, mk_l, _), steps_l = asyncio.run(
+            asyncio.wait_for(drive_long(), 300))
+    finally:
+        SV.SharedScan.step = real_step
+    peak = torch.cuda.max_memory_allocated() - base
+    got = path_launches("serve-svc-long", svc_want)
+    err_l = oracle_check("serve-svc-long", queries_l, outs_l)
+    witnessed_l = [o.rounds_witnessed for o in outs_l]
+    median_l = float(np.median(witnessed_l))
+    in_flight = sum(t_eps_l) / mk_l  # Little's law over the makespan
+    check(3 <= median_l <= 6, f"[serve-svc-long] the median query witnessed {median_l} rounds")
+    check(in_flight >= 4, f"[serve-svc-long] {in_flight:.2f} queries in flight on average")
+    solo_eps_l, solo_mk_l, solo_want_l = one_session_per_query(
+        "serve-svc-long", queries_l, arr_l, R, eps_l)
+    e2e["serve-svc-long"] = mk_l
+    long_line = dict(
+        queries=SERVE_N, rounds=R, qps_offered=SERVE_LONG_QPS, eps=eps_l,
+        round1_rel_half_width=dict(zip(("min", "p25", "median", "p75", "max"), (
+            float(x) for x in np.percentile(per_query, [0, 25, 50, 75, 100])))),
+        median_rounds_witnessed=median_l,
+        queries_by_rounds_witnessed={n: witnessed_l.count(n) for n in sorted(set(witnessed_l))},
+        mean_in_flight=in_flight, qps_shared=SERVE_N / mk_l,
+        qps_one_session_per_query=SERVE_N / solo_mk_l,
+        p50_time_to_eps_ms=np.percentile(t_eps_l, 50) * 1e3,
+        p99_time_to_eps_ms=np.percentile(t_eps_l, 99) * 1e3,
+        p50_time_to_eps_one_session_ms=np.percentile(solo_eps_l, 50) * 1e3,
+        p99_time_to_eps_one_session_ms=np.percentile(solo_eps_l, 99) * 1e3)
+    say("serve-svc-long", **long_line, shared_scan_steps=steps_l,
+        converged=sum(o.converged for o in outs_l), oracle_max_rel_err=f"{err_l:.3e}",
+        peak_device_bytes=peak, launches=got, one_session_launches=solo_want_l)
 
     # [serve-stream]: the [serve] schedule over the npy and the encoded copy
     # (no `supp` slot: the copies hold no suppkey), bitwise the [serve] run
@@ -2308,6 +2761,73 @@ def run(work: Path) -> None:
         peak_device_bytes=[g_["peak_bytes"] for g_ in gs], spawn_to_end_s=f"{t_spawn:.3f}",
         launches_per_rank=gs[0]["launches"])
 
+    # [serve-dist-svc] and the ranks' [serve-svc-long]: four gloo ranks, 2
+    # partitions of the npy copy each, serve [serve-svc]'s and
+    # [serve-svc-long]'s streams through OLAService(mesh=): rank 0 takes the
+    # arrivals, the others follow.  Every rank applies rank 0's operation log
+    # and holds rank 0's scan digest after every step; one process replaying
+    # that log over the whole resident table gives every outcome bitwise.
+    (work / "dist" / "serve-svc.json").write_text(json.dumps({"eps": eps_l}))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks_v = spawn_ranks({"serve-svc": DIST_WORLD}, work)["serve-svc"]
+    t_spawn = time.perf_counter() - t0
+    for name, rounds, eps, qs_ in (("serve-dist-svc", SERVE_ROUNDS, SERVE_EPS, queries),
+                                   ("serve-svc-long", R, eps_l, queries_l)):
+        gs = [r["phases"][name] for r in ranks_v]
+        r0 = gs[0]["out"]
+        log, steps_v = gs[0]["log"], r0["steps"]
+        check(len(gs[0]["digests"]) == steps_v and steps_v > 0,
+              f"[{name}] rank 0 recorded {len(gs[0]['digests'])} digests of {steps_v} steps")
+        for k, g_ in enumerate(gs):
+            check(g_["log"] == log, f"[{name}] rank {k} applied another operation log")
+            check(g_["digests"] == gs[0]["digests"],
+                  f"[{name}] rank {k}'s scan differs from rank 0's after a step")
+            want = {bundle_k: g_["want"]} if g_["want"] else {}
+            check(g_["launches"] == want,
+                  f"[{name}] rank {k} launched {g_['launches']}, expected {want}")
+            for kn, n in g_["launches"].items():
+                launches[kn] += n
+        scan_rp = T.SharedScan(fam, shards, rounds=rounds, device=dev)
+        FK.reset_launch_counts()
+        t0 = time.perf_counter()
+        recs_rp, dig_rp, want_rp = replay_log(scan_rp, log, steps_v, eps)
+        torch.cuda.synchronize()
+        t_rp = time.perf_counter() - t0
+        path_launches(f"{name}: one-process replay", {bundle_k: want_rp})
+        check(dig_rp == gs[0]["digests"], f"[{name}] the one-process replay's scan differs")
+        for n, i in enumerate(r0["order"]):
+            est, scanned, rounds_w, conv = r0["outcomes"][i]
+            rec = recs_rp[n]
+            check(same(tuple(est[:3]), _to_cpu(tuple(rec.estimate[:3])))
+                  and scanned == rec.scanned and rounds_w == len(rec.witnessed)
+                  and conv == rec.converged,
+                  f"[{name}] query {i} differs from its one-process replay")
+        del scan_rp, recs_rp
+        rw = [o[2] for o in r0["outcomes"]]
+        say(name, ranks=DIST_WORLD, backend="gloo", partitions_per_rank=P // DIST_WORLD,
+            queries=len(qs_), rounds=rounds, eps=eps, qps=len(qs_) / r0["makespan"],
+            p50_time_to_eps_ms=np.percentile(r0["t_eps"], 50) * 1e3,
+            p99_time_to_eps_ms=np.percentile(r0["t_eps"], 99) * 1e3,
+            median_rounds_witnessed=float(np.median(rw)),
+            mean_in_flight=sum(r0["t_eps"]) / r0["makespan"], steps=steps_v,
+            step_ms_rank0={q: float(np.percentile(gs[0]["step_s"], q) * 1e3)
+                           for q in (50, 99, 100)},
+            send_and_step_ms_rank0={q: float(np.percentile(gs[0]["tick_s"], q) * 1e3)
+                                    for q in (50, 99)},
+            record_ms={q: [float(np.percentile(g_["record_s"], q) * 1e3) for g_ in gs]
+                       for q in (50, 99)},
+            records=[len(g_["record_s"]) for g_ in gs],
+            operations=len(log), digests_equal_every_step=True,
+            vs_one_process_replay="bitwise", replay_s=f"{t_rp:.3f}",
+            collective_s_per_step=[f"{g_['collective_s_per_round'] / steps_v:.6f}" for g_ in gs],
+            collective_bytes_per_step=[int(g_["gathered_bytes_per_round"] / steps_v) for g_ in gs],
+            collectives_per_step=[round(g_["collectives"] / steps_v, 3) for g_ in gs],
+            seconds=[f"{g_['seconds']:.3f}" for g_ in gs],
+            one_process_seconds=f"{e2e['serve-svc' if name == 'serve-dist-svc' else name]:.3f}",
+            peak_device_bytes=[g_["peak_bytes"] for g_ in gs], spawn_to_end_s=f"{t_spawn:.3f}",
+            launches_per_rank=[g_["launches"] for g_ in gs])
+
     # -- 4e. plan trees, the sketch GLAs, the monotone envelope and the eval
     # bridge: each path held to its own launch counts, as above
     ctx = types.SimpleNamespace(
@@ -2318,6 +2838,12 @@ def run(work: Path) -> None:
     envelope_phase(ctx, having)
     sketch_phase(ctx)
     eval_phase(ctx)
+    # -- 4f. the loading side: the streamed sessions read from a parquet
+    # copy, and the paper's distributed randomization
+    ctx.__dict__.update(exact6=exact6, smi=smi, work=work, streamed=streamed, twins=twins,
+                        same=same)
+    parquet_phase(ctx)
+    randomize_phase(ctx)
 
     say("main-path launches", **launches)
     for k, n in launches.items():

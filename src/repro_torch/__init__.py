@@ -7,12 +7,16 @@ estimates and Eq. (4) bounds, and stopping rules that end the scan early.
 ``run_queries`` runs any number of queries (a ``GLABundle``) over one scan,
 and ``make_join_groupby_gla`` joins a replicated dimension table (paper
 Alg. 4).  Any entry point also takes a chunk source (``data/source.py``):
-``NpyMmapSource`` and ``EncodedSource`` (dictionary-coded and bit-packed
-columns, ``data/encodings.py``) are scanned out of core, one prefetched
-round-slice on the card at a time, bitwise as the resident run.  On ``emit="kernel"`` the round-slices go through hand-written
-CUDA kernels (``repro_torch.kernels.fused_agg``, and ``kernels.ops`` where
-the fused contract cannot be used); on a CPU tensor the same wrappers run
-their plain PyTorch versions (``repro_torch.kernels.ref``).
+``NpyMmapSource``, ``EncodedSource`` (dictionary-coded and bit-packed
+columns, ``data/encodings.py``) and ``ParquetSource`` (``part-*.parquet``
+files of live rows; needs the optional ``pyarrow``) are scanned out of
+core, one prefetched round-slice on the card at a time, bitwise as the
+resident run.  ``randomize.randomize_distributed`` is the paper's two-stage
+randomization of data that arrives already partitioned.  On
+``emit="kernel"`` the round-slices go through hand-written CUDA kernels
+(``repro_torch.kernels.fused_agg``, and ``kernels.ops`` where the fused
+contract cannot be used); on a CPU tensor the same wrappers run their
+plain PyTorch versions (``repro_torch.kernels.ref``).
 
 Layout: the JAX package keeps its engine modules under ``repro/core/``.
 Here they sit at the package top level (``uda``, ``estimators``, ``gla``,
@@ -42,8 +46,10 @@ Serving: ``OLAService`` (asyncio) and ``SharedScan`` serve many
 dynamically arriving ``SlotQuery``s of one ``SlotFamily`` from ONE cyclic
 scan; each live bank of slots is a bundle that K1 steps in one launch a
 round-slice per 16 slots (``repro_torch.service``; the CLI is ``python -m
-repro_torch.serve``).  ``compose``/``make_having_gla`` nest the Deep OLA
-HAVING estimator over a group-by.
+repro_torch.serve``).  ``OLAService(mesh=)`` serves across processes: rank
+0 takes the arrivals, every other rank runs ``OLAService.follow``.
+``compose``/``make_having_gla`` nest the Deep OLA HAVING estimator over a
+group-by.
 
 Plan trees: ``QuerySpec`` (and so every entry point) also takes a
 ``PlanNode`` tree — ``Scan``, ``Filter``, ``Join`` stages under a
@@ -66,6 +72,7 @@ from repro_torch.data.source import (
     EncodedSource,
     InMemorySource,
     NpyMmapSource,
+    ParquetSource,
     PartitionLostError,
     PartitionRangeSource,
     RepartitionedSource,
@@ -142,6 +149,7 @@ __all__ = [
     "InMemorySource",
     "Join",
     "NpyMmapSource",
+    "ParquetSource",
     "OLAService",
     "PartitionGroup",
     "PartitionLostError",

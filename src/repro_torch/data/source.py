@@ -1,7 +1,8 @@
 """Chunk sources — out-of-core scans; port of ``repro/data/source.py``
 (``ColumnSpec``/``ChunkSpec`` l.83-124, ``ChunkSource`` l.125-240,
 ``InMemorySource`` l.251-278, ``NpyMmapSource`` l.280-332,
-``EncodedSource`` l.334-463, ``PartitionLostError`` l.65-80,
+``EncodedSource`` l.334-463, ``ParquetSource`` l.465-612,
+``PartitionLostError`` l.65-80,
 ``RepartitionedSource`` l.614-701, ``as_source``/``repartition``
 l.704-722).
 
@@ -23,6 +24,9 @@ while finals, snapshots and bounds stay bitwise those of the resident run.
     (``data/encodings.py``) stored physical, with the reference's
     ``encodings.json``; it presents the plain logical ``spec``, ships the
     physical bytes, and the scan decodes them on the device.
+  * :class:`ParquetSource` — one ``part-*.parquet`` file of live rows a
+    partition, read by covering row groups with column projection and a
+    bounded read-ahead; needs the optional ``pyarrow``.
   * :class:`RepartitionedSource` — a P'-way view of a P-way source
     (elastic resume): over a resident source its round-slices are
     gathered on the device the data lives on (``device_slices``), over a
@@ -39,15 +43,14 @@ staging memory).  Every source publishes the reference's content
 :meth:`ChunkSource.fingerprint` — sha256 over ``repr(spec)``, the per-chunk
 ``_mask`` sums and strided samples of every column's logical values — equal
 to the reference's on the same rows.  A source whose storage dies
-mid-scan raises :class:`PartitionLostError`.  ``ParquetSource`` is not
-ported (``pyarrow`` is not a dependency of the port).
+mid-scan raises :class:`PartitionLostError`.
 """
 from __future__ import annotations
 
 import hashlib
 import json
 from pathlib import Path
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -450,6 +453,150 @@ class EncodedSource(_HostColumns):
                               "logical_dtype": e.logical_dtype}
         (directory / "encodings.json").write_text(json.dumps(meta, indent=1))
         return directory
+
+
+class ParquetSource(ChunkSource):
+    """Columnar parquet partitions: ``<dir>/part-*.parquet``, one file of
+    *live* rows a partition and no mask column — liveness comes from the
+    row counts, laid out as :func:`repro_torch.randomize.pack_partitions`
+    lays it out (ragged tails padded with zeros and ``_mask == 0``; C is
+    the longest partition's chunks, at least ``min_chunks``).
+
+    A slice [lo, hi) is the row range [lo·L, hi·L) of each partition, read
+    with column projection from the row groups that cover it, never the
+    whole file.  ``read_row_groups`` has a fixed cost a call, so a
+    sequential scan reads ahead: a read covers up to ``readahead`` row
+    groups, and later slices are served from that cached block until they
+    run past it.  One block is cached a partition, and the groups read
+    past the covering ones are clamped to ``readahead_bytes / P`` a
+    partition, so the host cache stays under ``readahead_bytes`` plus one
+    covering read however large the writer's row groups are — never
+    O(dataset).  Slices are host arrays, staged by the session's
+    prefetcher like :class:`NpyMmapSource`'s.  Needs the optional
+    ``pyarrow`` package, imported when a source is built or saved.
+    """
+
+    def __init__(self, directory, *, chunk_len: int, min_chunks: Optional[int] = None,
+                 columns: Optional[List[str]] = None, readahead: int = 8,
+                 readahead_bytes: int = 64 << 20):
+        _, pq = _pyarrow()
+        self.directory = Path(directory)
+        paths = sorted(self.directory.glob("part-*.parquet"))
+        if not paths:
+            raise FileNotFoundError(f"no part-*.parquet files under {self.directory}")
+        self._files = [pq.ParquetFile(p, memory_map=True) for p in paths]
+        self._rows = [f.metadata.num_rows for f in self._files]
+        self._readahead = max(1, int(readahead))
+        self._readahead_bytes = int(readahead_bytes)
+        self._block: List[Optional[tuple]] = [None] * len(self._files)
+        L = int(chunk_len)
+        C = max(-(-n // L) for n in self._rows)
+        if min_chunks is not None:
+            C = max(C, int(min_chunks))
+        self.chunk_len = L
+        schema = self._files[0].schema_arrow
+        self._names = sorted(columns if columns is not None else schema.names)
+        self._dtypes = {n: np.dtype(schema.field(n).type.to_pandas_dtype())
+                        for n in self._names}
+        cols = [ColumnSpec(n, self._dtypes[n].name) for n in self._names]
+        cols.append(ColumnSpec("_mask", "float32"))
+        self.spec = ChunkSpec(len(self._files), C, L, tuple(sorted(cols)))
+        self._row_bytes = max(1, sum(d.itemsize for d in self._dtypes.values()))
+        # row-group boundaries a file, for covering-group reads
+        self._rg_starts = []
+        for f in self._files:
+            starts = np.zeros(f.metadata.num_row_groups + 1, np.int64)
+            for g in range(f.metadata.num_row_groups):
+                starts[g + 1] = starts[g] + f.metadata.row_group(g).num_rows
+            self._rg_starts.append(starts)
+
+    @staticmethod
+    def save(parts: List[dict], directory, *, row_group_len: int = 1 << 16) -> Path:
+        """Write ragged partition dicts (``randomize.*``'s output; tensors
+        or arrays) as ``part-*.parquet`` files of live rows.  ``_mask``
+        columns are dropped: parquet stores live rows only."""
+        pa, pq = _pyarrow()
+        directory = Path(directory)
+        directory.mkdir(parents=True, exist_ok=True)
+        for i, p in enumerate(parts):
+            table = pa.table({k: _numpy(v) for k, v in p.items() if k != "_mask"})
+            pq.write_table(table, directory / f"part-{i:05d}.parquet",
+                           row_group_size=row_group_len)
+        return directory
+
+    def _covering_block(self, part: int, row_lo: int, row_hi: int):
+        """The cached (block_lo, block_hi, {column: array}) covering rows
+        [row_lo, row_hi) of ``part``: read, when the cache misses, from the
+        covering row groups and up to ``readahead`` groups in all, within
+        this partition's share of ``readahead_bytes``."""
+        blk = self._block[part]
+        if blk is not None and blk[0] <= row_lo and row_hi <= blk[1]:
+            return blk
+        f, starts = self._files[part], self._rg_starts[part]
+        g_lo = int(np.searchsorted(starts, row_lo, side="right")) - 1
+        g_hi = int(np.searchsorted(starts, row_hi, side="left"))
+        budget_rows = self._readahead_bytes // (len(self._files) * self._row_bytes)
+        while (g_hi < f.metadata.num_row_groups and g_hi - g_lo < self._readahead
+               and int(starts[g_hi + 1] - starts[g_lo]) <= budget_rows):
+            g_hi += 1
+        self._block[part] = None  # the old block goes before the new one is read
+        table = f.read_row_groups(list(range(g_lo, g_hi)), columns=self._names)
+        arrs = {n: table.column(n).to_numpy(zero_copy_only=False) for n in self._names}
+        blk = self._block[part] = (int(starts[g_lo]), int(starts[g_hi]), arrs)
+        return blk
+
+    def read_parts_into(self, plo: int, phi: int, lo: int, hi: int,
+                        out: Dict[str, np.ndarray]) -> None:
+        # each partition's live rows of [lo·L, hi·L) at the head of its
+        # row, zeros and _mask == 0 after them
+        L = self.chunk_len
+        for p in range(plo, phi):
+            row_lo, row_hi = lo * L, min(hi * L, self._rows[p])
+            n = max(0, row_hi - row_lo)
+            if n:
+                blk_lo, _, arrs = self._covering_block(p, row_lo, row_hi)
+            for name in self._names:
+                dst = out[name][p - plo].reshape(-1)
+                if n:
+                    dst[:n] = arrs[name][row_lo - blk_lo:row_hi - blk_lo]
+                dst[n:] = 0
+            mask = out["_mask"][p - plo].reshape(-1)
+            mask[:n] = 1.0
+            mask[n:] = 0.0
+
+    def read_into(self, lo: int, hi: int, out: Dict[str, np.ndarray]) -> None:
+        self.read_parts_into(0, self.spec.P, lo, hi, out)
+
+    def slice_parts(self, plo: int, phi: int, lo: int, hi: int) -> dict:
+        out = {n: np.empty(shape, np.dtype(dt))
+               for n, (shape, dt) in self.spec._replace(P=phi - plo).slice_like(hi - lo).items()}
+        self.read_parts_into(plo, phi, lo, hi, out)
+        return out
+
+    def slice_cols(self, lo: int, hi: int) -> dict:
+        return self.slice_parts(0, self.spec.P, lo, hi)
+
+    def mask_chunk_sums(self) -> np.ndarray:
+        if getattr(self, "_mask_sums", None) is None:
+            self._mask_sums = self.mask_sums_parts(0, self.spec.P)
+        return self._mask_sums
+
+    def mask_sums_parts(self, plo: int, phi: int) -> np.ndarray:
+        # liveness is a function of the row counts: no read
+        C, L = self.spec.C, self.spec.L
+        n = np.asarray(self._rows[plo:phi], np.int64)[:, None]
+        return np.clip(n - np.arange(C, dtype=np.int64)[None, :] * L, 0, L).astype(np.float64)
+
+
+def _pyarrow():
+    """``(pyarrow, pyarrow.parquet)``, or the reference's ImportError."""
+    try:
+        import pyarrow
+        import pyarrow.parquet
+    except ImportError as e:  # an optional dependency
+        raise ImportError("ParquetSource needs the optional 'pyarrow' package "
+                          "(pip install pyarrow)") from e
+    return pyarrow, pyarrow.parquet
 
 
 class RepartitionedSource(ChunkSource):

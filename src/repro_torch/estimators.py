@@ -185,6 +185,22 @@ def nested_group_estimate(inner: Estimate, having, confidence) -> Estimate:
     return Estimate(est, lo, hi, info={"var": var, "keep": keep, "inner_var": var_g})
 
 
+def _running(x: torch.Tensor, largest: bool) -> torch.Tensor:
+    """Running max (``largest``) or min along dim 0, with the reference's
+    order on zeros: ``torch.cummax``/``cummin`` keep the later of two equal
+    values, so 0.0 then -0.0 would end at -0.0, where jax's running maximum
+    (IEEE 754 maximum) keeps 0.0 once it has seen one and its minimum keeps
+    -0.0."""
+    if largest:
+        v = torch.cummax(x, dim=0).values
+        flag = (x == 0) & ~torch.signbit(x)
+    else:
+        v = torch.cummin(x, dim=0).values
+        flag = (x == 0) & torch.signbit(x)
+    seen = torch.cumsum(flag.to(torch.int32), dim=0) > 0
+    return torch.where((v == 0) & seen, v.abs() if largest else -v.abs(), v)
+
+
 def monotone_envelope(lower, upper):
     """Running intersection of per-round confidence intervals.
 
@@ -203,8 +219,8 @@ def monotone_envelope(lower, upper):
     ``lower``/``upper`` are numpy arrays or tensors ``[R, ...]``; the
     result is a pair of tensors on the input's device, in its dtype.
     """
-    lo = torch.cummax(torch.as_tensor(lower), dim=0).values
-    hi = torch.cummin(torch.as_tensor(upper), dim=0).values
+    lo = _running(torch.as_tensor(lower), largest=True)
+    hi = _running(torch.as_tensor(upper), largest=False)
     crossed = lo > hi  # monotone along rounds: a suffix
     idx = torch.argmax(crossed.to(torch.int32), dim=0)  # first crossed round
     prev = torch.clamp(idx - 1, min=0)[None]

@@ -46,11 +46,27 @@ partitions and makes the same attach/detach calls; each steps its own
 partitions, the views are gathered and merged as in one process
 (``sharded.session_step_sharded``), so every rank's estimates are bitwise
 the one-process scan's, and rank 0 decides each slot's stopping rule.
+
+``OLAService(..., mesh=)`` serves across those processes.  The reference
+serves a mesh from one controller; here the ranks are processes, so rank 0
+owns the arrivals.  Every rank builds the service; rank 0 takes
+``submit``/``cancel``, and the others run :meth:`OLAService.follow`.  Rank 0
+talks to them over one ordered channel, the group's store: record n is a
+JSON object under key n (its set and get timed into the group's
+``stats()``).  Before each step it posts the attach and detach operations
+it applied since the last one, in order, and every follower applies them to
+its own scan and steps with it.  A follower waits for the next record on
+the store, not in a collective, so rank 0 may idle or park past the
+group's timeout; it gives up only when no record and no heartbeat of rank
+0's came for that long.
 """
 from __future__ import annotations
 
 import asyncio
 import dataclasses
+import functools
+import json
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Tuple
@@ -469,6 +485,19 @@ def _service_device(device) -> torch.device:
     return dev
 
 
+#: what a record of rank 0's tells its followers: build the scan, apply its
+#: operations and step, apply them and stop, or stop with rank 0's error
+_OPEN, _STEP, _CLOSE, _FAIL = "open", "step", "close", "fail"
+_POLL_S = 0.001  # seconds between a follower's looks for the next record
+_LOOK_S = 0.1  # seconds between its looks at rank 0's heartbeat
+
+
+def _rank0_decides(prog) -> bool:
+    """A follower's stand-in for a slot's stopping rule: ``SharedScan``
+    asks ``mesh.decide``, which evaluates the rule on rank 0 alone."""
+    raise RuntimeError("a stopping rule is evaluated on rank 0 alone")
+
+
 def _use_device(device: torch.device) -> None:
     """The serving worker thread's initializer: its kernels go to the
     service's card, not to card 0."""
@@ -489,25 +518,46 @@ class OLAService:
 
     Every step runs on one worker thread (bound to ``device``); all scan
     mutation happens on the event loop between steps, so the scans need no
-    locking.  ``mesh`` is refused: serving across processes needs rank 0
-    to own the arrivals and broadcast each step's attach/detach operations,
-    which is not ported — drive :class:`SharedScan` with ``mesh`` instead.
+    locking.
+
+    With ``mesh`` (a ``repro_torch.sharded.PartitionGroup`` built by
+    ``init_partition_group``) every rank of the group builds the service
+    with the same arguments.  Rank 0 serves: ``submit``, ``cancel``,
+    ``scan_for``, ``is_parked`` and ``close`` run there, over one dataset
+    (its share, as ``SharedScan(mesh=)`` takes it); every other rank calls
+    :meth:`follow` with its share of the same data.  The scan is a
+    ``SharedScan(mesh=)`` on every rank, so estimates are bitwise the
+    one-process scan's; a step that raises on any rank fails rank 0's
+    queries with its error and ends every ``follow``.  ``op_log`` holds
+    the (``steps_done``, operation) pairs rank 0 sent or a follower applied.
     """
 
     def __init__(self, family: SlotFamily, *, rounds: int = 8,
                  confidence: float = 0.95, grace_s: float = 0.25, mesh=None,
                  device=None):
-        if mesh is not None:
-            raise ValueError(
-                "OLAService(mesh=...) is not ported yet: rank 0 would have to "
-                "own the arrivals and broadcast each step's attach/detach "
-                "operations to every rank — drive SharedScan(..., mesh=...) on "
-                "every rank with the same attach/detach calls instead")
         self.family = family
         self.rounds = rounds
         self.confidence = confidence
         self.grace_s = grace_s
-        self.device = _service_device(device)
+        self.mesh = mesh
+        self.op_log: List[Tuple[int, dict]] = []
+        if mesh is None:
+            self.device = _service_device(device)
+        else:
+            if mesh.store is None:
+                raise ValueError("OLAService(mesh=...) needs the store the group's ranks "
+                                 "met through: build the group with init_partition_group")
+            self.device = _service_device(SH.resolve_device(mesh, device))
+            # this service's store keys: every rank builds its services in
+            # the same order, so its own count of them names the same space
+            count = mesh.store.add(f"repro_torch.serve/built/{mesh.rank}", 1)
+            self._keys = f"repro_torch.serve/{count}/"
+            self._records = 0  # records posted (rank 0) or read (a follower)
+            self._ended = False  # rank 0 posted its last record
+            self._quiet = threading.Event()  # set: rank 0's heartbeat stops
+            if mesh.rank == 0:
+                threading.Thread(target=self._beat, name="ola-serve-beat",
+                                 daemon=True).start()
         self._runners: Dict[str, "_Runner"] = {}
         #: id(shards dict) -> (the dict, its source): a dict is wrapped and
         #: fingerprinted once, not on every submit (the dict is held, so its
@@ -537,6 +587,7 @@ class OLAService:
         :class:`repro_torch.gla.SlotQuery` (its ``stop`` rule is honored;
         ``rounds`` is scan-wide, set on the service), or a bare
         ``SlotQuery``."""
+        self._rank0_only("submit")
         if self._closed:
             raise RuntimeError("service is closed")
         if isinstance(spec, QuerySpec):
@@ -557,12 +608,23 @@ class OLAService:
             raise TypeError(
                 f"QuerySpec.gla must be a SlotQuery here, got "
                 f"{type(query).__name__}")
+        self.family.bank_of(query)  # an unknown group, expression or column
+        self.family.slot_row(query)  # raises here, before any rank sees it
         src = self._source(data)
         key = src.fingerprint()
         runner = self._runners.get(key)
         if runner is None:
-            scan = SharedScan(self.family, src, rounds=self.rounds,
-                              confidence=self.confidence, device=self.device)
+            if self.mesh is None:
+                scan = SharedScan(self.family, src, rounds=self.rounds,
+                                  confidence=self.confidence, device=self.device)
+            elif self._runners:
+                raise ValueError("a service over a mesh serves one dataset: its "
+                                 "followers scan their shares of the data of its "
+                                 "first submit")
+            else:  # the followers build their scans with this one
+                self._post(_OPEN)
+                scan = SharedScan(self.family, data, rounds=self.rounds,
+                                  confidence=self.confidence, mesh=self.mesh)
             runner = self._runners[key] = _Runner(scan)
         handle = QueryHandle(query, stop)
         runner.pending.append(("attach", handle))
@@ -574,6 +636,7 @@ class OLAService:
     def cancel(self, handle: QueryHandle) -> None:
         """Detach a query before it converges; its handle resolves with
         whatever it had witnessed so far."""
+        self._rank0_only("cancel")
         handle._cancelled = True
         for runner in self._runners.values():
             if handle in runner.handles.values() or any(
@@ -585,16 +648,20 @@ class OLAService:
     def scan_for(self, data) -> Optional[SharedScan]:
         """The shared scan serving ``data``, if one exists (parked or
         running)."""
+        self._rank0_only("scan_for")
         runner = self._runners.get(self._source(data).fingerprint())
         return runner.scan if runner is not None else None
 
     def is_parked(self, data) -> bool:
+        self._rank0_only("is_parked")
         runner = self._runners.get(self._source(data).fingerprint())
         return runner is not None and (runner.task is None or runner.task.done())
 
     async def close(self) -> None:
         """Cancel the drive tasks, then retire the scans' prefetchers and
-        the worker thread (after any step it is still running)."""
+        the worker thread (after any step it is still running); over a
+        mesh, end the followers' :meth:`follow` first."""
+        self._rank0_only("close")
         self._closed = True
         tasks = [r.task for r in self._runners.values()
                  if r.task is not None and not r.task.done()]
@@ -607,10 +674,19 @@ class OLAService:
                 pass
         ex, self._executor = self._executor, None
         if ex is not None:
-            scans = [r.scan for r in self._runners.values()]
-            await asyncio.get_running_loop().run_in_executor(
-                ex, lambda: [s.close() for s in scans])
+            await asyncio.get_running_loop().run_in_executor(ex, self._retire)
             ex.shutdown(wait=True)
+
+    def _retire(self) -> None:
+        """On the worker thread, after any step still running: the last
+        record to the followers, then the scans' prefetchers."""
+        runners = list(self._runners.values())
+        if self.mesh is not None:
+            if not self._ended:
+                self._post(_CLOSE, [op for r in runners for op in r.outbox])
+            self._quiet.set()
+        for r in runners:
+            r.scan.close()
 
     async def __aenter__(self) -> "OLAService":
         return self
@@ -618,25 +694,139 @@ class OLAService:
     async def __aexit__(self, *exc) -> None:
         await self.close()
 
+    # -- serving over a mesh: rank 0's messages, a follower's loop -----------
+
+    def _rank0_only(self, what: str) -> None:
+        if self.mesh is not None and self.mesh.rank != 0:
+            raise RuntimeError(
+                f"{what}() runs on rank 0 of a service over a mesh; rank "
+                f"{self.mesh.rank} runs follow(data), which applies rank 0's "
+                "attach and detach operations and steps with it")
+
+    def _post(self, then: str, ops=(), **extra) -> None:
+        """Rank 0's next record to the followers: ``ops`` to apply, then
+        what to do (``_OPEN``, ``_STEP``, ``_CLOSE`` or ``_FAIL``)."""
+        record = json.dumps({"ops": list(ops), "then": then, **extra}).encode()
+        self.mesh.post(self._keys + str(self._records), record)
+        self._records += 1
+        self._ended = then in (_CLOSE, _FAIL)
+
+    def _post_step(self, runner: "_Runner"):
+        """On the worker thread: rank 0's operations since its last record
+        and a step, posted to every follower, then the step's progress."""
+        ops, runner.outbox = runner.outbox, []
+        self._post(_STEP, ops)
+        return runner.scan.step()
+
+    def _beat(self) -> None:
+        """Rank 0's heartbeat while its service is open, four a group
+        timeout: a follower waiting for a record gives up only when no beat
+        came for a whole timeout."""
+        while not self._quiet.wait(self.mesh.timeout / 4):
+            self.mesh.store.add(self._keys + "beat", 1)
+
+    def _next_record(self) -> dict:
+        """A follower's wait for rank 0's next record.  It looks at the
+        store, not a collective, so an idle rank 0 never times it out; a
+        rank 0 that is gone (no record and no heartbeat for the group's
+        timeout) raises ``TimeoutError``."""
+        mesh, key = self.mesh, self._keys + str(self._records)
+        self._records += 1
+        seen, since = None, time.monotonic()
+        looked = since
+        while not mesh.store.check([key]):
+            time.sleep(_POLL_S)
+            now = time.monotonic()
+            if now - looked < _LOOK_S:
+                continue
+            looked, beat = now, mesh.store.add(self._keys + "beat", 0)
+            if beat != seen:
+                seen, since = beat, now
+            elif now - since > mesh.timeout:
+                raise TimeoutError(f"rank 0 of the service sent no record and no "
+                                   f"heartbeat for {mesh.timeout} s")
+        return json.loads(mesh.fetch(key))
+
+    def follow(self, data) -> None:
+        """A follower's side of a service over a mesh, on every rank but 0:
+        ``data`` is this rank's share of the data rank 0 serves (as
+        ``SharedScan(mesh=)`` takes it).  Builds this rank's scan when rank
+        0 builds its own, applies rank 0's operations in its order and steps
+        with it — detaching, as rank 0 does, every slot a step completes —
+        until rank 0 closes its service.  Blocks; raises what a failed step
+        raised, a ``RuntimeError`` with rank 0's error when its service
+        failed outside a step, or ``TimeoutError`` when rank 0 is gone."""
+        mesh = self.mesh
+        if mesh is None or mesh.rank == 0:
+            raise RuntimeError("follow() runs on the ranks other than 0 of a "
+                               "service over a mesh")
+        scan, recs = None, {}
+        try:
+            while True:
+                msg = self._next_record()
+                if msg["then"] == _FAIL:
+                    raise RuntimeError(f"rank 0's service failed: {msg['error']}")
+                if msg["then"] == _OPEN:
+                    scan = SharedScan(self.family, data, rounds=self.rounds,
+                                      confidence=self.confidence, mesh=mesh)
+                    continue
+                for op in msg["ops"]:
+                    self.op_log.append((scan.steps_done, op))
+                    if op["op"] == "attach":
+                        expr, ranges, group, having = op["query"]
+                        q = SlotQuery(expr, {k: tuple(v) for k, v in ranges.items()},
+                                      group, having)
+                        recs[op["id"]] = scan.attach(q, _rank0_decides if op["stop"] else None)
+                    else:
+                        scan.detach(recs.pop(op["id"]))
+                if msg["then"] == _CLOSE:
+                    return
+                for rec, _ in scan.step():
+                    if rec.done:
+                        scan.detach(rec)
+        finally:
+            if scan is not None:
+                scan.close()
+
     # -- the drive loop -----------------------------------------------------
 
+    def _log(self, runner: "_Runner", op: dict) -> None:
+        """Over a mesh: an operation rank 0 applied, for its next record."""
+        if self.mesh is not None:
+            runner.outbox.append(op)
+            self.op_log.append((runner.scan.steps_done, op))
+
     def _apply_pending(self, runner: "_Runner") -> None:
-        pending, runner.pending = runner.pending, []
         d_total = runner.scan.d_total
-        for op, handle in pending:
-            if op == "attach":
-                if handle._cancelled:
-                    handle._finish(SlotRecord(handle.query, "", -1, 0), d_total)
-                    continue
-                rec = runner.scan.attach(handle.query, handle._stop)
-                handle._record = rec
-                runner.handles[id(rec)] = handle
-            else:  # detach
-                rec = handle._record
-                if rec is not None and not rec.detached:
-                    runner.scan.detach(rec)
-                    runner.handles.pop(id(rec), None)
-                    handle._finish(rec, d_total)
+        while runner.pending:
+            self._apply(runner, *runner.pending[0], d_total)
+            # dropped once applied: the handle of an operation that raised
+            # stays queued, so the drive loop fails it with the error
+            del runner.pending[0]
+
+    def _apply(self, runner: "_Runner", op: str, handle: QueryHandle,
+               d_total: float) -> None:
+        if op == "attach":
+            if handle._cancelled:
+                handle._finish(SlotRecord(handle.query, "", -1, 0), d_total)
+                return
+            q = handle.query
+            rec = runner.scan.attach(q, handle._stop)
+            handle._record = rec
+            runner.handles[id(rec)] = handle
+            n = runner.ids[id(rec)] = runner.next_id
+            runner.next_id += 1
+            self._log(runner, {
+                "op": "attach", "id": n, "stop": handle._stop is not None,
+                "query": [q.expr, {k: [float(a), float(b)] for k, (a, b) in q.ranges.items()},
+                          q.group, None if q.having is None else float(q.having)]})
+        else:  # detach
+            rec = handle._record
+            if rec is not None and not rec.detached:
+                runner.scan.detach(rec)
+                runner.handles.pop(id(rec), None)
+                handle._finish(rec, d_total)
+                self._log(runner, {"op": "detach", "id": runner.ids.pop(id(rec))})
 
     async def _drive(self, runner: "_Runner") -> None:
         try:
@@ -646,6 +836,9 @@ class OLAService:
                 handle._fail(err)
             runner.handles.clear()
             runner.pending.clear()
+            if self.mesh is not None:  # every follower stops too: with the
+                self._closed = True  # step, when it raised on every rank, or here
+                self._post(_FAIL, error=f"{type(err).__name__}: {err}")
 
     async def _drive_steps(self, runner: "_Runner") -> None:
         loop = asyncio.get_running_loop()
@@ -660,23 +853,26 @@ class OLAService:
                 except asyncio.TimeoutError:
                     return  # park: the scan object stays warm
                 continue
-            progressed = await loop.run_in_executor(self._executor, runner.scan.step)
+            step = (runner.scan.step if self.mesh is None
+                    else functools.partial(self._post_step, runner))
+            progressed = await loop.run_in_executor(self._executor, step)
             for rec, prog in progressed:
                 handle = runner.handles.get(id(rec))
-                if handle is None:
-                    continue
-                handle.progress.append(prog)
+                if handle is not None:
+                    handle.progress.append(prog)
                 if rec.done:
-                    runner.scan.detach(rec)
-                    runner.handles.pop(id(rec), None)
-                    handle._finish(rec, runner.scan.d_total)
+                    runner.scan.detach(rec)  # as every follower does
+                    runner.ids.pop(id(rec), None)
+                    if runner.handles.pop(id(rec), None) is not None:
+                        handle._finish(rec, runner.scan.d_total)
             # yield so submit()/cancel() callbacks enqueue between steps
             await asyncio.sleep(0)
 
 
 class _Runner:
     """One shared scan's drive state: the scan, its (possibly parked) task,
-    queued attach/detach ops, and the record -> handle map."""
+    queued attach/detach ops, and the record -> handle map; over a mesh
+    also each record's operation id and the operations not yet posted."""
 
     def __init__(self, scan: SharedScan):
         self.scan = scan
@@ -684,3 +880,6 @@ class _Runner:
         self.pending: List[Tuple[str, QueryHandle]] = []
         self.wake = asyncio.Event()
         self.handles: Dict[int, QueryHandle] = {}
+        self.ids: Dict[int, int] = {}
+        self.next_id = 0
+        self.outbox: List[dict] = []

@@ -71,11 +71,17 @@ class PartitionGroup:
     Rank k of W owns partitions :meth:`bounds`\\ ``(P)`` = [k·P/W, (k+1)·P/W)
     of a P-partition layout; ``device`` is where its partitions, states and
     every collective's buffers live.  Built by :func:`init_partition_group`
-    (or around an existing ``group``).  Collectives record the host seconds
+    (or around an existing ``group``, and then without the ``store`` that
+    ``service.OLAService(mesh=)`` needs).  Collectives record the host seconds
     they take and the bytes they bring in (:meth:`stats`)."""
 
-    def __init__(self, group=None, *, device):
+    def __init__(self, group=None, *, device, store=None, timeout: float = 300.0):
         self.group = group
+        #: the key-value store the ranks met through (None when built around
+        #: a group whose store is unknown): the channel of a service over
+        #: this group, from rank 0 to the others
+        self.store = store
+        self.timeout = timeout  # seconds a collective waits before it fails
         self.rank = dist.get_rank(group)
         self.world = dist.get_world_size(group)
         self.backend = str(dist.get_backend(group))
@@ -140,6 +146,24 @@ class PartitionGroup:
         lost_all = torch.nonzero(rows[:, 1:].amax(dim=0)).reshape(-1).tolist()
         return rows[:, 0].tolist(), lost_all
 
+    def post(self, key: str, payload: bytes) -> None:
+        """``payload`` under ``key`` in the group's store, for the other
+        ranks to :meth:`fetch` (timed into :meth:`stats`)."""
+        t0 = time.perf_counter()
+        self.store.set(key, payload)
+        self._seconds += time.perf_counter() - t0
+        self._bytes += len(payload)
+        self._calls += 1
+
+    def fetch(self, key: str) -> bytes:
+        """What another rank posted under ``key`` (timed into :meth:`stats`)."""
+        t0 = time.perf_counter()
+        payload = self.store.get(key)
+        self._seconds += time.perf_counter() - t0
+        self._bytes += len(payload)
+        self._calls += 1
+        return payload
+
     def decide(self, fn) -> bool:
         """``fn()`` evaluated on rank 0 alone, its answer broadcast to every
         rank (an exception there raises on every rank)."""
@@ -182,9 +206,10 @@ class PartitionGroup:
         self._seconds, self._bytes, self._calls = 0.0, 0, 0
 
     def stats(self) -> dict:
-        """Host seconds inside collectives, bytes brought in by gathers
-        (every rank's share, this rank's included) and collective calls,
-        since the last :meth:`reset_stats`."""
+        """Host seconds inside collectives and store records, bytes brought
+        in by gathers (every rank's share, this rank's included) and records
+        posted or fetched, and their calls, since the last
+        :meth:`reset_stats`."""
         return {"seconds": self._seconds, "bytes": self._bytes, "calls": self._calls}
 
     def close(self) -> None:
@@ -200,13 +225,16 @@ def init_partition_group(backend: str, init_method: str, rank: int, world: int,
 
     ``init_method`` is where the ranks meet (``file://<path>`` for a file
     store, ``tcp://localhost:<port>``); nothing here discovers a cluster.
+    The store the ranks meet through is kept (:attr:`PartitionGroup.store`).
     ``backend`` is ``"gloo"`` (CPU tensors, or CUDA tensors staged through
     the host: several ranks may share one card) or ``"nccl"`` (one card per
     rank).  Every collective gives up after ``timeout`` seconds."""
     dev = torch.device(device)
-    dist.init_process_group(backend, init_method=init_method, rank=rank,
-                            world_size=world, timeout=timedelta(seconds=timeout))
-    return PartitionGroup(device=dev)
+    wait = timedelta(seconds=timeout)
+    store, rank, world = next(dist.rendezvous(init_method, rank, world, timeout=wait))
+    dist.init_process_group(backend, store=store, rank=rank, world_size=world,
+                            timeout=wait)
+    return PartitionGroup(device=dev, store=store, timeout=timeout)
 
 
 def checked(mesh: PartitionGroup, P: int, fn):

@@ -5,8 +5,8 @@ for another partition count, a small streamed session, a streamed
 partition loss, an elastic resume, two gloo ranks sharing the card
 (``repro_torch.sharded``), and serving banks (``repro_torch.service``: a
 32-slot bank in two bundle launches, a late joiner bitwise its solo
-session), and the sketch GLAs' states (``repro_torch.sketch``) on the card
-bitwise the CPU port's.
+session), the sketch GLAs' states (``repro_torch.sketch``) on the card
+bitwise the CPU port's, and ``randomize.randomize_distributed`` on the card.
 
 Every test here is marked ``gpu`` and skips without a CUDA device.  The file
 imports no JAX, so it runs on a machine that has a card but not the JAX
@@ -985,3 +985,33 @@ def test_sketch_states_on_the_card_bitwise_the_cpu(name, emit, lanes):
         torch.testing.assert_close(card.final.cpu(), cpu.final, rtol=1e-6, atol=0)
         for a, b in zip(cpu.estimates[:3], card.estimates[:3]):
             torch.testing.assert_close(b.cpu(), a, rtol=1e-6, atol=0)
+
+
+@pytest.mark.gpu
+def test_randomize_distributed_on_the_card_keeps_every_row_and_dtype():
+    """The two-stage randomization on the card (a card generator, a stable
+    sort by target, one ``randperm`` a target): every column the input's
+    multiset bitwise with its dtype, every target filled from every origin,
+    and a session over its packing bitwise the same session on the CPU over
+    the same packed rows."""
+    dev = _cuda()
+    P, L = 4, 256
+    cols = tpch.generate_lineitem(P * 16 * L - 300, seed=9, device=dev)
+    n = cols["shipdate"].shape[0]
+    cuts = [0, n // 5, n // 2, n // 2, n]  # ragged origins, one without rows
+    parts = [{k: v[a:b] for k, v in cols.items()} for a, b in zip(cuts, cuts[1:])]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    out = randomize.randomize_distributed(parts, gen)
+    assert len(out) == P and sum(o["shipdate"].shape[0] for o in out) == n
+    for k, v in cols.items():
+        got = torch.cat([o[k] for o in out])
+        assert got.dtype == v.dtype and got.device == v.device
+        assert torch.equal(got.sort().values, v.sort().values), k
+    packed = randomize.pack_partitions(out, chunk_len=L, min_chunks=16)
+    q6 = T.make_sum_gla(tpch.q6_func, tpch.q6_cond(tpch.Q6_LOW_WINDOW), d_total=float(n))
+    spec = T.QuerySpec(q6, rounds=8, emit="kernel")
+    card = _drive(T.Session(spec, packed, device=dev))
+    cpu = _drive(T.Session(spec, {k: v.cpu() for k, v in packed.items()}, device="cpu"))
+    assert torch.equal(card.snapshots.matched.cpu(), cpu.snapshots.matched)
+    _close(card.final.cpu(), cpu.final)

@@ -557,9 +557,100 @@ def test_service_binds_its_worker_to_an_indexed_card(monkeypatch):
     assert bound == [dev]
 
 
-def test_service_refuses_a_mesh():
-    with pytest.raises(ValueError, match="not ported yet"):
-        SV.OLAService(_family(), mesh=object(), device="cpu")
+def test_follow_runs_only_on_a_follower_rank():
+    """``OLAService(mesh=)`` serves across processes
+    (``test_torch_service_dist.py``); ``follow`` is its ranks' side, and a
+    service without a mesh, or rank 0, has none."""
+    with pytest.raises(RuntimeError, match="ranks other than 0"):
+        SV.OLAService(_family(), rounds=ROUNDS, device="cpu").follow(_shards())
+
+
+def test_a_mesh_without_its_store_is_refused():
+    class Group:  # a PartitionGroup built around a group whose store is unknown
+        store, rank, device = None, 0, torch.device("cpu")
+
+    with pytest.raises(ValueError, match="init_partition_group"):
+        SV.OLAService(_family(), rounds=ROUNDS, mesh=Group())
+
+
+def test_a_bad_query_raises_at_submit_and_the_service_serves_on():
+    async def main():
+        async with SV.OLAService(_family(), rounds=ROUNDS, device="cpu") as svc:
+            for q, words in ((T.SlotQuery("nope"), "unknown expression"),
+                             (T.SlotQuery("q6", group="nope"), "unknown group key"),
+                             (T.SlotQuery("q6", {"nope": (0.0, 1.0)}), "pred_cols")):
+                with pytest.raises(KeyError, match=words):
+                    await svc.submit(q, _shards())
+            assert not svc._runners  # nothing reached a scan
+            out = await (await svc.submit(Q_SCALAR, _shards())).result()
+            assert out.rounds_witnessed == ROUNDS
+
+    asyncio.run(asyncio.wait_for(main(), 60))
+
+
+class _StoreMesh:
+    """The part of a ``PartitionGroup`` that a service over a mesh uses
+    while no scan is open — a store, a rank, the group's timeout — over one
+    in-process store shared by two "ranks" in threads."""
+
+    post, fetch, reset_stats = (SH.PartitionGroup.post, SH.PartitionGroup.fetch,
+                                SH.PartitionGroup.reset_stats)
+
+    def __init__(self, store, rank, timeout):
+        self.store, self.rank, self.timeout = store, rank, timeout
+        self.device = torch.device("cpu")
+        self.reset_stats()
+
+
+def _follow_in_thread(svc):
+    """``svc.follow`` in a thread: its seconds and how it ended."""
+    import threading
+
+    out = {}
+
+    def run():
+        t0 = time.monotonic()
+        try:
+            svc.follow({})
+            out["end"] = "returned"
+        except Exception as e:
+            out["end"] = f"{type(e).__name__}: {e}"
+        out["s"] = time.monotonic() - t0
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    return t, out
+
+
+def test_a_follower_waits_on_rank_0s_heartbeat_past_the_timeout_then_closes():
+    """No record comes for three group timeouts while rank 0's service is
+    open: its heartbeat keeps the follower waiting, and the close record
+    ends ``follow``."""
+    timeout, store = 0.8, torch.distributed.HashStore()
+    rank0 = SV.OLAService(_family(), rounds=ROUNDS, mesh=_StoreMesh(store, 0, timeout))
+    follower = SV.OLAService(_family(), rounds=ROUNDS, mesh=_StoreMesh(store, 1, timeout))
+    t, out = _follow_in_thread(follower)
+    time.sleep(3 * timeout)
+    assert t.is_alive()
+    asyncio.run(rank0.close())
+    t.join(5.0)
+    assert out["end"] == "returned" and out["s"] > 3 * timeout
+
+
+def test_a_follower_gives_up_when_rank_0_is_gone():
+    """Rank 0 built its service and went quiet (its heartbeat stopped, as
+    when its process dies): the follower raises after the group's timeout,
+    instead of waiting for ever."""
+    timeout, store = 0.8, torch.distributed.HashStore()
+    rank0 = SV.OLAService(_family(), rounds=ROUNDS, mesh=_StoreMesh(store, 0, timeout))
+    rank0._quiet.set()
+    follower = SV.OLAService(_family(), rounds=ROUNDS, mesh=_StoreMesh(store, 1, timeout))
+    t, out = _follow_in_thread(follower)
+    t.join(10 * timeout)
+    assert out["end"] == ("TimeoutError: rank 0 of the service sent no record and "
+                          "no heartbeat for 0.8 s")
+    assert timeout < out["s"] < 10 * timeout
+    asyncio.run(rank0.close())
 
 
 def test_serving_cli_on_the_cpu(capsys):

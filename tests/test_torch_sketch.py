@@ -375,6 +375,17 @@ def test_monotone_envelope_bitwise_the_reference(rounds, groups, data):
             assert a.dtype == torch.float32 and _bits(a, b)
 
 
+@pytest.mark.parametrize("lower,upper", [
+    ([0.0, -0.0], [0.0, 0.0]),  # a running max over 0.0 then -0.0 stays 0.0
+    ([-0.0, -0.0, 0.0, -0.0], [0.0, -0.0, 0.0, 0.0]),  # a running min keeps -0.0
+    ([-1.0, -0.0, 0.0], [1.0, 0.0, -0.0]),
+])
+def test_monotone_envelope_orders_signed_zeros_as_the_reference(lower, upper):
+    lo, hi = (np.asarray(x, np.float32) for x in (lower, upper))
+    for a, b in zip(T.monotone_envelope(lo, hi), RE.monotone_envelope(lo, hi)):
+        assert _bits(a, b)
+
+
 def test_monotone_envelope_with_inf_rounds():
     """±inf rounds (poisoned early bounds) pass through: the envelope keeps
     the tightest finite bounds seen so far."""

@@ -20,6 +20,8 @@ rows do not fill the last chunks) go through both packages:
 On the CPU the prefetcher reads the slice and nothing more; its CUDA
 staging path runs in ``test_torch_kernels_gpu.py`` and ``chip_smoke.py``.
 """
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,6 +36,7 @@ from repro.core.spec import QuerySpec as RQuerySpec
 from repro.data import encodings as RE
 from repro.data import source as RD
 from repro.data import tpch as RT
+from repro_torch import randomize as TR
 from repro_torch.data import encodings as TE
 from repro_torch.data import source as TD
 from repro_torch.data import tpch as TT
@@ -310,3 +313,118 @@ def test_session_path_matches_reference(shards, dirs, kind, tmp_path):
         res = T.run_query(T.QuerySpec(glas[0], rounds=ROUNDS, emit="kernel"),
                           src, device="cpu")
         assert res.estimates is not None
+
+
+# ---------------------------------------------------------------------------
+# ParquetSource (``tests/test_source.py``'s parquet cases, against the
+# reference's reader of the same files)
+# ---------------------------------------------------------------------------
+
+GROUP_ROWS = 3 * L  # row groups that do not align with chunks
+
+
+@pytest.fixture(scope="module")
+def parts():
+    """The ragged partitions the ``shards`` fixture packs (live rows only)."""
+    raw = RT.generate_lineitem(ROWS, seed=19)
+    out = RR.randomize_global({k: jnp.asarray(v) for k, v in raw.items()},
+                              jax.random.key(4), P)
+    return [{k: np.asarray(v) for k, v in p.items()} for p in out]
+
+
+@pytest.mark.parametrize("writer", ["reference", "port"])
+def test_parquet_source_equals_the_reference_and_the_npy_copy(shards, dirs, parts,
+                                                              writer, tmp_path):
+    """Spec, fingerprint, mask sums and slices of the port's reader equal the
+    reference's over the same files (either package's ``save``), and those
+    of the npy copy of the same packing — a ragged tail padded to the
+    packing's ``min_chunks``."""
+    save = (RD if writer == "reference" else TD).ParquetSource.save
+    d = save(parts, tmp_path / "pq", row_group_len=GROUP_ROWS)
+    C = shards["_mask"].shape[1]
+    src = TD.ParquetSource(d, chunk_len=L, min_chunks=C)
+    ref = RD.ParquetSource(d, chunk_len=L, min_chunks=C)
+    npy = TD.NpyMmapSource(dirs[0])
+    assert src.spec == ref.spec and repr(src.spec) == repr(ref.spec) == repr(npy.spec)
+    assert src.fingerprint() == ref.fingerprint() == npy.fingerprint()
+    assert src.mask_chunk_sums().tobytes() == ref.mask_chunk_sums().tobytes() \
+        == npy.mask_chunk_sums().tobytes()
+    for lo, hi in ((0, 3), (3, 7), (C - 2, C), (1, 2)):
+        a, b, c = src.slice_cols(lo, hi), ref.slice_cols(lo, hi), npy.slice_cols(lo, hi)
+        assert sorted(a) == sorted(b) == sorted(c)
+        for k in a:
+            assert a[k].dtype == b[k].dtype and a[k].tobytes() == b[k].tobytes(), k
+            assert a[k].tobytes() == np.ascontiguousarray(c[k]).tobytes(), k
+        buf = {k: np.full(shape, 7, dt) for k, (shape, dt) in src.step_slice_like(hi - lo).items()}
+        src.read_into(lo, hi, buf)  # what the CUDA prefetcher's staging takes
+        assert all(buf[k].tobytes() == a[k].tobytes() for k in a)
+        part = src.slice_parts(1, 3, lo, hi)  # what one rank of a group reads
+        assert all(part[k].tobytes() == a[k][1:3].tobytes() for k in a)
+    assert src.mask_sums_parts(1, 3).tobytes() == src.mask_chunk_sums()[1:3].tobytes()
+
+
+@pytest.mark.parametrize("case", ["scan-q6", "fused-scalar", "fused-group", "fused-bundle"])
+def test_parquet_sessions_bitwise_resident(shards, parts, case, tmp_path):
+    q6, q1 = _glas()
+    gla = {"q6": q6, "scalar": q6, "group": q1,
+           "bundle": T.GLABundle([q6, q1])}[case.split("-")[1]]
+    emit = "round" if case.startswith("scan") else "kernel"
+    _, _, want = _stepped(gla, TD.InMemorySource(shards), emit)
+    d = RD.ParquetSource.save(parts, tmp_path / "pq", row_group_len=GROUP_ROWS)
+    src = TD.ParquetSource(d, chunk_len=L, min_chunks=shards["_mask"].shape[1])
+    sess = T.Session(T.QuerySpec(gla, rounds=ROUNDS, emit=emit), src, device="cpu")
+    got = sess.run()
+    assert sess.steps_taken == ROUNDS and sess.io_stats["slices"] == ROUNDS
+    assert _same(got.final, want.final)
+    assert _same(got.snapshots, want.snapshots)
+    assert _same(got.estimates, want.estimates)
+
+
+def test_ragged_tail_parquet_bitwise(tmp_path):
+    """``tests/test_source.py``'s ragged case: rows that fill no chunk
+    boundary, ``min_chunks`` past the longest partition, streamed bitwise
+    the port's own packing of the same partitions."""
+    rows = P * 16 * L - 777
+    raw = RT.generate_lineitem(rows, seed=7)
+    ragged = [{k: np.asarray(v) for k, v in p.items()} for p in RR.randomize_global(
+        {k: jnp.asarray(v) for k, v in raw.items()}, jax.random.key(7), P)]
+    packed = TR.pack_partitions(
+        [{k: torch.from_numpy(v.copy()) for k, v in p.items()} for p in ragged],
+        chunk_len=L, min_chunks=16)
+    q6 = T.make_sum_gla(TT.q6_func, TT.q6_cond(TT.Q6_LOW_WINDOW), d_total=float(rows))
+    want = T.run_query(T.QuerySpec(q6, rounds=ROUNDS, emit="chunk"), packed, device="cpu")
+    src = TD.ParquetSource(TD.ParquetSource.save(ragged, tmp_path / "pq"), chunk_len=L,
+                           min_chunks=16)
+    assert src.spec.C == 16 and src.fingerprint() == TD.InMemorySource(packed).fingerprint()
+    got = T.run_query(T.QuerySpec(q6, rounds=ROUNDS, emit="chunk"), src, device="cpu")
+    assert _same(got.final, want.final) and _same(got.snapshots, want.snapshots)
+
+
+def test_parquet_read_ahead_stays_under_its_budget_plus_one_covering_read(parts, tmp_path):
+    d = RD.ParquetSource.save(parts, tmp_path / "pq", row_group_len=GROUP_ROWS)
+    budget = 8 * GROUP_ROWS * 28  # 8 groups of 28-byte rows, shared by the P blocks
+    src = TD.ParquetSource(d, chunk_len=L, readahead=8, readahead_bytes=budget)
+    rows = [p["shipdate"].shape[0] for p in parts]
+    row_bytes = 28  # seven 4-byte columns
+    blocks_read = set()
+    for lo in range(0, src.spec.C, 2):
+        hi = min(src.spec.C, lo + 2)
+        src.slice_cols(lo, hi)
+        cover = 0  # bytes of the row groups covering this slice, every partition
+        for n in rows:
+            a, b = lo * L, min(hi * L, n)
+            if a < b:
+                cover += (min(n, -(-b // GROUP_ROWS) * GROUP_ROWS)
+                          - a // GROUP_ROWS * GROUP_ROWS) * row_bytes
+        cached = sum(v.nbytes for blk in src._block if blk is not None
+                     for v in blk[2].values())
+        assert cached <= budget + cover, (lo, cached, budget, cover)
+        blocks_read.update((i, blk[0]) for i, blk in enumerate(src._block) if blk)
+    # the scan read ahead: fewer blocks than slices a partition
+    assert len(blocks_read) < P * -(-src.spec.C // 2)
+
+
+def test_parquet_without_pyarrow_raises_the_reference_message(monkeypatch, tmp_path):
+    monkeypatch.setitem(sys.modules, "pyarrow", None)
+    with pytest.raises(ImportError, match="needs the optional 'pyarrow' package"):
+        TD.ParquetSource(tmp_path, chunk_len=L)
