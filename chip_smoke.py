@@ -144,6 +144,28 @@ SIGMAS = 6.0
 SKETCH_LOG2M = 12
 QUANTILE_LO, QUANTILE_HI, QUANTILE_BINS = 0.9, 105.0, 256
 CMS_W, CMS_D = 1024, 4
+#: the LM phases: [lm-serve] smollm-135m at full size, batch, prompt and
+#: generated tokens; [lm-serve-7b] deepseek-7b at full size with its int8 KV
+#: cache; [lm-widths] qwen3-32b and nemotron-4-15b at full width, the depth
+#: cut to LM_WIDTH_LAYERS (batch, prompt, decode steps)
+LM_SERVE, LM_7B, LM_WIDTHS, LM_WIDTH_LAYERS = (8, 128, 32), (8, 512, 16), (8, 128, 4), 8
+#: incremental decode against the forward over the first LM_INCR_TOKENS of
+#: two prompts: the reference test's 2e-3 with float32 weights and cache;
+#: 0.25 with bf16 weights and cache — these random weights (the reference's
+#: fan-in rule takes a stacked leaf's layer count as its fan-in, so the
+#: projections' std is 1/sqrt(layers)) give attention scores of std about
+#: 32, near one-hot softmax rows, and a bf16 rounding that differs between a
+#: 16-row and a 1-row product moves a row to another key: the CPU port
+#: measures 0.10 on smollm-135m at full size (0.117 with float32 weights and
+#: a bf16 cache, 1e-5 with a float32 cache)
+LM_INCR_TOKENS, LM_F32_INCR_TOL, LM_BF16_INCR_TOL = 16, 2e-3, 0.25
+#: [lm-serve]'s card against the CPU port: float32 weights, TF32 off, two
+#: prompts of LM_CPU_TOKENS and LM_CPU_STEPS decode steps, max|Δlogit| over
+#: max|logit| (float32 sums in another order over 30 layers)
+LM_CPU_TOKENS, LM_CPU_STEPS, LM_CPU_TOL = 32, 4, 1e-3
+#: [lm-eval]: examples/online_eval.py's corpus (examples, tokens each,
+#: partitions, chunk length, rounds) and its target relative width
+LM_EVAL, LM_EVAL_EPS = (32_768, 32, 8, 256, 8), 0.01
 
 
 def fail(msg: str):
@@ -1298,6 +1320,425 @@ def parquet_phase(ctx):
     del src
     shutil.rmtree(d, ignore_errors=True)
     torch.cuda.synchronize()
+
+
+def lm_config(arch: str, layers=None):
+    """An architecture's published config, its depth cut to ``layers``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg, num_layers=layers)
+
+
+def _events_ms(fn):
+    """(fn's result, device ms between two CUDA events around it)."""
+    import torch
+
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def _nbytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_nbytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def lm_decode_bytes(model, cache, batch: int) -> int:
+    """Bytes one decode step must read: every weight once, but of an untied
+    embedding table only the batch's rows (a tied one is the unembedding
+    and is read whole), and the whole cache (the reference attends over
+    every slot under a mask, and dequantizes an int8 cache in full)."""
+    cfg = model.cfg
+    emb = model.top["embed"]
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    if not cfg.tie_embeddings:
+        weights -= (emb.shape[0] - batch) * emb.shape[1] * emb.element_size()
+    return weights + _nbytes(cache)
+
+
+def lm_serve(model, batch: dict, gen: int):
+    """One greedy serving run with every call timed by CUDA events: the
+    prefill, then ``gen - 1`` decode steps; returns (tokens [B, gen],
+    prefill ms, decode ms a step, the cache)."""
+    import torch
+
+    from repro_torch import serve_step as SS
+
+    cfg = model.cfg
+    prompt = batch["tokens"].shape[1]
+    prefill, decode = SS.make_prefill(cfg, prompt + gen + 1), SS.make_decode(cfg)
+    (logits, cache), pre_ms = _events_ms(lambda: prefill(model, batch))
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    out, step_ms = [tok], []
+    for i in range(gen - 1):
+        (logits, cache), ms = _events_ms(lambda: decode(model, cache, tok, prompt + i))
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        out.append(tok)
+        step_ms.append(ms)
+    check(bool(torch.isfinite(logits).all()), f"{cfg.name}: non-finite logits")
+    return torch.stack(out, dim=1), pre_ms, step_ms, cache
+
+
+def lm_decode_trace(model, cache, tok, pos):
+    """One decode step under torch.profiler: (kernels launched, their
+    device ms, the step's wall ms on the host clock)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.decode_step(tok, cache, pos)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    evs = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    return (sum(e.count for e in evs), sum(e.self_device_time_total for e in evs) / 1e3, wall)
+
+
+def lm_incremental_rel(model, tokens, cache_dtype) -> float:
+    """The reference's ``test_incremental_decode_matches_forward`` on the
+    card: decode ``tokens`` one at a time from an empty cache cast to
+    ``cache_dtype`` and hold the last logits to the forward's, relative to
+    max|logit|."""
+    S = tokens.shape[1]
+    x, _, _ = model.forward({"tokens": tokens})
+    ref = model.unembed(x[:, -1]).float()
+    cache = [{k: v.to(cache_dtype) for k, v in c.items()} for c in model.init_cache(tokens.shape[0], S)]
+    for t in range(S):
+        logits, cache = model.decode_step(tokens[:, t], cache, t)
+    return ((logits - ref).abs().max() / ref.abs().max()).item()
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def _free():
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def lm_serve_phase(ctx):
+    """[lm-serve]: smollm-135m at its full size with random bf16 weights
+    (seeded generator on the card): greedy serving of LM_SERVE's prompts
+    from token_batches, each call timed, beside greedy_generate; the
+    decode's bound and its trace; incremental decode against the forward;
+    and the same float32 weights on the card against the CPU port."""
+    import torch
+
+    from repro_torch import serve_step as SS
+    from repro_torch.data.tokens import token_batches
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.spec import init_params
+
+    dev = ctx.dev
+    cfg = lm_config("smollm_135m")
+    B, prompt, gen = LM_SERVE
+    _free()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = TT.init_model(cfg, seed=SEED, dtype=torch.bfloat16, device=dev)
+    batch, _ = next(token_batches(cfg, B, prompt, seed=SEED, device=dev))
+    lm_serve(model, batch, 2)  # first calls: cuBLAS handles and workspaces
+    toks, pre_ms, step_ms, cache = lm_serve(model, batch, gen)
+    peak = torch.cuda.max_memory_allocated() - base
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    greedy = SS.greedy_generate(cfg, model, batch, steps=gen, cache_len=prompt + gen + 1)
+    torch.cuda.synchronize()
+    greedy_s = time.perf_counter() - t0
+    check(torch.equal(greedy, toks), "[lm-serve] greedy_generate's tokens differ from the timed run's")
+    check(int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_padded,
+          "[lm-serve] a generated token lies outside the padded vocabulary")
+    nbytes = lm_decode_bytes(model, cache, B)
+    kernels, dev_ms, wall_ms = lm_decode_trace(model, cache, toks[:, -1], prompt + gen - 1)
+    n_params = sum(p.numel() for p in model.parameters())
+    dec = statistics.median(step_ms)
+    say("lm-serve", arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+        params=n_params, weight_bytes=sum(p.numel() * p.element_size() for p in model.parameters()),
+        batch=B, prompt=prompt, generated=gen, prefill_ms=f"{pre_ms:.6f}",
+        prefill_tokens_per_s=f"{B * prompt / pre_ms * 1e3:.1f}",
+        decode_ms_per_step=f"{dec:.6f}", decode_ms_min_max=[f"{min(step_ms):.6f}", f"{max(step_ms):.6f}"],
+        decode_tokens_per_s=f"{B / dec * 1e3:.1f}", decode_bytes=nbytes,
+        decode_bound_ms=f"{nbytes / HBM_BYTES_PER_S * 1e3:.6f}",
+        decode_kernels=kernels, decode_device_ms=f"{dev_ms:.6f}", decode_traced_wall_ms=f"{wall_ms:.6f}",
+        decode_device_busy=f"{dev_ms / wall_ms:.3f}", greedy_generate_s=f"{greedy_s:.3f}",
+        greedy_equal=True, peak_bytes=peak, card=ctx.smi)
+    del cache
+    # incremental decode against the forward, bf16 weights and cache (the
+    # serving configuration)
+    itoks = batch["tokens"][:2, :LM_INCR_TOKENS]
+    rel = lm_incremental_rel(model, itoks, torch.bfloat16)
+    check(rel <= LM_BF16_INCR_TOL, f"[lm-serve] bf16 incremental decode off the forward by {rel:.3e}")
+    del model
+    _free()
+    # the same check with float32 weights and cache (the reference test's
+    # 2e-3), then the device path against the CPU port on those weights
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        params = init_params(TT.param_specs(cfg, torch.float32),
+                             torch.Generator(device=dev).manual_seed(SEED), dev)
+        m32 = TT.Transformer(cfg, params)  # init_model's draws, in float32
+        rel32 = lm_incremental_rel(m32, itoks, torch.float32)
+        check(rel32 <= LM_F32_INCR_TOL, f"[lm-serve] f32 incremental decode off the forward by {rel32:.3e}")
+        cpu = TT.Transformer(cfg, _tree_to(params, "cpu"))
+        del params
+        rels, flips = lm_against_cpu(m32, cpu, batch["tokens"][:2, :LM_CPU_TOKENS], LM_CPU_STEPS)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    check(max(rels) <= LM_CPU_TOL, f"[lm-serve] the card's logits off the CPU port's by {max(rels):.3e}")
+    say("lm-serve", check="incremental decode vs forward", tokens=list(itoks.shape),
+        bf16_rel=f"{rel:.3e}", bf16_tol=LM_BF16_INCR_TOL, f32_rel=f"{rel32:.3e}",
+        f32_tol=LM_F32_INCR_TOL)
+    say("lm-serve", check="card vs CPU port", dtype="float32", tf32=False,
+        tokens=[2, LM_CPU_TOKENS], decode_steps=LM_CPU_STEPS,
+        rel_per_call=[f"{r:.3e}" for r in rels], tol=LM_CPU_TOL, cache_flips=flips)
+    del m32, cpu
+    _free()
+
+
+def lm_against_cpu(card, cpu, tokens, steps):
+    """Prefill ``tokens`` and ``steps`` greedy decode steps on the card and
+    on the CPU port with the same weights; each decode step starts from the
+    CPU's cache copied to the card, so a cache entry that rounded the other
+    way (counted: ``flips``) does not carry into the next step.  Returns
+    each call's max|Δlogit| / max|logit| and the flips."""
+    import torch
+
+    from repro_torch import serve_step as SS
+
+    S = tokens.shape[1]
+    pre = SS.make_prefill(cpu.cfg, S + steps + 1)
+    dec = SS.make_decode(cpu.cfg)
+    a, ca = pre(cpu, {"tokens": tokens.cpu()})
+    b, cb = pre(card, {"tokens": tokens})
+    rels, flips = [], 0
+    for t in range(steps + 1):
+        rels.append(((b.cpu() - a).abs().max() / a.abs().max()).item())
+        flips += sum(int((y[k].cpu() != x[k]).sum()) for x, y in zip(ca, cb) for k in x)
+        if t == steps:
+            break
+        tok = torch.argmax(a, dim=-1).to(torch.int32)
+        cb = [{k: v.to(tokens.device) for k, v in c.items()} for c in ca]
+        a, ca = dec(cpu, ca, tok, S + t)
+        b, cb = dec(card, cb, tok.to(tokens.device), S + t)
+    return rels, flips
+
+
+def lm_serve_7b_phase(ctx):
+    """[lm-serve-7b]: deepseek-7b at its full size (30 layers, d=4096, MHA
+    32 heads) with random bf16 weights and the int8 KV cache: greedy
+    serving of LM_7B's prompts, each call timed, the decode's bound and
+    trace, and the peak device memory."""
+    import torch
+
+    from repro_torch import serve_step as SS
+    from repro_torch.data.tokens import token_batches
+    from repro_torch.models import transformer as TT
+
+    dev = ctx.dev
+    cfg = lm_config("deepseek_7b")
+    check(cfg.kv_cache_dtype == "int8", "[lm-serve-7b] deepseek-7b's config lost its int8 cache")
+    B, prompt, gen = LM_7B
+    _free()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = TT.init_model(cfg, seed=SEED, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() - base
+    batch, _ = next(token_batches(cfg, B, prompt, seed=SEED, device=dev))
+    lm_serve(model, batch, 2)
+    torch.cuda.reset_peak_memory_stats()
+    toks, pre_ms, step_ms, cache = lm_serve(model, batch, gen)
+    peak = torch.cuda.max_memory_allocated() - base
+    check(all(c["k"].dtype == torch.int8 for c in cache), "[lm-serve-7b] the cache is not int8")
+    greedy = SS.greedy_generate(cfg, model, batch, steps=gen, cache_len=prompt + gen + 1)
+    check(torch.equal(greedy, toks), "[lm-serve-7b] greedy_generate's tokens differ from the timed run's")
+    nbytes = lm_decode_bytes(model, cache, B)
+    kernels, dev_ms, wall_ms = lm_decode_trace(model, cache, toks[:, -1], prompt + gen - 1)
+    dec = statistics.median(step_ms)
+    wbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    say("lm-serve-7b", arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+        params=sum(p.numel() for p in model.parameters()), weight_bytes=wbytes,
+        kv_cache="int8", cache_bytes=_nbytes(cache), batch=B, prompt=prompt, generated=gen,
+        init_s=f"{init_s:.3f}", prefill_ms=f"{pre_ms:.6f}",
+        prefill_tokens_per_s=f"{B * prompt / pre_ms * 1e3:.1f}",
+        decode_ms_per_step=f"{dec:.6f}", decode_ms_min_max=[f"{min(step_ms):.6f}", f"{max(step_ms):.6f}"],
+        decode_tokens_per_s=f"{B / dec * 1e3:.1f}", decode_bytes=nbytes,
+        decode_bound_ms=f"{nbytes / HBM_BYTES_PER_S * 1e3:.6f}",
+        weights_only_bound_ms=f"{wbytes / HBM_BYTES_PER_S * 1e3:.6f}",
+        decode_kernels=kernels, decode_device_ms=f"{dev_ms:.6f}", decode_traced_wall_ms=f"{wall_ms:.6f}",
+        decode_device_busy=f"{dev_ms / wall_ms:.3f}", peak_bytes_serving=peak,
+        peak_bytes_init=init_peak, greedy_equal=True, card=ctx.smi)
+    del model, cache
+    _free()
+
+
+def lm_widths_phase(ctx):
+    """[lm-widths]: qwen3-32b and nemotron-4-15b at their full widths, the
+    depth cut to LM_WIDTH_LAYERS layers (each cut on the line): prefill and
+    LM_WIDTHS' decode steps timed, and incremental decode against the
+    forward in bf16 and in float32 weights and cache."""
+    import torch
+
+    from repro_torch.data.tokens import token_batches
+    from repro_torch.models import transformer as TT
+
+    dev = ctx.dev
+    B, prompt, steps = LM_WIDTHS
+    for arch in ("qwen3_32b", "nemotron_4_15b"):
+        full = lm_config(arch)
+        cfg = lm_config(arch, LM_WIDTH_LAYERS)
+        _free()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        model = TT.init_model(cfg, seed=SEED, dtype=torch.bfloat16, device=dev)
+        batch, _ = next(token_batches(cfg, B, prompt, seed=SEED, device=dev))
+        lm_serve(model, batch, 2)
+        toks, pre_ms, step_ms, cache = lm_serve(model, batch, steps + 1)
+        peak = torch.cuda.max_memory_allocated() - base
+        check(int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_padded,
+              f"[lm-widths] {arch}: a token outside the padded vocabulary")
+        nbytes = lm_decode_bytes(model, cache, B)
+        del cache
+        itoks = batch["tokens"][:2, :LM_INCR_TOKENS]
+        rel = lm_incremental_rel(model, itoks, torch.bfloat16)
+        check(rel <= LM_BF16_INCR_TOL, f"[lm-widths] {arch}: bf16 incremental decode off by {rel:.3e}")
+        n_params = sum(p.numel() for p in model.parameters())
+        wbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+        del model
+        _free()
+        m32 = TT.init_model(cfg, seed=SEED, dtype=torch.float32, device=dev)
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            rel32 = lm_incremental_rel(m32, itoks, torch.float32)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        check(rel32 <= LM_F32_INCR_TOL, f"[lm-widths] {arch}: f32 incremental decode off by {rel32:.3e}")
+        del m32
+        dec = statistics.median(step_ms)
+        say("lm-widths", arch=cfg.name, cut=f"num_layers {full.num_layers}->{cfg.num_layers}",
+            d_model=cfg.d_model, heads=f"{cfg.num_heads}/{cfg.num_kv_heads}", head_dim=cfg.head_dim_,
+            d_ff=cfg.d_ff, vocab_padded=cfg.vocab_padded, params=n_params, weight_bytes=wbytes,
+            batch=B, prompt=prompt, decode_steps=steps, prefill_ms=f"{pre_ms:.6f}",
+            prefill_tokens_per_s=f"{B * prompt / pre_ms * 1e3:.1f}",
+            decode_ms_per_step=f"{dec:.6f}", decode_bytes=nbytes,
+            decode_bound_ms=f"{nbytes / HBM_BYTES_PER_S * 1e3:.6f}", peak_bytes=peak,
+            incremental_bf16_rel=f"{rel:.3e}", incremental_f32_rel=f"{rel32:.3e}",
+            tol_bf16=LM_BF16_INCR_TOL, tol_f32=LM_F32_INCR_TOL, card=ctx.smi)
+    _free()
+
+
+def lm_eval_phase(ctx):
+    """[lm-eval]: examples/online_eval.py's pipeline on the port — a corpus
+    of LM_EVAL's examples (token_batches, one column a position) randomized
+    and packed on the card, the mean loss of smollm-135m at full size with
+    random bf16 weights estimated by run_query (K2) and by a Session under
+    rel_width (K1 scalar a step), each held to the loss computed directly
+    over every example; K1 scalar and K2 at the loss's shapes against their
+    plain versions."""
+    import numpy as np
+    import torch
+
+    import repro_torch as T
+    from repro_torch import metrics as TM
+    from repro_torch import randomize
+    from repro_torch.data.tokens import token_batches
+    from repro_torch.kernels import fused_agg as FK
+    from repro_torch.kernels import ref
+    from repro_torch.models import transformer as TT
+
+    dev = ctx.dev
+    n, seq, parts, chunk, rounds = LM_EVAL
+    cfg = lm_config("smollm_135m")
+    _free()
+    model = TT.init_model(cfg, seed=SEED, dtype=torch.bfloat16, device=dev)
+    t0 = time.perf_counter()
+    toks, _ = next(token_batches(cfg, n, seq, seed=SEED, device=dev))
+    toks = toks["tokens"]
+    cols = {f"t{j}": toks[:, j].contiguous() for j in range(seq)}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    shards = randomize.pack_partitions(randomize.randomize_global(cols, gen, parts), chunk_len=chunk)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    del cols
+    t0 = time.perf_counter()
+    lpe = model.example_nll(toks)
+    torch.cuda.synchronize()
+    direct_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(lpe).all()), "[lm-eval] a per-example loss is not finite")
+    truth = float(lpe.double().mean())
+    loss = TM.make_loss_gla(TM.lm_loss_per_example(model, seq), d_total=float(n))
+    C_ = shards["_mask"].shape[1]
+    # K1 scalar (a round-slice) and K2 (the whole shard) at A=2 against their
+    # plain versions, on the loss's projections
+    vals, w, _ = FK.project(loss.fused, {k: v[:, :C_ // rounds] for k, v in shards.items()})
+    carry = torch.zeros((parts, 5), device=dev)
+    a, b = FK.scalar_round_step(vals, w, carry), ref.scalar_round_step(vals, w, carry)
+    errs = {"fused_round_step/scalar": (a - b).abs().max().item()}
+    check(torch.equal(a[:, 4], b[:, 4]) and torch.allclose(
+        a, b, rtol=SUM_RTOL, atol=SUM_RTOL * b.abs().max().item()),
+        "[lm-eval] K1 scalar at the loss's shapes differs from its plain version")
+    vals, w, _ = FK.project(loss.fused, shards)
+    a, b = FK.scalar_prefix(vals, w), ref.scalar_prefix(vals, w)
+    errs["fused_prefix_states"] = (a - b).abs().max().item()
+    check(torch.equal(a[..., 4], b[..., 4]) and torch.allclose(
+        a, b, rtol=SUM_RTOL, atol=SUM_RTOL * b.abs().max().item()),
+        "[lm-eval] K2 at the loss's shapes differs from its plain version")
+    del vals, w, a, b
+    spec = lambda **kw: T.QuerySpec(loss, rounds=rounds, emit="kernel", **kw)  # noqa: E731
+    res, got = _timed(ctx, "lm-eval run_query", lambda: T.run_query(spec(), shards, device=dev),
+                      {"fused_prefix_states": 1})
+    mean, lo, hi = TM.mean_with_bounds(res.estimates)
+    rel = abs(mean[-1] - truth) / truth
+    check(rel <= ORACLE_RTOL, f"[lm-eval] final mean {mean[-1]} vs the direct {truth}")
+    half = (hi - lo) / 2
+    off = np.abs(mean[:-1] - truth) / np.maximum(half[:-1], 1e-30)
+    check(bool(np.all(off <= 3.0)), f"[lm-eval] a round's estimate lies {off.max():.2f} half-widths "
+          f"off the direct mean (certified estimates hold within 3)")
+    scanned = res.snapshots.scanned.cpu().numpy()
+    say("lm-eval", entry="run_query", arch=cfg.name, examples=n, tokens=seq, partitions=parts,
+        chunk=chunk, rounds=rounds, direct_mean=truth, final_mean=float(mean[-1]),
+        rel_err=f"{rel:.3e}", round1=[float(lo[0]), float(mean[0]), float(hi[0])],
+        half_widths_off=[f"{x:.3f}" for x in off],
+        rounds_covering=int(np.sum((lo <= truth) & (truth <= hi))),
+        scanned=[int(x) for x in scanned], seconds=f"{ctx.e2e['lm-eval run_query']:.3f}",
+        direct_s=f"{direct_s:.3f}", load_s=f"{load_s:.3f}", launches=got,
+        max_abs_err=errs, card=ctx.smi)
+    sess = T.Session(spec(stop=T.rel_width(LM_EVAL_EPS)), shards, device=dev)
+    res, got = _timed(ctx, "lm-eval session", sess.run,
+                      lambda: {"fused_round_step/scalar": sess.steps_taken})
+    mean, lo, hi = TM.mean_with_bounds(res.estimates)
+    off_s = abs(mean[-1] - truth) / max((hi[-1] - lo[-1]) / 2, 1e-30)
+    check(sess.converged and off_s <= 3.0,
+          f"[lm-eval] the session stopped at [{lo[-1]}, {hi[-1]}], {off_s:.2f} half-widths off {truth}")
+    say("lm-eval", entry="session", stop=f"rel_width({LM_EVAL_EPS})", steps_taken=sess.steps_taken,
+        rounds_total=sess.rounds_total, examples_scanned=int(res.snapshots.scanned[-1]),
+        mean=[float(lo[-1]), float(mean[-1]), float(hi[-1])], half_widths_off=f"{off_s:.3f}",
+        seconds=f"{ctx.e2e['lm-eval session']:.3f}",
+        run_query_seconds=f"{ctx.e2e['lm-eval run_query']:.3f}", launches=got, card=ctx.smi)
+    del model, shards, loss, lpe, toks
+    _free()
 
 
 def run(work: Path) -> None:
@@ -2844,6 +3285,12 @@ def run(work: Path) -> None:
                         same=same)
     parquet_phase(ctx)
     randomize_phase(ctx)
+    # -- 4g. the LM serving path of the dense family, and the online eval
+    # over its forward (K2, K1 scalar)
+    lm_serve_phase(ctx)
+    lm_serve_7b_phase(ctx)
+    lm_widths_phase(ctx)
+    lm_eval_phase(ctx)
 
     say("main-path launches", **launches)
     for k, n in launches.items():

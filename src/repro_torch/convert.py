@@ -39,6 +39,54 @@ def mult_state_from_reference(state, device="cuda") -> MultState:
                      _tensor(state.est, dev), _tensor(state.estvar, dev))
 
 
+def _param_tensor(x, dev: torch.device) -> torch.Tensor:
+    """A numpy (or JAX) array -> a tensor of the same dtype on ``dev``;
+    bfloat16 (``ml_dtypes``' numpy type, which torch does not read) goes
+    across as its 16-bit words."""
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16).to(dev)
+    return _tensor(a, dev)
+
+
+def lm_params_from_reference(np_params, cfg, device="cuda"):
+    """The reference's LM parameter tree (``repro.models.transformer``'s
+    ``param_specs`` layout, leaves numpy or JAX arrays) -> the port's
+    ``Transformer``: each ``layers/b{i}/*`` leaf [n_groups, ...] unstacked
+    into the module's per-layer parameters, dtypes kept."""
+    from repro_torch.models.transformer import Transformer
+
+    dev = resolve_device(device)
+
+    def conv(tree):
+        if isinstance(tree, dict):
+            return {k: conv(v) for k, v in tree.items()}
+        return _param_tensor(tree, dev)
+
+    return Transformer(cfg, conv(np_params))
+
+
+def lm_cache_to_numpy(cache, cfg):
+    """The port's per-layer cache list -> the reference's cache tree
+    (``{"layers": {"b{i}": leaves stacked over the groups}, "tail":
+    {"t{i}": ...}}``) of numpy arrays; bf16 leaves come back as float32
+    (exact), the others in their dtype."""
+    pat = len(cfg.block_pattern)
+    n_groups = cfg.num_layers // pat
+
+    def host(t):
+        t = t.detach().cpu()
+        return (t.to(torch.float32) if t.dtype == torch.bfloat16 else t).numpy()
+
+    def stack(layers):
+        return {k: np.stack([host(c[k]) for c in layers]) for k in layers[0]}
+
+    return {"layers": {f"b{j}": stack(cache[j:n_groups * pat:pat]) for j in range(pat)}
+            if n_groups else {},
+            "tail": {f"t{i}": {k: host(v) for k, v in c.items()}
+                     for i, c in enumerate(cache[n_groups * pat:])}}
+
+
 def state_to_numpy(state):
     """A port state (any tree of tensors) -> the same tree of numpy arrays,
     the form the reference's states take through ``np.asarray``."""

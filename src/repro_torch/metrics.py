@@ -79,6 +79,25 @@ def mean_with_bounds(est) -> tuple:
     return mean, mean - half, mean + half
 
 
+def lm_loss_per_example(model, seq: int) -> Callable[[Chunk], torch.Tensor]:
+    """``func(d) = loss(params, d)`` over a token corpus stored one column
+    a position (``t0`` .. ``t{seq-1}``, one row an example), as
+    ``examples/online_eval.py`` lays it out: each example's mean
+    next-token negative log-likelihood under ``model`` (a
+    ``repro_torch.models.transformer.Transformer``).
+
+    The fused kernels' pre-pass (``kernels.fused_agg.project``) calls the
+    closure once on all the columns it scans — the whole ``[P, C, L]``
+    shard under ``run_query`` — so the closure flattens the leading axes
+    and runs the model over bounded blocks of examples
+    (``Transformer.example_nll``), never over all of them at once."""
+    def loss_per_example(chunk):
+        tt = torch.stack([chunk[f"t{j}"] for j in range(seq)], dim=-1)
+        return model.example_nll(tt.reshape(-1, seq)).reshape(tt.shape[:-1])
+
+    return loss_per_example
+
+
 def make_groupwise_loss_gla(
     loss_per_example: Callable[[Chunk], torch.Tensor],
     group: Callable[[Chunk], torch.Tensor],

@@ -1,0 +1,219 @@
+"""Transformer substrate layers: norms, RoPE, attention, MLP.
+
+Port of ``repro/models/layers.py``, in plain PyTorch as the reference is
+plain ``jnp``: no library attention kernel.  Rounding follows the
+reference where it decides the result:
+
+* the norms normalize in float32, cast back to ``x``'s dtype, and only then
+  multiply by ``gamma``;
+* RoPE rotates the two halves of the head vector (not interleaved pairs),
+  with angles in float32;
+* masked scores are ``NEG_INF = -1e30``, not ``-inf``, so a fully masked
+  row averages its values uniformly, as the reference's does;
+* the attention products accumulate in float32 (the reference's
+  ``preferred_element_type``): the operands are upcast first, since a
+  bf16 ``einsum`` on the card rounds its output to bf16; probabilities are
+  rounded to the values' dtype before the second product, as there.
+
+``flash_attention`` keeps the reference's query blocks and the static
+key-block range each block can see (triangle scheduling: no work on a fully
+masked block); within a block it takes one masked softmax over that range,
+where the reference runs an online softmax over its key blocks — the same
+function, summed in another order.
+
+Mask modes:
+  causal  — standard autoregressive
+  chunk   — attend only within the surrounding `window`-sized chunk
+            (Llama-4 style chunked local attention), causal inside
+  window  — sliding window of `window` past positions (RG local attention)
+  full    — bidirectional (encoder / cross attention)
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -1e30
+_F32 = torch.float32
+
+
+# --------------------------------------------------------------------------- norms
+
+def rms_norm(x, gamma, eps=1e-6):
+    x32 = x.to(_F32)
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * gamma
+
+
+def layer_norm(x, gamma, beta, eps=1e-5):
+    x32 = x.to(_F32)
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, correction=0)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return y.to(x.dtype) * gamma + beta
+
+
+def apply_norm(x, p, kind):
+    if kind == "rms":
+        return rms_norm(x, p["scale"])
+    return layer_norm(x, p["scale"], p["bias"])
+
+
+# --------------------------------------------------------------------------- rope
+
+def rope_freqs(head_dim: int, theta: float, device=None):
+    return theta ** (-torch.arange(0, head_dim, 2, dtype=_F32, device=device) / head_dim)
+
+
+def apply_rope(x, positions, theta: float):
+    """x [B,S,H,dh] with positions [S], or [B,H,dh] with a scalar position."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, x.device)                # [dh/2]
+    pos = torch.as_tensor(positions, dtype=_F32, device=x.device)
+    ang = pos[..., None] * freqs                           # [S, dh/2] | [dh/2]
+    if x.ndim == 4:                                        # [B,S,H,dh]
+        ang = ang.reshape((1,) + tuple(ang.shape[:-1]) + (1, dh // 2))
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1f, x2f = x[..., : dh // 2].to(_F32), x[..., dh // 2:].to(_F32)
+    out = torch.cat([x1f * cos - x2f * sin, x2f * cos + x1f * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def softcap(scores, cap: Optional[float]):
+    if cap is None:
+        return scores
+    return cap * torch.tanh(scores / cap)
+
+
+# --------------------------------------------------------------------------- attention
+
+def _kv_block_range(i, n_kv, qb, kvb, mode, window):
+    """Static kv-block range [lo, hi) visible to query block i."""
+    if mode == "full":
+        return 0, n_kv
+    hi = min(n_kv, -(-((i + 1) * qb) // kvb))  # causal upper bound
+    if mode == "causal":
+        return 0, hi
+    if mode == "window":
+        lo = max(0, (i * qb - window) // kvb)
+        return lo, hi
+    if mode == "chunk":
+        lo = ((i * qb) // window) * (window // kvb)
+        return lo, hi
+    raise ValueError(mode)
+
+
+def flash_attention(q, k, v, *, mode="causal", window=None, cap=None,
+                    q_block=1024, kv_block=1024):
+    """q [B,Sq,H,dh], k/v [B,Sk,K,dh] -> [B,Sq,H,dh].
+
+    Query positions are aligned with key positions (q_offset=0); the decode
+    path (one new token against a cache) is :func:`decode_attention`.
+    """
+    B, Sq, H, dh = q.shape
+    _, Sk, K, _ = k.shape
+    G = H // K
+
+    def pick(S, target):
+        b = min(target, S)
+        while S % b:
+            b -= 1
+        return b
+
+    if mode in ("window", "chunk") and window is not None and window >= Sk:
+        mode = "causal"      # the window covers the whole sequence
+    if mode in ("window", "chunk"):
+        if window is None:
+            raise ValueError(f"mode {mode!r} needs a window")
+        qb = pick(Sq, min(q_block, window))
+        kvb = pick(Sk, min(kv_block, window))
+        if window % kvb:
+            raise ValueError(f"window {window} must be a multiple of kv block {kvb}")
+    else:
+        qb = pick(Sq, q_block)
+        kvb = pick(Sk, kv_block)
+    n_q, n_kv = Sq // qb, Sk // kvb
+    scale = 1.0 / math.sqrt(dh)
+    kf, vdt = k.to(_F32), v.dtype
+
+    outs = []
+    for i in range(n_q):
+        lo, hi = _kv_block_range(i, n_kv, qb, kvb, mode, window)
+        qi = q[:, i * qb:(i + 1) * qb].reshape(B, qb, K, G, dh).to(_F32)
+        kj = kf[:, lo * kvb:hi * kvb]
+        vj = v[:, lo * kvb:hi * kvb].to(_F32)
+        s = torch.einsum("bqkgd,btkd->bqkgt", qi, kj) * scale
+        s = softcap(s, cap)
+        if mode != "full":
+            qpos = i * qb + torch.arange(qb, device=q.device)
+            kpos = torch.arange(lo * kvb, hi * kvb, device=q.device)
+            msk = kpos[None, :] <= qpos[:, None]                       # causal
+            if mode == "window":
+                msk &= kpos[None, :] > (qpos[:, None] - window)
+            elif mode == "chunk":
+                msk &= (kpos[None, :] // window) == (qpos[:, None] // window)
+            s = torch.where(msk[None, :, None, None, :], s, NEG_INF)
+        m = torch.amax(s, dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        den = torch.sum(p, dim=-1)
+        o = torch.einsum("bqkgt,btkd->bqkgd", p.to(vdt).to(_F32), vj)
+        o = o / torch.clamp(den, min=1e-30)[..., None]
+        outs.append(o.reshape(B, qb, H, dh))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, valid, *, cap=None):
+    """One-token attention against a cache.
+
+    q [B,H,dh]; k/v_cache [B,S,K,dh] (any float dtype); valid [B,S] or [S]
+    bool.  The cache is cast to the query's dtype, as in the reference, and
+    the products accumulate in float32."""
+    B, H, dh = q.shape
+    K = k_cache.shape[2]
+    G = H // K
+    qh = q.reshape(B, K, G, dh).to(_F32)
+    kc = k_cache.to(q.dtype).to(_F32)
+    s = torch.einsum("bkgd,btkd->bkgt", qh, kc)
+    s = s / math.sqrt(dh)
+    s = softcap(s, cap)
+    if valid.ndim == 1:
+        valid = valid[None, :]
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    vc = v_cache.to(q.dtype).to(_F32)
+    o = torch.einsum("bkgt,btkd->bkgd", p.to(q.dtype).to(_F32), vc)
+    return o.reshape(B, H, dh).to(q.dtype)
+
+
+# --------------------------------------------------------------------------- mlp
+
+def mlp_act(x, kind: str):
+    """The reference's activations, one primitive at a time in ``x``'s
+    dtype: ``jax.nn.silu`` is ``x * logistic(x)`` with ``logistic`` lowered
+    as ``1 / (1 + exp(-x))``, and ``jax.nn.gelu`` is the tanh
+    approximation; in bf16 each step rounds, which fused library versions
+    (``F.silu``, ``F.gelu``) do not, so they differ in most bf16 entries."""
+    one = torch.ones((), dtype=x.dtype, device=x.device)
+    if kind == "silu":
+        return x * (one / (one + torch.exp(-x)))
+    if kind == "gelu":
+        c = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype, device=x.device)
+        k = torch.tensor(0.044715, dtype=x.dtype, device=x.device)
+        cdf = 0.5 * (one + torch.tanh(c * (x + k * (x * x * x))))
+        return x * cdf.to(x.dtype)
+    if kind == "relu2":
+        r = F.relu(x)
+        return r * r
+    raise ValueError(kind)
+
+
+def mlp(p, x, cfg):
+    """Gated (SwiGLU-style) or plain MLP."""
+    if cfg.mlp_gated:
+        h = mlp_act(x @ p["wi"], cfg.mlp_act) * (x @ p["wg"])
+    else:
+        h = mlp_act(x @ p["wi"], cfg.mlp_act)
+    return h @ p["wo"]

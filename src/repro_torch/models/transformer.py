@@ -1,0 +1,365 @@
+"""The dense decoder-only LM: parameter specs, forward (prefill), KV caches
+and the decode step.
+
+Port of the dense path of ``repro/models/transformer.py``: every layer an
+``attn`` block (global causal attention + a dense MLP), RMSNorm or
+LayerNorm, RoPE or no positions, tied or untied unembedding, qk-norm, a
+bf16 or int8 KV cache.  The reference scans its layer groups over
+parameters stacked on a leading "layers" axis; here the stack is unstacked
+into a ``ModuleList`` of per-layer parameter trees (views of the stacked
+tensors, no copy) and the scan is a loop.  :class:`Transformer`'s methods
+carry the reference's function names: ``forward(batch, cache_len=)``,
+``unembed``, ``init_cache``, ``decode_step``.
+
+Left out on purpose: ``pin_batch_activation`` and ``_pin_replicated_heads``
+are GSPMD sharding constraints and mean nothing on one card; ``remat`` is
+for training.  Everything else the reference's configs use — the other
+block types, experts, encoder-decoder, frontends, learned positions —
+raises ``NotImplementedError`` naming the ROADMAP slice that ports it.
+
+Caches: a list with one dict per layer, in layer order (the reference's
+tree of stacked leaves comes back through
+``repro_torch.convert.lm_cache_to_numpy``).  The prefill's K/V are stored
+in bf16 whatever the parameters' dtype, as the reference's
+``_kv_to_cache`` does; ``decode_step`` takes a bf16, float32 or int8
+cache.  ``decode_step`` writes the new token's K/V into the cache IN
+PLACE and returns the same cache (the reference returns a new tree): a
+caller that needs the old cache copies it first.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch._device import resolve_device
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.layers import (apply_norm, apply_rope, decode_attention,
+                                       flash_attention, mlp, rms_norm)
+from repro_torch.models.spec import ParamSpec, init_params
+
+_F32 = torch.float32
+
+#: where ROADMAP.md's Queue 1 ports what this slice refuses
+_SLICE_MOE = "LM slice (c) in ROADMAP.md (MoE and attn_chunked: llama4, grok)"
+_SLICE_RECURRENT = "LM slice (d) in ROADMAP.md (the recurrent mixers: recurrentgemma, xlstm)"
+_SLICE_ENC = "LM slice (e) in ROADMAP.md (encoder-decoder and frontends: whisper, internvl2)"
+
+
+def check_dense(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` for anything outside the dense path."""
+    for lt in cfg.block_pattern:
+        if lt == "attn_chunked":
+            raise NotImplementedError(f"{cfg.name}: block 'attn_chunked' waits for {_SLICE_MOE}")
+        if lt in ("rglru", "mlstm", "slstm"):
+            raise NotImplementedError(f"{cfg.name}: block {lt!r} waits for {_SLICE_RECURRENT}")
+        if lt != "attn":
+            raise ValueError(lt)
+    if cfg.num_experts:
+        raise NotImplementedError(f"{cfg.name}: num_experts > 0 waits for {_SLICE_MOE}")
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(f"{cfg.name}: is_encoder_decoder waits for {_SLICE_ENC}")
+    if cfg.frontend:
+        raise NotImplementedError(f"{cfg.name}: frontend {cfg.frontend!r} waits for {_SLICE_ENC}")
+    if cfg.pos == "learned":
+        raise NotImplementedError(f"{cfg.name}: pos='learned' waits for {_SLICE_ENC}")
+
+
+# =========================================================================== specs
+
+def _norm_spec(d, kind, dtype):
+    if kind == "rms":
+        return {"scale": ParamSpec((d,), ("embed",), "ones", dtype=dtype)}
+    return {"scale": ParamSpec((d,), ("embed",), "ones", dtype=dtype),
+            "bias": ParamSpec((d,), ("embed",), "zeros", dtype=dtype)}
+
+
+def _mlp_specs(cfg: ArchConfig, dtype):
+    d, f = cfg.d_model, cfg.d_ff
+    s = {
+        "wi": ParamSpec((d, f), ("embed", "mlp"), dtype=dtype),
+        "wo": ParamSpec((f, d), ("mlp", "embed"), dtype=dtype),
+    }
+    if cfg.mlp_gated:
+        s["wg"] = ParamSpec((d, f), ("embed", "mlp"), dtype=dtype)
+    return s
+
+
+def _attn_specs(cfg: ArchConfig, dtype):
+    d, H, K, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    s = {
+        "ln1": _norm_spec(d, cfg.norm, dtype),
+        "wq": ParamSpec((d, H, dh), ("embed", "heads", None), dtype=dtype),
+        "wk": ParamSpec((d, K, dh), ("embed", "kv", None), dtype=dtype),
+        "wv": ParamSpec((d, K, dh), ("embed", "kv", None), dtype=dtype),
+        "wo": ParamSpec((H, dh, d), ("heads", None, "embed"), dtype=dtype),
+        "ln2": _norm_spec(d, cfg.norm, dtype),
+        "mlp": _mlp_specs(cfg, dtype),
+    }
+    if cfg.qk_norm:
+        s["qn"] = ParamSpec((dh,), (None,), "ones", dtype=dtype)
+        s["kn"] = ParamSpec((dh,), (None,), "ones", dtype=dtype)
+    return s
+
+
+def _stack_specs(tree, n: int):
+    if isinstance(tree, ParamSpec):
+        return dataclasses.replace(tree, shape=(n,) + tree.shape,
+                                   logical=("layers",) + tree.logical)
+    return {k: _stack_specs(v, n) for k, v in tree.items()}
+
+
+def _layer_layout(cfg: ArchConfig):
+    """(pattern, n_groups, tail_types)."""
+    pat = cfg.block_pattern
+    n_groups = cfg.num_layers // len(pat)
+    tail = cfg.layer_types()[n_groups * len(pat):]
+    return pat, n_groups, tail
+
+
+def param_specs(cfg: ArchConfig, dtype=torch.bfloat16) -> Dict[str, Any]:
+    """The reference's parameter tree: ``embed``, ``layers`` (each pattern
+    entry ``b{i}`` stacked over the layer groups), ``tail``, ``ln_f`` and,
+    when the embeddings are not tied, ``lm_head``."""
+    check_dense(cfg)
+    d, V = cfg.d_model, cfg.vocab_padded
+    pat, n_groups, tail = _layer_layout(cfg)
+    group = {f"b{i}": _attn_specs(cfg, dtype) for i in range(len(pat))}
+    specs: Dict[str, Any] = {
+        "embed": ParamSpec((V, d), ("vocab", "embed"), "embed", scale=0.02, dtype=dtype),
+        "layers": _stack_specs(group, n_groups) if n_groups else {},
+        "tail": {f"t{i}": _attn_specs(cfg, dtype) for i in range(len(tail))},
+        "ln_f": _norm_spec(d, cfg.norm, dtype),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ParamSpec((d, V), ("embed", "vocab"), scale=1.0, dtype=dtype)
+    return specs
+
+
+# =========================================================================== the module
+
+class ParamTree(nn.Module):
+    """A dict tree of tensors as a module: sub-dicts are child modules,
+    tensors frozen parameters; ``tree["ln1"]["scale"]`` reads as the
+    reference's parameter dicts do."""
+
+    def __init__(self, tree: Dict[str, Any]):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(k, ParamTree(v))
+            else:
+                self.register_parameter(k, nn.Parameter(v, requires_grad=False))
+
+    def __getitem__(self, key):
+        return getattr(self, key)
+
+
+def _proj(h, w):
+    """``h [..., d] @ w [d, a, b] -> [..., a, b]`` (the reference's
+    ``einsum("bsd,dhe->bshe")`` and its one-token form) as one matmul."""
+    return (h @ w.reshape(w.shape[0], -1)).reshape(*h.shape[:-1], *w.shape[1:])
+
+
+def _out(o, w):
+    """``o [..., H, dh] @ w [H, dh, d] -> [..., d]``."""
+    return o.reshape(*o.shape[:-2], -1) @ w.reshape(-1, w.shape[-1])
+
+
+def _quant(x):
+    """Per-row int8 quantization over the last axis: ``s = max|x|/127 +
+    1e-8`` in float32, ``q = round(x/s)`` (half to even, as ``jnp.round``)."""
+    x32 = x.to(_F32)
+    s = torch.amax(torch.abs(x32), dim=-1) / 127.0 + 1e-8
+    q = torch.round(x32 / s[..., None]).to(torch.int8)
+    return q, s
+
+
+def _dequant(q, s, dtype):
+    """The reference's dequantization: the int8 values times the scales,
+    both cast to bf16, then cast to the query's ``dtype``.  The product of
+    two bf16 numbers is exact in float32: for a float32 query the compiled
+    reference keeps it exact (XLA drops the round trip through bf16); for a
+    bf16 query it is the bf16 product."""
+    if dtype == _F32:
+        return q.to(_F32) * s[..., None].to(torch.bfloat16).to(_F32)
+    return (q.to(torch.bfloat16) * s[..., None].to(torch.bfloat16)).to(dtype)
+
+
+def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device="cuda"):
+    """Zeroed decode caches, one dict per layer: ``k``/``v`` [B, S, K, dh]
+    in bf16, or int8 with float32 scales ``ks``/``vs`` [B, S, K]."""
+    check_dense(cfg)
+    dev = resolve_device(device)
+    K, dh = cfg.num_kv_heads, cfg.head_dim_
+    shape = (batch, seq_len, K, dh)
+
+    def one():
+        if cfg.kv_cache_dtype == "int8":
+            return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                    "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                    "ks": torch.zeros(shape[:-1], dtype=_F32, device=dev),
+                    "vs": torch.zeros(shape[:-1], dtype=_F32, device=dev)}
+        return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+                "v": torch.zeros(shape, dtype=torch.bfloat16, device=dev)}
+
+    return [one() for _ in range(cfg.num_layers)]
+
+
+class Transformer(nn.Module):
+    """The dense LM over a parameter tree in the reference's layout (the
+    tree :func:`param_specs` describes, as tensors on one device)."""
+
+    def __init__(self, cfg: ArchConfig, params: Dict[str, Any]):
+        super().__init__()
+        check_dense(cfg)
+        self.cfg = cfg
+        pat, n_groups, tail = _layer_layout(cfg)
+
+        def take(tree, i):
+            if isinstance(tree, dict):
+                return {k: take(v, i) for k, v in tree.items()}
+            return tree[i]
+
+        per_layer = [take(params["layers"][f"b{j}"], i)
+                     for i in range(n_groups) for j in range(len(pat))]
+        per_layer += [params["tail"][f"t{i}"] for i in range(len(tail))]
+        self.layers = nn.ModuleList(ParamTree(p) for p in per_layer)
+        self.top = ParamTree({k: v for k, v in params.items() if k not in ("layers", "tail")})
+
+    @property
+    def device(self) -> torch.device:
+        return self.top["embed"].device
+
+    # ------------------------------------------------------------------ prefill
+
+    def _qkv(self, p, h, pos):
+        cfg = self.cfg
+        q, k, v = _proj(h, p["wq"]), _proj(h, p["wk"]), _proj(h, p["wv"])
+        if cfg.qk_norm:  # the reference's qk-norm is rms_norm's arithmetic
+            q, k = rms_norm(q, p["qn"]), rms_norm(k, p["kn"])
+        if cfg.pos == "rope":
+            q = apply_rope(q, pos, cfg.rope_theta)
+            k = apply_rope(k, pos, cfg.rope_theta)
+        return q, k, v
+
+    def _attn_train(self, p, x, cache_len: int):
+        cfg = self.cfg
+        h = apply_norm(x, p["ln1"], cfg.norm)
+        q, k, v = self._qkv(p, h, torch.arange(x.shape[1], device=x.device))
+        o = flash_attention(q, k, v, mode="causal", cap=cfg.logit_softcap)
+        x = x + _out(o, p["wo"])
+        h2 = apply_norm(x, p["ln2"], cfg.norm)
+        out = mlp(p["mlp"], h2, cfg)
+        cache = self._kv_to_cache(k, v, cache_len) if cache_len else None
+        return x + out, cache
+
+    def _kv_to_cache(self, k, v, cache_len: int):
+        """Pack full-sequence K/V [B,S,K,dh] into a decode cache of cache_len."""
+        S = k.shape[1]
+        if S > cache_len:
+            raise ValueError(f"prefill length {S} exceeds cache_len {cache_len}")
+        pad = (0, 0, 0, 0, 0, cache_len - S)
+        kf, vf = F.pad(k, pad), F.pad(v, pad)
+        if self.cfg.kv_cache_dtype == "int8":
+            kq, ks = _quant(kf)
+            vq, vs = _quant(vf)
+            return {"k": kq, "v": vq, "ks": ks, "vs": vs}
+        return {"k": kf.to(torch.bfloat16), "v": vf.to(torch.bfloat16)}
+
+    def forward(self, batch: Dict[str, torch.Tensor], cache_len: int = 0):
+        """Full-sequence forward -> (final hidden states [B, S, d], aux,
+        caches).  With ``cache_len`` > 0 this is the prefill: per-layer
+        decode caches with the K/V packed (or quantized) into ``cache_len``
+        slots, in :func:`init_cache`'s layout; else ``None``."""
+        x = self.top["embed"][batch["tokens"].long()]
+        caches = []
+        for p in self.layers:
+            x, c = self._attn_train(p, x, cache_len)
+            caches.append(c)
+        x = apply_norm(x, self.top["ln_f"], self.cfg.norm)
+        aux = torch.zeros((), dtype=_F32, device=x.device)
+        return x, aux, (caches if cache_len else None)
+
+    def unembed(self, x):
+        head = self.top["embed"].T if self.cfg.tie_embeddings else self.top["lm_head"]
+        return x @ head
+
+    # ------------------------------------------------------------------ decode
+
+    def init_cache(self, batch: int, seq_len: int):
+        return init_cache(self.cfg, batch, seq_len, self.device)
+
+    def _attn_decode(self, p, x1, cache, pos: int):
+        """x1 [B, d]; writes the token's K/V at ``pos`` in place."""
+        cfg = self.cfg
+        h = apply_norm(x1, p["ln1"], cfg.norm)
+        q, k1, v1 = self._qkv(p, h, pos)
+        S = cache["k"].shape[1]
+        if cfg.kv_cache_dtype == "int8":
+            kq, ks = _quant(k1)
+            vq, vs = _quant(v1)
+            cache["k"][:, pos] = kq
+            cache["v"][:, pos] = vq
+            cache["ks"][:, pos] = ks
+            cache["vs"][:, pos] = vs
+            kc = _dequant(cache["k"], cache["ks"], q.dtype)
+            vc = _dequant(cache["v"], cache["vs"], q.dtype)
+        else:
+            cache["k"][:, pos] = k1.to(cache["k"].dtype)
+            cache["v"][:, pos] = v1.to(cache["v"].dtype)
+            kc, vc = cache["k"], cache["v"]
+        valid = torch.arange(S, device=x1.device) <= pos
+        o = decode_attention(q, kc, vc, valid, cap=cfg.logit_softcap)
+        x1 = x1 + _out(o, p["wo"])
+        h2 = apply_norm(x1, p["ln2"], cfg.norm)
+        return x1 + mlp(p["mlp"], h2, cfg)
+
+    def decode_step(self, token, cache, pos):
+        """One decoding step: token [B] ids, ``pos`` the position (an int).
+        Returns (logits [B, V_padded] float32, the cache updated in place)."""
+        pos = int(pos)
+        x1 = self.top["embed"][token.long()]
+        for p, c in zip(self.layers, cache):
+            x1 = self._attn_decode(p, x1, c, pos)
+        x1 = apply_norm(x1, self.top["ln_f"], self.cfg.norm)
+        return self.unembed(x1).to(_F32), cache
+
+    # ------------------------------------------------------------------ eval
+
+    def example_nll(self, tokens, *, block: int = 512, rows: int = 4096):
+        """Mean next-token negative log-likelihood of each example
+        ([n, S] tokens -> [n] float32): the reference's
+        ``examples/online_eval.py`` ``loss_per_example``.
+
+        Bounded memory: the forward runs over ``block`` examples at a time
+        and the float32 logits of at most ``rows`` positions exist at once
+        (all n examples' logits at a real vocabulary would not fit)."""
+        n, S = tokens.shape
+        head = self.top["embed"].T if self.cfg.tie_embeddings else self.top["lm_head"]
+        out = torch.empty(n, dtype=_F32, device=self.device)
+        for i in range(0, n, block):
+            tt = tokens[i:i + block].long()
+            x, _, _ = self.forward({"tokens": tt})
+            xs = x[:, :-1].reshape(-1, x.shape[-1])
+            tgt = tt[:, 1:].reshape(-1, 1)
+            nll = torch.empty(xs.shape[0], dtype=_F32, device=self.device)
+            for j in range(0, xs.shape[0], rows):
+                logits = (xs[j:j + rows] @ head).to(_F32)
+                nll[j:j + rows] = (torch.logsumexp(logits, dim=-1)
+                                   - logits.gather(-1, tgt[j:j + rows])[:, 0])
+            out[i:i + tt.shape[0]] = nll.reshape(tt.shape[0], S - 1).mean(dim=1)
+        return out
+
+
+def init_model(cfg: ArchConfig, *, seed: int = 0, dtype=torch.bfloat16,
+               device="cuda") -> Transformer:
+    """A model with random weights from ``seed``: :func:`param_specs` drawn
+    by ``spec.init_params`` on a generator on ``device`` (no CPU fallback:
+    a CUDA device without a card raises)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return Transformer(cfg, init_params(param_specs(cfg, dtype), gen, dev))

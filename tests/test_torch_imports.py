@@ -43,7 +43,11 @@ def test_import_walk_sees_the_whole_port():
             "kernels/_runtime.py", "kernels/decode.py", "data/tpch.py",
             "data/source.py", "data/encodings.py", "fault.py", "ckpt.py",
             "sharded.py", "service.py", "serve.py", "sketch.py",
-            "metrics.py"} <= names
+            "metrics.py", "configs/base.py", "configs/smollm_135m.py",
+            "configs/deepseek_7b.py", "configs/qwen3_32b.py",
+            "configs/nemotron_4_15b.py", "models/spec.py", "models/layers.py",
+            "models/transformer.py", "serve_step.py", "data/tokens.py"} <= names
+    assert len([n for n in names if n.startswith("configs/")]) == 12  # ten tables
     # the contract linter matches core/scan.py, core/estimators.py and
     # core/session.py by path suffix: the port keeps its modules flat
     assert not (PORT / "core").exists()
@@ -68,7 +72,10 @@ def test_import_repro_torch_loads_no_jax():
             "repro_torch.data.source, repro_torch.data.encodings, "
             "repro_torch.fault, repro_torch.ckpt, repro_torch.sharded, "
             "repro_torch.service, repro_torch.serve, repro_torch.sketch, "
-            "repro_torch.metrics; "
+            "repro_torch.metrics, repro_torch.configs, repro_torch.models.spec, "
+            "repro_torch.models.layers, repro_torch.models.transformer, "
+            "repro_torch.serve_step, repro_torch.data.tokens; "
+            "[repro_torch.configs.get_config(a) for a in repro_torch.configs.list_archs()]; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'msgpack', 'zstandard')); "
             "assert not bad, bad")

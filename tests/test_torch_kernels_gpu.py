@@ -1015,3 +1015,55 @@ def test_randomize_distributed_on_the_card_keeps_every_row_and_dtype():
     cpu = _drive(T.Session(spec, {k: v.cpu() for k, v in packed.items()}, device="cpu"))
     assert torch.equal(card.snapshots.matched.cpu(), cpu.snapshots.matched)
     _close(card.final.cpu(), cpu.final)
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["smollm_135m", "deepseek_7b", "qwen3_32b", "nemotron_4_15b"])
+def test_lm_smoke_model_on_the_card_matches_the_cpu_port(arch):
+    """The dense LM (``repro_torch.models``, plain PyTorch) at ``smoke()``
+    size with the same float32 weights on the card and on the CPU, TF32 off:
+    prefill and 4 decode steps within 1e-4 of max|logit| (float32 sums in
+    another order), each step from the CPU's cache copied to the card (an
+    int8 entry that rounds the other way moves these logits by up to 6e-4),
+    every cache within one bf16 ulp of its max (one int8 step), and greedy
+    tokens equal."""
+    from repro_torch import serve_step as SS
+    from repro_torch.configs import get_config
+    from repro_torch.models import spec as MS
+    from repro_torch.models import transformer as TT
+
+    def same_cache(ca, cb):
+        for x, y in zip(ca, cb):
+            for k in x:
+                step = 1.0 if x[k].dtype == torch.int8 else 2.0 ** -7 * x[k].float().abs().max().item()
+                assert (y[k].cpu().float() - x[k].float()).abs().max().item() <= step + 1e-6, k
+
+    dev = _cuda()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = get_config(arch).smoke()
+        params = MS.init_params(TT.param_specs(cfg, torch.float32), torch.Generator().manual_seed(0),
+                                "cpu")
+        cpu, card = TT.Transformer(cfg, params), TT.Transformer(cfg, _tree_to(params, dev))
+        toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16))).int()
+        pre = SS.make_prefill(cfg, 24)
+        (a, ca), (b, cb) = pre(cpu, {"tokens": toks}), pre(card, {"tokens": toks.to(dev)})
+        for t in range(5):
+            torch.testing.assert_close(b.cpu(), a, rtol=0, atol=1e-4 * a.abs().max().item())
+            same_cache(ca, cb)
+            tok = torch.argmax(a, -1).int()
+            cb = [_tree_to(c, dev) for c in ca]
+            a, ca = SS.make_decode(cfg)(cpu, ca, tok, 16 + t)
+            b, cb = SS.make_decode(cfg)(card, cb, tok.to(dev), 16 + t)
+        g_cpu = SS.greedy_generate(cfg, cpu, {"tokens": toks}, steps=6, cache_len=24)
+        g_card = SS.greedy_generate(cfg, card, {"tokens": toks.to(dev)}, steps=6, cache_len=24)
+        assert torch.equal(g_card.cpu(), g_cpu)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
