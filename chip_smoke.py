@@ -42,6 +42,14 @@ queries that need several rounds against one session per query, the
 streamed sessions read from a parquet copy (where ``pyarrow`` imports),
 and the paper's two-stage ``randomize_distributed`` over the rows in
 their clustered order, with an unrandomized control whose estimate misses.
+Then the dense LM family (``repro_torch.models``): greedy serving of
+smollm-135m and deepseek-7b at full size and two more configs at full
+width; training (``repro_torch.training``) of smollm-135m at full size —
+a resumed run bitwise an uninterrupted one, the card's float32 grads held
+with the CPU port's to float64 — and of deepseek-7b at full width cut to 4
+layers through its 4-microbatch float32 accumulation; the
+confidence-bounded gradient accumulation; and the online eval of the
+trained model's loss through K2 and K1 scalar.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.  The last line is the run's JSON summary.
@@ -166,6 +174,25 @@ LM_CPU_TOKENS, LM_CPU_STEPS, LM_CPU_TOL = 32, 4, 1e-3
 #: [lm-eval]: examples/online_eval.py's corpus (examples, tokens each,
 #: partitions, chunk length, rounds) and its target relative width
 LM_EVAL, LM_EVAL_EPS = (32_768, 32, 8, 256, 8), 0.01
+#: the training phases: [lm-train] smollm-135m uncut at train_4k's sequence
+#: of 4,096 (repro/launch/shapes.py; its global batch of 256 cut to 8), 6
+#: steps at launch/train.py's lr; the card against the CPU port, uncut, at
+#: LM_TRAIN_CPU's batch and sequence, float32, TF32 off: grads within
+#: LM_CPU_TOL ([lm-serve]'s) of max|.| of the CPU port's float64 grads on
+#: either device — not a 2-layer cut, whose float32 grads lie 2.3e-2 from
+#: float64 on the CPU itself (the reference's fan-in rule makes a 2-layer
+#: stack's weights 3.9x the uncut model's; uncut: 5.8e-4; both from
+#: tools/lm_grad_floor.py); [lm-train-7b]
+#: deepseek-7b at full width cut to 4 layers, batch 8 at 4,096, 3 steps (+1
+#: traced)
+LM_TRAIN, LM_TRAIN_STEPS, LM_TRAIN_LR = (8, 4096), 6, 3e-3
+LM_TRAIN_CPU = (2, 128)
+LM_TRAIN_7B, LM_TRAIN_7B_LAYERS, LM_TRAIN_7B_STEPS = (8, 4096), 4, 3
+#: [lm-adaptive]: examples/adaptive_batch.py on smollm-135m uncut —
+#: microbatches a step, examples and tokens a microbatch, the target relative
+#: width, steps
+LM_ADAPTIVE = (16, 4, 512, 0.08, 4)
+BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 dense, tensor cores
 
 
 def fail(msg: str):
@@ -1358,7 +1385,7 @@ def lm_decode_bytes(model, cache, batch: int) -> int:
     and is read whole), and the whole cache (the reference attends over
     every slot under a mask, and dequantizes an int8 cache in full)."""
     cfg = model.cfg
-    emb = model.top["embed"]
+    emb = model.params["embed"]
     weights = sum(p.numel() * p.element_size() for p in model.parameters())
     if not cfg.tie_embeddings:
         weights -= (emb.shape[0] - batch) * emb.shape[1] * emb.element_size()
@@ -1649,11 +1676,328 @@ def lm_widths_phase(ctx):
     _free()
 
 
+def lm_train_flops(model, batch: int, seq: int) -> float:
+    """Operations of one train step: 6·N·T for the matmuls (N the
+    parameters a token multiplies by — an untied input embedding is a
+    lookup and not counted — T = batch·seq tokens), plus causal attention's
+    QKᵀ and PV, forward and backward: 6·layers·batch·seq²·heads·head_dim."""
+    cfg = model.cfg
+    n = sum(p.numel() for p in model.parameters())
+    if not cfg.tie_embeddings:
+        n -= model.params["embed"].numel()
+    return 6.0 * n * batch * seq + 6.0 * cfg.num_layers * batch * seq * seq * cfg.num_heads * cfg.head_dim_
+
+
+def lm_train_steps(step, model, opt, batches, n):
+    """``n`` train steps, each timed on the host clock between syncs ->
+    (model, opt, [(ms, loss, grad_norm)], the data cursor after them)."""
+    import torch
+
+    rows, cursor = [], None
+    for _ in range(n):
+        batch, cursor = next(batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, opt, m = step(model, opt, batch)
+        torch.cuda.synchronize()
+        rows.append(((time.perf_counter() - t0) * 1e3, m["loss"].item(), m["grad_norm"].item()))
+    return model, opt, rows, cursor
+
+
+def lm_train_trace(step, model, opt, batch):
+    """One train step under torch.profiler -> (model, opt, (kernels
+    launched, their device ms, the step's wall ms on the host clock, the
+    device ms of the matmul kernels — names with "gemm" — and the five
+    kernels that took the most device time, as (name, ms, launches)))."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model, opt, _ = step(model, opt, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    evs = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)
+    gemm = sum(e.self_device_time_total for e in evs if "gemm" in e.key.lower()) / 1e3
+    top = [(e.key[:72], f"{e.self_device_time_total / 1e3:.3f}", e.count) for e in evs[:5]]
+    return model, opt, (sum(e.count for e in evs), sum(e.self_device_time_total for e in evs) / 1e3,
+                        wall, gemm, top)
+
+
+def lm_train_numbers(model, rows, batch: int, seq: int, traced, base: int, peak: int) -> dict:
+    """The numbers [lm-train] and [lm-train-7b] print: step ms (median and
+    spread after the first step), tokens/s, the share of the bf16 dense peak
+    the step's operations reach, the traced step's busy share, memory, and
+    each step's loss and grad norm."""
+    import torch
+
+    ms = [r[0] for r in rows[1:]]
+    med = statistics.median(ms)
+    flops = lm_train_flops(model, batch, seq)
+    kernels, dev_ms, wall_ms, gemm_ms, top = traced
+    return dict(
+        params=sum(p.numel() for p in model.parameters()), batch=batch, seq=seq,
+        microbatches=model.cfg.train_microbatches, remat=model.cfg.remat,
+        step_ms_first=f"{rows[0][0]:.3f}", step_ms_median=f"{med:.3f}",
+        step_ms_min_max=[f"{min(ms):.3f}", f"{max(ms):.3f}"],
+        tokens_per_s=f"{batch * seq / med * 1e3:.1f}", step_flops=f"{flops:.6e}",
+        bf16_peak_share=f"{flops / (med / 1e3) / BF16_FLOPS_PER_S:.4f}",
+        traced_kernels=kernels, traced_device_ms=f"{dev_ms:.3f}", traced_wall_ms=f"{wall_ms:.3f}",
+        device_busy=f"{dev_ms / wall_ms:.3f}", traced_gemm_ms=f"{gemm_ms:.3f}",
+        traced_top_kernels=top, base_bytes=base, peak_bytes=peak,
+        card_free_bytes=torch.cuda.mem_get_info()[0],
+        loss=[f"{r[1]:.4f}" for r in rows], grad_norm=[f"{r[2]:.4f}" for r in rows])
+
+
+def lm_train_checks(phase: str, model, shapes, rows) -> None:
+    from repro_torch.uda import tree_leaves
+
+    check(all(math.isfinite(r[1]) and math.isfinite(r[2]) for r in rows),
+          f"[{phase}] a loss or grad norm is not finite: {rows}")
+    check(rows[-1][1] < rows[0][1], f"[{phase}] the loss did not fall: {rows[0][1]} -> {rows[-1][1]}")
+    check([(t.shape, t.dtype) for t in tree_leaves(model.params)] == shapes,
+          f"[{phase}] a parameter changed its shape or dtype")
+
+
+def _updates_close(cpu, card, lr):
+    """Parameters after one step on each device: every entry within
+    LM_CPU_TOL of its leaf's max|param| but at most 0.1% of a leaf's, which
+    may be off by up to 2·lr (a near-zero gradient whose sign rounds the
+    other way on one side: AdamW's first step is about lr·g/|g|).  Returns
+    (the entries off by more than LM_CPU_TOL, all entries, max|Δ| / lr)."""
+    from repro_torch.uda import tree_leaves
+
+    far_n, n, worst = 0, 0, 0.0
+    for a, b in zip(tree_leaves(cpu), tree_leaves(card)):
+        d = (b.detach().cpu() - a.detach()).abs()
+        far = int((d > LM_CPU_TOL * a.abs().max().item()).sum())
+        check(far <= 1e-3 * d.numel() and d.max().item() <= 2 * lr,
+              f"[lm-train] the card's step moved {far} of {d.numel()} entries "
+              f"off the CPU port's (max {d.max().item():.3e}, lr {lr})")
+        far_n, n, worst = far_n + far, n + d.numel(), max(worst, d.max().item() / lr)
+    return far_n, n, worst
+
+
+def lm_train_phase(ctx):
+    """[lm-train]: smollm-135m at its full size, bf16 parameters drawn from
+    SEED with float32 AdamW state, the config's remat and microbatches:
+    LM_TRAIN_STEPS steps on token_batches at LM_TRAIN's batch and sequence,
+    timed; a second run paused after 3 steps (its train state saved and
+    loaded) and resumed for 3 more, the last traced, bitwise the first; then
+    the float32 grads of the same model at LM_TRAIN_CPU's tokens on the card
+    and on the CPU port, each held to the CPU port's float64 grads, and one
+    step's parameters on the two.  Leaves the trained model to [lm-eval]
+    (``ctx.trained``)."""
+    import torch
+
+    from repro_torch import ckpt
+    from repro_torch.data.tokens import token_batches
+    from repro_torch.models import transformer as TT
+    from repro_torch.training import train_step as TS
+    from repro_torch.uda import tree_leaves, tree_map
+
+    dev = ctx.dev
+    cfg = lm_config("smollm_135m")
+    B, S = LM_TRAIN
+    step = TS.make_train_step(cfg, lr=LM_TRAIN_LR)
+    _free()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model, opt = TS.init_train_state(cfg, seed=SEED, dtype=torch.bfloat16, device=dev)
+    shapes = [(t.shape, t.dtype) for t in tree_leaves(model.params)]
+    model, opt, rows, _ = lm_train_steps(step, model, opt, token_batches(
+        cfg, B, S, seed=SEED, device=dev), LM_TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated() - base
+    lm_train_checks("lm-train", model, shapes, rows)
+    # the same run paused after 3 steps and resumed from its checkpoint, its
+    # last step traced
+    m2, o2 = TS.init_train_state(cfg, seed=SEED, dtype=torch.bfloat16, device=dev)
+    half = LM_TRAIN_STEPS // 2
+    m2, o2, _, cursor = lm_train_steps(step, m2, o2, token_batches(cfg, B, S, seed=SEED, device=dev),
+                                       half)
+    path = ctx.work / "lm_train.ckpt"
+    t0 = time.perf_counter()
+    ckpt.save_train_state(path, m2.params, o2, half, cursor)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params, o2, at, cursor = ckpt.load_train_state(path, m2.params, o2, device=dev)
+    m2 = TT.Transformer(cfg, params).requires_grad_(True)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    nbytes = path.stat().st_size
+    path.unlink()
+    batches = token_batches(cfg, B, S, start=cursor, seed=SEED, device=dev)
+    m2, o2, _, _ = lm_train_steps(step, m2, o2, batches, LM_TRAIN_STEPS - half - 1)
+    m2, o2, traced = lm_train_trace(step, m2, o2, next(batches)[0])
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves({"p": model.params, "o": opt}),
+                                                  tree_leaves({"p": m2.params, "o": o2})))
+    ctx.trained = model.requires_grad_(False)
+    check(at == half and same, f"[lm-train] {half} steps, a checkpoint and {LM_TRAIN_STEPS - half} "
+          f"more differ from {LM_TRAIN_STEPS} uninterrupted steps")
+    del m2, o2, params, opt
+    _free()
+    say("lm-train", arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model, cut=f"batch 256->{B}",
+        lr=LM_TRAIN_LR, optimizer=cfg.optimizer, steps=LM_TRAIN_STEPS,
+        **lm_train_numbers(model, rows, B, S, traced, base, peak), card=ctx.smi)
+    say("lm-train", check="resume", steps=f"{half}+save+load+{LM_TRAIN_STEPS - half}",
+        vs_uninterrupted="bitwise", checkpoint_bytes=nbytes, save_s=f"{save_s:.3f}",
+        load_s=f"{load_s:.3f}")
+    # the card against the CPU port: one float32 step, TF32 off, both held
+    # to the CPU port's float64 grads
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cpu, ocpu = TS.init_train_state(cfg, seed=SEED, dtype=torch.float32, device="cpu")
+        card = TT.Transformer(cfg, tree_map(lambda t: t.detach().to(dev, copy=True), cpu.params))
+        card.requires_grad_(True)
+        ocard = tree_map(lambda t: t.to(dev, copy=True), ocpu)
+        batch, _ = next(token_batches(cfg, *LM_TRAIN_CPU, seed=SEED, device="cpu"))
+        on_card = {k: v.to(dev) for k, v in batch.items()}
+        f64 = TT.Transformer(cfg, tree_map(lambda t: t.detach().double(), cpu.params))
+        (l64, _), g64 = TS.value_and_grad(f64.requires_grad_(True), cfg, batch)
+        del f64
+        (la, _), ga = TS.value_and_grad(cpu, cfg, batch)
+        (lb, _), gb = TS.value_and_grad(card, cfg, on_card)
+
+        def rel(xs, ys):
+            return max(((x.double().cpu() - y).abs().max() / y.abs().max()).item()
+                       for x, y in zip(tree_leaves(xs), tree_leaves(ys)))
+
+        cpu_rel, card_rel, card_cpu_rel = rel(ga, g64), rel(gb, g64), rel(gb, ga)
+        check(max(cpu_rel, card_rel) <= LM_CPU_TOL, f"[lm-train] float32 grads off the CPU port's "
+              f"float64 ones by {cpu_rel:.3e} (CPU), {card_rel:.3e} (card)")
+        del ga, gb, g64
+        cstep = TS.make_train_step(cfg, lr=LM_TRAIN_LR)
+        cpu, ocpu, ma = cstep(cpu, ocpu, batch)
+        card, ocard, mb = cstep(card, ocard, on_card)
+        flips, n, max_over_lr = _updates_close(cpu.params, card.params, LM_TRAIN_LR)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    say("lm-train", check="card vs CPU port", arch=cfg.name, layers=cfg.num_layers, dtype="float32",
+        tf32=False, tokens=list(LM_TRAIN_CPU),
+        loss_cpu_card_f64=[f"{la.item():.6f}", f"{lb.item():.6f}", f"{l64.item():.6f}"],
+        grad_rel_vs_f64_cpu_card=[f"{cpu_rel:.3e}", f"{card_rel:.3e}"],
+        grad_rel_card_vs_cpu=f"{card_cpu_rel:.3e}", params_off_after_step=f"{flips}/{n}",
+        params_max_diff_over_lr=f"{max_over_lr:.3f}",
+        grad_norm=[f"{ma['grad_norm'].item():.6f}", f"{mb['grad_norm'].item():.6f}"], tol=LM_CPU_TOL)
+    del cpu, ocpu, card, ocard
+    _free()
+
+
+def lm_train_7b_phase(ctx):
+    """[lm-train-7b]: deepseek-7b at its full width, the depth cut to
+    LM_TRAIN_7B_LAYERS: bf16 parameters from SEED, float32 AdamW state, its
+    config's 4 microbatches (the float32 accumulation path) and untied
+    102,400-wide head (xent_loss in 4 chunks of 1,024): LM_TRAIN_7B_STEPS
+    steps timed and one more traced."""
+    import torch
+
+    from repro_torch.data.tokens import token_batches
+    from repro_torch.training import train_step as TS
+    from repro_torch.uda import tree_leaves
+
+    dev = ctx.dev
+    full = lm_config("deepseek_7b")
+    cfg = lm_config("deepseek_7b", LM_TRAIN_7B_LAYERS)
+    check(cfg.train_microbatches == 4 and not cfg.tie_embeddings,
+          "[lm-train-7b] deepseek-7b's config lost its 4 microbatches or its untied head")
+    B, S = LM_TRAIN_7B
+    step = TS.make_train_step(cfg, lr=LM_TRAIN_LR)
+    _free()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, opt = TS.init_train_state(cfg, seed=SEED, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_bytes = _nbytes(model.params) + _nbytes(list(opt[1:]))
+    shapes = [(t.shape, t.dtype) for t in tree_leaves(model.params)]
+    batches = token_batches(cfg, B, S, seed=SEED, device=dev)
+    model, opt, rows, _ = lm_train_steps(step, model, opt, batches, LM_TRAIN_7B_STEPS)
+    model, opt, traced = lm_train_trace(step, model, opt, next(batches)[0])
+    peak = torch.cuda.max_memory_allocated() - base
+    lm_train_checks("lm-train-7b", model, shapes, rows)
+    say("lm-train-7b", arch=cfg.name, cut=f"num_layers {full.num_layers}->{cfg.num_layers}",
+        d_model=cfg.d_model, heads=f"{cfg.num_heads}/{cfg.num_kv_heads}", d_ff=cfg.d_ff,
+        vocab_padded=cfg.vocab_padded, lr=LM_TRAIN_LR, optimizer=cfg.optimizer,
+        steps=f"{LM_TRAIN_7B_STEPS}+1 traced", init_s=f"{init_s:.3f}", state_bytes=state_bytes,
+        **lm_train_numbers(model, rows, B, S, traced, base, peak), card=ctx.smi)
+    del model, opt
+    _free()
+
+
+def lm_adaptive_phase(ctx):
+    """[lm-adaptive]: examples/adaptive_batch.py on smollm-135m at its full
+    size (bf16, AdamW): each of LM_ADAPTIVE's steps accumulates microbatch
+    grads until the loss mean's relative CI width reaches the target
+    (``accumulate_until_confident``), then updates; the grads held to the
+    mean of the first n_used microbatch grads made again, and one step's
+    seconds beside a full accumulation over every microbatch."""
+    import torch
+
+    from repro_torch.data.tokens import token_batches
+    from repro_torch.training import grad_estimator as GE
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train_step as TS
+    from repro_torch.uda import tree_leaves
+
+    dev = ctx.dev
+    cfg = lm_config("smollm_135m")
+    M, mb, S, target, steps = LM_ADAPTIVE
+    _free()
+    model, opt = TS.init_train_state(cfg, seed=SEED, dtype=torch.bfloat16, device=dev)
+
+    def grad_fn(m, batch):
+        (loss, _), g = TS.value_and_grad(m, cfg, batch)
+        return loss, g
+
+    batches = token_batches(cfg, M * mb, S, seed=SEED + 1, device=dev)
+    used, widths, secs, losses = [], [], [], []
+    for i in range(steps):
+        toks = next(batches)[0]["tokens"].reshape(M, mb, S)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grads, n_used, hist = GE.accumulate_until_confident(grad_fn, model, {"tokens": toks},
+                                                            target_rel_width=target)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if i == 0:  # the grads are the mean of the first n_used microbatch grads
+            acc = None
+            for j in range(n_used):
+                g = tree_leaves(grad_fn(model, {"tokens": toks[j]})[1])
+                acc = g if acc is None else [a + b for a, b in zip(acc, g)]
+            check(all(torch.equal(a / n_used, b) for a, b in zip(acc, tree_leaves(grads))),
+                  "[lm-adaptive] the grads differ from the mean of the first n_used microbatches'")
+            del acc, g
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            full, n_all, _ = GE.accumulate_until_confident(grad_fn, model, {"tokens": toks},
+                                                           target_rel_width=0.0)
+            torch.cuda.synchronize()
+            full_s = time.perf_counter() - t0
+            check(n_all == M, f"[lm-adaptive] the full accumulation used {n_all} of {M}")
+            del full
+        _, opt = O.opt_update(grads, opt, model.params, cfg.optimizer, lr=LM_TRAIN_LR)
+        used.append(n_used)
+        widths.append(hist[-1]["rel_width"])
+        losses.append(hist[-1]["loss"])
+        check(1 <= n_used <= M and math.isfinite(losses[-1]), f"[lm-adaptive] step {i}: {hist}")
+    say("lm-adaptive", arch=cfg.name, microbatches=M, microbatch=[mb, S], target_rel_width=target,
+        steps=steps, n_used=[f"{n}/{M}" for n in used], rel_width=[f"{w:.5f}" for w in widths],
+        loss=[f"{x:.4f}" for x in losses], step_s=[f"{x:.3f}" for x in secs],
+        full_accumulation_s=f"{full_s:.3f}", grads_vs_mean_of_first_n_used="bitwise", card=ctx.smi)
+    del model, opt, grads
+    _free()
+
+
 def lm_eval_phase(ctx):
     """[lm-eval]: examples/online_eval.py's pipeline on the port — a corpus
     of LM_EVAL's examples (token_batches, one column a position) randomized
     and packed on the card, the mean loss of smollm-135m at full size with
-    random bf16 weights estimated by run_query (K2) and by a Session under
+    the bf16 weights [lm-train] trained (``ctx.trained``) estimated by
+    run_query (K2) and by a Session under
     rel_width (K1 scalar a step), each held to the loss computed directly
     over every example; K1 scalar and K2 at the loss's shapes against their
     plain versions."""
@@ -1666,13 +2010,12 @@ def lm_eval_phase(ctx):
     from repro_torch.data.tokens import token_batches
     from repro_torch.kernels import fused_agg as FK
     from repro_torch.kernels import ref
-    from repro_torch.models import transformer as TT
 
     dev = ctx.dev
     n, seq, parts, chunk, rounds = LM_EVAL
-    cfg = lm_config("smollm_135m")
+    model = ctx.__dict__.pop("trained")
+    cfg = model.cfg
     _free()
-    model = TT.init_model(cfg, seed=SEED, dtype=torch.bfloat16, device=dev)
     t0 = time.perf_counter()
     toks, _ = next(token_batches(cfg, n, seq, seed=SEED, device=dev))
     toks = toks["tokens"]
@@ -3290,6 +3633,11 @@ def run(work: Path) -> None:
     lm_serve_phase(ctx)
     lm_serve_7b_phase(ctx)
     lm_widths_phase(ctx)
+    # -- 4h. training (dense family), then the online eval over the trained
+    # weights, as examples/online_eval.py orders them
+    lm_train_phase(ctx)
+    lm_train_7b_phase(ctx)
+    lm_adaptive_phase(ctx)
     lm_eval_phase(ctx)
 
     say("main-path launches", **launches)

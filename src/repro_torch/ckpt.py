@@ -1,20 +1,22 @@
 """Serialize / Deserialize — the paper's UDA transfer extension, for
-checkpoints of sessions (``Session.pause`` / ``Session.resume``).
+checkpoints of sessions (``Session.pause`` / ``Session.resume``) and of
+training (:func:`save_train_state` / :func:`load_train_state`).
 
-Port of ``repro/checkpoint/ckpt.py:52-125`` in a format of its own: the
+Port of ``repro/checkpoint/ckpt.py:52-145`` in a format of its own: the
 reference's msgpack envelope needs ``msgpack`` (and optionally
 ``zstandard``), which the port does not depend on.  Standard library and
 NumPy only.
 
 An *envelope* file is ``MAGIC``, the byte length of a JSON header as 8
 little-endian bytes, the header — ``{"framework": "repro_torch", "meta":
-meta}``, readable without the blob — and the state *blob*.  A blob
+meta}``, readable without the blob — and the state *blob*. A blob
 (:func:`serialize_state`) is zlib-compressed: an 8-byte header length, a
 JSON table (the state's structure and each leaf's dtype name, shape and
-byte range) and every leaf's little-endian raw bytes, so states come back
-bit for bit, ±inf included.  Writes are atomic (a temporary file, then
-``replace``).  A file that does not start with ``MAGIC`` — the reference's
-msgpack envelope, say — is refused as foreign with a ``ValueError``.
+byte range) and every leaf's little-endian raw bytes (a bfloat16 leaf's
+16-bit words), so states come back bit for bit, ±inf included. Writes are
+atomic (a temporary file, then ``replace``). A file that does not start
+with ``MAGIC`` — the reference's msgpack envelope, say — is refused as
+foreign with a ``ValueError``.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ from typing import Any, Tuple
 import numpy as np
 import torch
 
-from repro_torch.uda import tree_map
+from repro_torch.uda import tree_leaves, tree_map
 
 FRAMEWORK = "repro_torch"
 MAGIC = b"REPRO_TORCH_CKPT\x00"
@@ -52,24 +54,22 @@ def treedef(tree) -> str:
     return "*"
 
 
-def _leaves(tree) -> list:
-    out = []
-    tree_map(out.append, tree)
-    return out
-
-
-def serialize_state(state: Any) -> bytes:
-    """A state (tensors in tuples, NamedTuples, lists and dicts) -> bytes."""
+def serialize_state(state: Any, level: int = 6) -> bytes:
+    """A state (tensors in tuples, NamedTuples, lists and dicts) -> bytes,
+    zlib-compressed at ``level`` (0: stored, for weights that do not
+    compress)."""
     table, raw, off = [], [], 0
-    for leaf in _leaves(state):
-        a = leaf.detach().cpu().contiguous().numpy()
+    for leaf in tree_leaves(state):
+        t = leaf.detach().cpu().contiguous()
+        bf16 = t.dtype == torch.bfloat16  # NumPy has no bfloat16: its 16-bit words
+        a = (t.view(torch.int16) if bf16 else t).numpy()
         b = a.astype(a.dtype.newbyteorder("<"), copy=False).tobytes()
-        table.append({"dtype": a.dtype.name, "shape": list(a.shape),
+        table.append({"dtype": "bfloat16" if bf16 else a.dtype.name, "shape": list(a.shape),
                       "offset": off, "nbytes": len(b)})
         raw.append(b)
         off += len(b)
     head = json.dumps({"treedef": treedef(state), "leaves": table}).encode()
-    return zlib.compress(_LEN.pack(len(head)) + head + b"".join(raw), 6)
+    return zlib.compress(_LEN.pack(len(head)) + head + b"".join(raw), level)
 
 
 def deserialize_state(buf: bytes, like: Any, device="cpu") -> Any:
@@ -89,11 +89,13 @@ def deserialize_state(buf: bytes, like: Any, device="cpu") -> Any:
     leaves = []
     for rec in head["leaves"]:
         start = base + rec["offset"]
-        a = np.frombuffer(raw, dtype=np.dtype(rec["dtype"]).newbyteorder("<"),
+        bf16 = rec["dtype"] == "bfloat16"
+        a = np.frombuffer(raw, dtype=np.dtype(np.int16 if bf16 else rec["dtype"]).newbyteorder("<"),
                           count=int(np.prod(rec["shape"], dtype=np.int64)),
                           offset=start).reshape(rec["shape"])
         a = a.astype(a.dtype.newbyteorder("="), copy=True)  # native, writable
-        leaves.append(torch.from_numpy(a).to(device))
+        t = torch.from_numpy(a)
+        leaves.append((t.view(torch.bfloat16) if bf16 else t).to(device))
     it = iter(leaves)
     return tree_map(lambda _: next(it), like)
 
@@ -137,3 +139,35 @@ def require_version(meta: dict, supported, *, what: str = "checkpoint"):
         raise ValueError(f"unsupported {what} version: {version!r} "
                          f"(supported: {sorted(supported)})")
     return version
+
+
+TRAIN_STATE_VERSION = 1
+
+
+def save_train_state(path, params, opt_state, step: int, data_cursor: int) -> None:
+    """Atomically write a training state: the parameter tree, the optimizer
+    state, the step count and the data cursor (the position of
+    ``data.tokens.token_batches`` to resume from).  The blob is stored
+    uncompressed: float weights and moments shrink by about a tenth under
+    zlib, which took 115 s for smollm-135m's 1.9 GB of parameters and AdamW
+    state on the host of an NVIDIA H100 80GB HBM3 machine (7 s stored)."""
+    meta = {"kind": "train_state", "version": TRAIN_STATE_VERSION,
+            "step": int(step), "cursor": int(data_cursor)}
+    save_envelope(path, meta, serialize_state({"params": params, "opt": opt_state}, level=0))
+
+
+def load_train_state(path, params_like, opt_like, device="cuda"):
+    """Read :func:`save_train_state`'s file -> (params, opt_state, step,
+    cursor), the tensors new on ``device`` (the card unless the caller
+    asks for the CPU).  ``params_like`` and ``opt_like`` give the structure;
+    another structure, another version or a foreign file (the JAX package's
+    msgpack checkpoints among them) is a ``ValueError``."""
+    from repro_torch._device import resolve_device
+
+    dev = resolve_device(device)
+    meta, blob = load_envelope(path)
+    if meta.get("kind") != "train_state":
+        raise ValueError(f"{path}: not a training state (kind {meta.get('kind')!r})")
+    require_version(meta, (TRAIN_STATE_VERSION,), what="train state")
+    st = deserialize_state(blob, {"params": params_like, "opt": opt_like}, device=dev)
+    return st["params"], st["opt"], int(meta["step"]), int(meta["cursor"])

@@ -49,21 +49,46 @@ def _param_tensor(x, dev: torch.device) -> torch.Tensor:
     return _tensor(a, dev)
 
 
+def _param_tree(tree, dev: torch.device):
+    if isinstance(tree, dict):
+        return {k: _param_tree(v, dev) for k, v in tree.items()}
+    return _param_tensor(tree, dev)
+
+
 def lm_params_from_reference(np_params, cfg, device="cuda"):
     """The reference's LM parameter tree (``repro.models.transformer``'s
     ``param_specs`` layout, leaves numpy or JAX arrays) -> the port's
-    ``Transformer``: each ``layers/b{i}/*`` leaf [n_groups, ...] unstacked
-    into the module's per-layer parameters, dtypes kept."""
+    ``Transformer`` over the same tree (stacked ``layers/b{i}/*`` leaves
+    included), dtypes kept, parameters frozen."""
     from repro_torch.models.transformer import Transformer
 
+    return Transformer(cfg, _param_tree(np_params, resolve_device(device)))
+
+
+def lm_train_state_from_reference(np_params, np_opt, cfg, device="cuda"):
+    """The reference's parameters and optimizer state (an ``AdamWState`` or
+    ``AdafactorState`` of ``repro.training.optimizer``, leaves numpy or JAX
+    arrays) -> (a trainable ``Transformer``, the port's state of the same
+    kind), so that both packages train from the same point."""
+    from repro_torch.training import optimizer as O
+
     dev = resolve_device(device)
+    model = lm_params_from_reference(np_params, cfg, dev).requires_grad_(True)
+    kind = O.AdamWState if hasattr(np_opt, "master") else O.AdafactorState
+    step = torch.as_tensor(int(np.asarray(np_opt.step)), dtype=torch.int32, device=dev)
+    return model, kind(step, *(_param_tree(getattr(np_opt, f), dev) for f in kind._fields[1:]))
 
-    def conv(tree):
-        if isinstance(tree, dict):
-            return {k: conv(v) for k, v in tree.items()}
-        return _param_tensor(tree, dev)
 
-    return Transformer(cfg, conv(np_params))
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A tensor -> numpy; bf16 as float32 (exact)."""
+    t = t.detach().cpu()
+    return (t.to(torch.float32) if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def lm_params_to_numpy(model):
+    """A ``Transformer``'s parameters -> the reference's stacked tree of
+    numpy arrays (bf16 leaves as float32, exact)."""
+    return tree_map(_host, model.params)
 
 
 def lm_cache_to_numpy(cache, cfg):
@@ -74,16 +99,12 @@ def lm_cache_to_numpy(cache, cfg):
     pat = len(cfg.block_pattern)
     n_groups = cfg.num_layers // pat
 
-    def host(t):
-        t = t.detach().cpu()
-        return (t.to(torch.float32) if t.dtype == torch.bfloat16 else t).numpy()
-
     def stack(layers):
-        return {k: np.stack([host(c[k]) for c in layers]) for k in layers[0]}
+        return {k: np.stack([_host(c[k]) for c in layers]) for k in layers[0]}
 
     return {"layers": {f"b{j}": stack(cache[j:n_groups * pat:pat]) for j in range(pat)}
             if n_groups else {},
-            "tail": {f"t{i}": {k: host(v) for k, v in c.items()}
+            "tail": {f"t{i}": {k: _host(v) for k, v in c.items()}
                      for i, c in enumerate(cache[n_groups * pat:])}}
 
 

@@ -41,7 +41,7 @@ def _align(x, like: torch.Tensor) -> torch.Tensor:
     """``x`` as a tensor on ``like``'s device, padded with trailing unit
     axes so that it broadcasts against ``like`` from the left."""
     x = torch.as_tensor(x, dtype=like.dtype, device=like.device)
-    return x.reshape(*x.shape, *([1] * (like.ndim - x.ndim)))
+    return x.reshape(tuple(x.shape) + (1,) * (like.ndim - x.ndim))
 
 
 def zq(confidence) -> torch.Tensor:

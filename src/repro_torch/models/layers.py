@@ -19,7 +19,9 @@ reference where it decides the result:
 key-block range each block can see (triangle scheduling: no work on a fully
 masked block); within a block it takes one masked softmax over that range,
 where the reference runs an online softmax over its key blocks — the same
-function, summed in another order.
+function, summed in another order.  Under autograd each query block is
+recomputed in the backward (``torch.utils.checkpoint``), as the reference
+rematerializes each key-block step: remat changes memory, not values.
 
 Mask modes:
   causal  — standard autoregressive
@@ -35,6 +37,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -1e30
 _F32 = torch.float32
@@ -137,15 +140,11 @@ def flash_attention(q, k, v, *, mode="causal", window=None, cap=None,
         kvb = pick(Sk, kv_block)
     n_q, n_kv = Sq // qb, Sk // kvb
     scale = 1.0 / math.sqrt(dh)
-    kf, vdt = k.to(_F32), v.dtype
+    vdt = v.dtype
 
-    outs = []
-    for i in range(n_q):
-        lo, hi = _kv_block_range(i, n_kv, qb, kvb, mode, window)
-        qi = q[:, i * qb:(i + 1) * qb].reshape(B, qb, K, G, dh).to(_F32)
-        kj = kf[:, lo * kvb:hi * kvb]
-        vj = v[:, lo * kvb:hi * kvb].to(_F32)
-        s = torch.einsum("bqkgd,btkd->bqkgt", qi, kj) * scale
+    def block(i, lo, hi, qi, kj, vj):
+        qi = qi.reshape(B, qb, K, G, dh).to(_F32)
+        s = torch.einsum("bqkgd,btkd->bqkgt", qi, kj.to(_F32)) * scale
         s = softcap(s, cap)
         if mode != "full":
             qpos = i * qb + torch.arange(qb, device=q.device)
@@ -159,9 +158,20 @@ def flash_attention(q, k, v, *, mode="causal", window=None, cap=None,
         m = torch.amax(s, dim=-1, keepdim=True)
         p = torch.exp(s - m)
         den = torch.sum(p, dim=-1)
-        o = torch.einsum("bqkgt,btkd->bqkgd", p.to(vdt).to(_F32), vj)
+        o = torch.einsum("bqkgt,btkd->bqkgd", p.to(vdt).to(_F32), vj.to(_F32))
         o = o / torch.clamp(den, min=1e-30)[..., None]
-        outs.append(o.reshape(B, qb, H, dh))
+        return o.reshape(B, qb, H, dh)
+
+    # under autograd each query block is rematerialized (the reference
+    # checkpoints each key-block step): only its q/k/v slices are saved,
+    # never its float32 [B, qb, K, G, Sk] scores
+    remat = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
+    outs = []
+    for i in range(n_q):
+        lo, hi = _kv_block_range(i, n_kv, qb, kvb, mode, window)
+        args = (i, lo, hi, q[:, i * qb:(i + 1) * qb], k[:, lo * kvb:hi * kvb],
+                v[:, lo * kvb:hi * kvb])
+        outs.append(checkpoint(block, *args, use_reentrant=False) if remat else block(*args))
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
@@ -190,6 +200,25 @@ def decode_attention(q, k_cache, v_cache, valid, *, cap=None):
 
 # --------------------------------------------------------------------------- mlp
 
+class _Logistic(torch.autograd.Function):
+    """``lax.logistic``: forward ``1 / (1 + exp(-x))`` one primitive at a
+    time in ``x``'s dtype; backward the primitive's own rule ``g * (y * (1 -
+    y))``.  Autograd through the forward's primitives would make ``0 * inf``
+    (NaN) wherever ``exp(-x)`` overflows, below about -88."""
+
+    @staticmethod
+    def forward(ctx, x):
+        one = torch.ones((), dtype=x.dtype, device=x.device)
+        y = one / (one + torch.exp(-x))
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g * (y * (1 - y))
+
+
 def mlp_act(x, kind: str):
     """The reference's activations, one primitive at a time in ``x``'s
     dtype: ``jax.nn.silu`` is ``x * logistic(x)`` with ``logistic`` lowered
@@ -198,7 +227,7 @@ def mlp_act(x, kind: str):
     (``F.silu``, ``F.gelu``) do not, so they differ in most bf16 entries."""
     one = torch.ones((), dtype=x.dtype, device=x.device)
     if kind == "silu":
-        return x * (one / (one + torch.exp(-x)))
+        return x * _Logistic.apply(x)
     if kind == "gelu":
         c = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype, device=x.device)
         k = torch.tensor(0.044715, dtype=x.dtype, device=x.device)

@@ -1,21 +1,23 @@
-"""The dense decoder-only LM: parameter specs, forward (prefill), KV caches
-and the decode step.
+"""The dense decoder-only LM: parameter specs, forward (prefill and
+training), the chunked cross-entropy, KV caches and the decode step.
 
 Port of the dense path of ``repro/models/transformer.py``: every layer an
 ``attn`` block (global causal attention + a dense MLP), RMSNorm or
 LayerNorm, RoPE or no positions, tied or untied unembedding, qk-norm, a
 bf16 or int8 KV cache.  The reference scans its layer groups over
-parameters stacked on a leading "layers" axis; here the stack is unstacked
-into a ``ModuleList`` of per-layer parameter trees (views of the stacked
-tensors, no copy) and the scan is a loop.  :class:`Transformer`'s methods
-carry the reference's function names: ``forward(batch, cache_len=)``,
-``unembed``, ``init_cache``, ``decode_step``.
+parameters stacked on a leading "layers" axis; here the parameters are
+those same stacked leaves, each group takes its slices inside the forward
+and the scan is a loop, under the config's ``remat`` policy
+(``torch.utils.checkpoint``) when the forward builds a graph.
+:class:`Transformer`'s methods carry the reference's function names:
+``forward(batch, cache_len=)``, ``unembed``, ``init_cache``,
+``decode_step``; :func:`xent_loss` is the reference's.
 
 Left out on purpose: ``pin_batch_activation`` and ``_pin_replicated_heads``
-are GSPMD sharding constraints and mean nothing on one card; ``remat`` is
-for training.  Everything else the reference's configs use — the other
-block types, experts, encoder-decoder, frontends, learned positions —
-raises ``NotImplementedError`` naming the ROADMAP slice that ports it.
+are GSPMD sharding constraints and mean nothing on one card.  Everything
+else the reference's configs use — the other block types, experts,
+encoder-decoder, frontends, learned positions — raises
+``NotImplementedError`` naming the ROADMAP slice that ports it.
 
 Caches: a list with one dict per layer, in layer order (the reference's
 tree of stacked leaves comes back through
@@ -29,11 +31,13 @@ caller that needs the old cache copies it first.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
@@ -143,12 +147,14 @@ def param_specs(cfg: ArchConfig, dtype=torch.bfloat16) -> Dict[str, Any]:
 
 class ParamTree(nn.Module):
     """A dict tree of tensors as a module: sub-dicts are child modules,
-    tensors frozen parameters; ``tree["ln1"]["scale"]`` reads as the
-    reference's parameter dicts do."""
+    tensors parameters, frozen until ``requires_grad_``;
+    ``tree["ln1"]["scale"]`` reads as the reference's parameter dicts do."""
 
     def __init__(self, tree: Dict[str, Any]):
         super().__init__()
-        for k, v in tree.items():
+        self._keys = sorted(tree)
+        for k in self._keys:
+            v = tree[k]
             if isinstance(v, dict):
                 self.add_module(k, ParamTree(v))
             else:
@@ -156,6 +162,49 @@ class ParamTree(nn.Module):
 
     def __getitem__(self, key):
         return getattr(self, key)
+
+    def tree(self) -> Dict[str, Any]:
+        """The parameters as a nested dict, keys sorted at every level (the
+        order of ``jax.tree.leaves`` on the reference's tree)."""
+        return {k: self[k].tree() if isinstance(self[k], ParamTree) else self[k]
+                for k in self._keys}
+
+
+def _unstack(tree, n: int) -> list:
+    """A dict tree of [n, ...] tensors -> n trees of their slices, through
+    one ``unbind`` a leaf (its backward stacks the n gradients once)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep every matmul's output, recompute the rest (the
+    reference's ``jax.checkpoint_policies.dots_saveable``)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.bmm.default, aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_wrap(fn, policy: str):
+    """The reference's ``_remat_wrap``: ``"none"`` keeps every activation,
+    ``"full"`` recomputes the whole wrapped function in the backward,
+    ``"dots"`` recomputes all but the matmuls' outputs.  Values do not
+    change, only what the backward keeps."""
+    if policy == "none":
+        return fn
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    if policy == "dots":
+        ctx = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False, context_fn=ctx)
+    if policy != "full":
+        raise ValueError(f"remat {policy!r}: use 'full', 'dots' or 'none'")
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False)
 
 
 def _proj(h, w):
@@ -211,28 +260,38 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device="cuda"):
 
 class Transformer(nn.Module):
     """The dense LM over a parameter tree in the reference's layout (the
-    tree :func:`param_specs` describes, as tensors on one device)."""
+    tree :func:`param_specs` describes, as tensors on one device).
+
+    The parameters are the reference's leaves, stacked ones included:
+    ``params["layers"]["b0"]["wq"]`` is one [n_groups, d, H, dh] parameter,
+    and each layer reads its slice of it inside :meth:`forward`, so a
+    backward carries the gradients into the stacked leaves, the layout the
+    reference differentiates and its optimizers update.  They are frozen
+    (``requires_grad=False``) until ``requires_grad_()``, as
+    ``training.train_step.init_train_state`` calls it; the serving paths
+    (``forward(cache_len=)``, ``decode_step``, ``example_nll``) run under
+    ``torch.no_grad()`` either way."""
 
     def __init__(self, cfg: ArchConfig, params: Dict[str, Any]):
         super().__init__()
         check_dense(cfg)
         self.cfg = cfg
-        pat, n_groups, tail = _layer_layout(cfg)
+        self.weights = ParamTree(params)
+        #: the parameters as the reference's dict tree (sorted keys)
+        self.params = self.weights.tree()
 
-        def take(tree, i):
-            if isinstance(tree, dict):
-                return {k: take(v, i) for k, v in tree.items()}
-            return tree[i]
-
-        per_layer = [take(params["layers"][f"b{j}"], i)
-                     for i in range(n_groups) for j in range(len(pat))]
-        per_layer += [params["tail"][f"t{i}"] for i in range(len(tail))]
-        self.layers = nn.ModuleList(ParamTree(p) for p in per_layer)
-        self.top = ParamTree({k: v for k, v in params.items() if k not in ("layers", "tail")})
+    @property
+    def layers(self) -> list:
+        """Each layer's parameter tree, in layer order (slices of the
+        stacked leaves, then the tail's)."""
+        pat, n_groups, tail = _layer_layout(self.cfg)
+        groups = [_unstack(self.params["layers"][f"b{j}"], n_groups) for j in range(len(pat))]
+        return ([g[i] for i in range(n_groups) for g in groups]
+                + [self.params["tail"][f"t{i}"] for i in range(len(tail))])
 
     @property
     def device(self) -> torch.device:
-        return self.top["embed"].device
+        return self.params["embed"].device
 
     # ------------------------------------------------------------------ prefill
 
@@ -270,23 +329,55 @@ class Transformer(nn.Module):
             return {"k": kq, "v": vq, "ks": ks, "vs": vs}
         return {"k": kf.to(torch.bfloat16), "v": vf.to(torch.bfloat16)}
 
+    def _group(self, x, gp, cache_len: int = 0):
+        """One layer group (the reference's scanned ``group_fn``): each
+        block of the pattern in turn -> (x, the blocks' caches)."""
+        caches = []
+        for j in range(len(self.cfg.block_pattern)):
+            x, c = self._attn_train(gp[f"b{j}"], x, cache_len)
+            caches.append(c)
+        return x, caches
+
     def forward(self, batch: Dict[str, torch.Tensor], cache_len: int = 0):
         """Full-sequence forward -> (final hidden states [B, S, d], aux,
-        caches).  With ``cache_len`` > 0 this is the prefill: per-layer
-        decode caches with the K/V packed (or quantized) into ``cache_len``
-        slots, in :func:`init_cache`'s layout; else ``None``."""
-        x = self.top["embed"][batch["tokens"].long()]
+        caches).  With ``cache_len`` > 0 this is the prefill (under
+        ``torch.no_grad()``): per-layer decode caches with the K/V packed
+        (or quantized) into ``cache_len`` slots, in :func:`init_cache`'s
+        layout; else ``None``.  When it builds a graph, each layer group
+        runs under the config's ``remat`` policy (:func:`_remat_wrap`)."""
+        if cache_len:
+            with torch.no_grad():
+                return self._forward(batch, cache_len)
+        return self._forward(batch, 0)
+
+    def _forward(self, batch, cache_len: int):
+        cfg = self.cfg
+        pat, n_groups, tail = _layer_layout(cfg)
+        # F.embedding, not indexing: the backward of ``embed[tokens]``
+        # (index_put_ with accumulate) is not deterministic on the CPU, and
+        # a resumed run must be bitwise an uninterrupted one
+        x = F.embedding(batch["tokens"].long(), self.params["embed"])
+        group = functools.partial(self._group, cache_len=cache_len)
+        if torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters()):
+            group = _remat_wrap(group, cfg.remat)
+        stacks = [_unstack(self.params["layers"][f"b{j}"], n_groups) for j in range(len(pat))]
         caches = []
-        for p in self.layers:
-            x, c = self._attn_train(p, x, cache_len)
+        for i in range(n_groups):
+            x, cs = group(x, {f"b{j}": stacks[j][i] for j in range(len(pat))})
+            caches += cs
+        for i in range(len(tail)):
+            x, c = self._attn_train(self.params["tail"][f"t{i}"], x, cache_len)
             caches.append(c)
-        x = apply_norm(x, self.top["ln_f"], self.cfg.norm)
+        x = apply_norm(x, self.params["ln_f"], cfg.norm)
         aux = torch.zeros((), dtype=_F32, device=x.device)
         return x, aux, (caches if cache_len else None)
 
+    def head(self):
+        """The unembedding [d, V_padded]: ``embed.T`` when tied."""
+        return self.params["embed"].T if self.cfg.tie_embeddings else self.params["lm_head"]
+
     def unembed(self, x):
-        head = self.top["embed"].T if self.cfg.tie_embeddings else self.top["lm_head"]
-        return x @ head
+        return x @ self.head()
 
     # ------------------------------------------------------------------ decode
 
@@ -318,18 +409,20 @@ class Transformer(nn.Module):
         h2 = apply_norm(x1, p["ln2"], cfg.norm)
         return x1 + mlp(p["mlp"], h2, cfg)
 
+    @torch.no_grad()
     def decode_step(self, token, cache, pos):
         """One decoding step: token [B] ids, ``pos`` the position (an int).
         Returns (logits [B, V_padded] float32, the cache updated in place)."""
         pos = int(pos)
-        x1 = self.top["embed"][token.long()]
+        x1 = F.embedding(token.long(), self.params["embed"])
         for p, c in zip(self.layers, cache):
             x1 = self._attn_decode(p, x1, c, pos)
-        x1 = apply_norm(x1, self.top["ln_f"], self.cfg.norm)
+        x1 = apply_norm(x1, self.params["ln_f"], self.cfg.norm)
         return self.unembed(x1).to(_F32), cache
 
     # ------------------------------------------------------------------ eval
 
+    @torch.no_grad()
     def example_nll(self, tokens, *, block: int = 512, rows: int = 4096):
         """Mean next-token negative log-likelihood of each example
         ([n, S] tokens -> [n] float32): the reference's
@@ -339,7 +432,7 @@ class Transformer(nn.Module):
         and the float32 logits of at most ``rows`` positions exist at once
         (all n examples' logits at a real vocabulary would not fit)."""
         n, S = tokens.shape
-        head = self.top["embed"].T if self.cfg.tie_embeddings else self.top["lm_head"]
+        head = self.head()
         out = torch.empty(n, dtype=_F32, device=self.device)
         for i in range(0, n, block):
             tt = tokens[i:i + block].long()
@@ -353,6 +446,36 @@ class Transformer(nn.Module):
                                    - logits.gather(-1, tgt[j:j + rows])[:, 0])
             out[i:i + tt.shape[0]] = nll.reshape(tt.shape[0], S - 1).mean(dim=1)
         return out
+
+
+def xent_loss(model: Transformer, cfg: ArchConfig, x, targets, mask, seq_chunk: int = 1024):
+    """Chunked softmax cross-entropy (the reference's ``xent_loss``): the
+    masked negative log-likelihood summed in float32 over sequence chunks of
+    ``seq_chunk`` (lowered until it divides S), over the mask's sum.
+
+    x [B, S, d]; targets and mask [B, S].  One chunk's float32 logits [B, c,
+    V] exist at a time: under autograd each chunk is recomputed in the
+    backward, so the graph keeps only x, never [B, S, V]."""
+    B, S, _ = x.shape
+    head = model.head()
+    c = min(seq_chunk, S)
+    while S % c:
+        c -= 1
+
+    def chunk_loss(xc, tc, mc, head):
+        logits = (xc @ head).to(_F32)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, tc.long()[..., None])[..., 0]
+        return torch.sum((lse - gold) * mc)
+
+    remat = torch.is_grad_enabled() and (x.requires_grad or head.requires_grad)
+    total = torch.zeros((), dtype=_F32, device=x.device)
+    for i in range(S // c):
+        args = (x[:, i * c:(i + 1) * c], targets[:, i * c:(i + 1) * c],
+                mask[:, i * c:(i + 1) * c], head)
+        total = total + (checkpoint(chunk_loss, *args, use_reentrant=False) if remat
+                         else chunk_loss(*args))
+    return total / torch.clamp(torch.sum(mask), min=1.0)
 
 
 def init_model(cfg: ArchConfig, *, seed: int = 0, dtype=torch.bfloat16,

@@ -163,6 +163,14 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a state in :func:`tree_map`'s order (dicts in key
+    insertion order) — the port's ``jax.tree.leaves``."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
 def tree_stack(trees, dim: int = 0):
     """Stack a list of same-structured states along a new axis ``dim``."""
     return tree_map(lambda *xs: torch.stack(xs, dim), *trees)
