@@ -49,7 +49,12 @@ a resumed run bitwise an uninterrupted one, the card's float32 grads held
 with the CPU port's to float64 — and of deepseek-7b at full width cut to 4
 layers through its 4-microbatch float32 accumulation; the
 confidence-bounded gradient accumulation; and the online eval of the
-trained model's loss through K2 and K1 scalar.
+trained model's loss through K2 and K1 scalar.  The MoE family runs first,
+right after the build, in a process of its own while the card holds
+nothing else: greedy serving of llama4-maverick (full width, 2 layers, a
+prompt of 8,160 tokens whose decode crosses its 8,192-token chunk) and
+grok-1 (full width, 4 layers), and training of grok-1 at full width cut to
+one layer through its 16-microbatch float32 accumulation and a resume.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.  The last line is the run's JSON summary.
@@ -59,6 +64,7 @@ from __future__ import annotations
 import json
 import math
 import multiprocessing
+import os
 import pickle
 import shutil
 import statistics
@@ -193,6 +199,26 @@ LM_TRAIN_7B, LM_TRAIN_7B_LAYERS, LM_TRAIN_7B_STEPS = (8, 4096), 4, 3
 #: width, steps
 LM_ADAPTIVE = (16, 4, 512, 0.08, 4)
 BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 dense, tensor cores
+#: the MoE phases, in a process of their own (argument MOE_CHILD) on an
+#: empty card: [lm-moe-serve] (arch, layers, batch, prompt, generated
+#: tokens) — llama4-maverick at full width cut 48 -> 2 layers (its first two
+#: layer types, both attn_chunked; 68.8 GB of bf16 weights), a prompt of
+#: 8,160 tokens whose decode crosses the 8,192-token chunk at step 32, and
+#: grok-1 cut 64 -> 4 layers (42.6 GB), its softcapped attention;
+#: incremental decode against the forward at the capacity factor
+#: LM_MOE_NODROP, which drops nothing, in bf16 at those depths and in
+#: float32 at LM_MOE_F32_LAYERS (llama4: 73 GB of float32 weights)
+MOE_CHILD, MOE_CHILD_S = "--moe-child", 480
+LM_MOE_ARCHS = ("llama4_maverick_400b_a17b", "grok_1_314b")
+LM_MOE_SERVE = ((LM_MOE_ARCHS[0], 2, 2, 8160, 64), (LM_MOE_ARCHS[1], 4, 8, 512, 16))
+LM_MOE_NODROP, LM_MOE_F32_LAYERS = 8.0, 1
+#: [lm-moe-train]: grok-1 at full width cut 64 -> 1 layer, train_4k's
+#: sequence of 4,096, a global batch of 16 in its config's 16 microbatches,
+#: steps (+1 traced); llama4 trains only at smoke size (one full-width layer
+#: with its float32 accumulation, about 36.5 + 73 GB, does not fit one
+#: card); the smoke configs' card-vs-CPU check at (batch, sequence)
+LM_MOE_TRAIN = (LM_MOE_ARCHS[1], 1, 16, 4096, 4)
+LM_MOE_CPU = (4, 64)
 
 
 def fail(msg: str):
@@ -218,6 +244,9 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: this script needs a GPU")
     if sys.argv[1:2] == [RESUME_CHILD]:  # the [pause] phase's fresh process
         resume_child(Path(sys.argv[2]))
+        return
+    if sys.argv[1:2] == [MOE_CHILD]:  # the MoE phases' process
+        moe_child(Path(sys.argv[2]))
         return
     work = ROOT / "build" / "chip_smoke_sources"  # git-ignored; deleted at the end
     try:
@@ -1405,13 +1434,14 @@ def lm_serve(model, batch: dict, gen: int):
     prefill, decode = SS.make_prefill(cfg, prompt + gen + 1), SS.make_decode(cfg)
     (logits, cache), pre_ms = _events_ms(lambda: prefill(model, batch))
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
-    out, step_ms = [tok], []
+    out, step_ms, finite = [tok], [], torch.isfinite(logits).all()
     for i in range(gen - 1):
         (logits, cache), ms = _events_ms(lambda: decode(model, cache, tok, prompt + i))
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
         out.append(tok)
         step_ms.append(ms)
-    check(bool(torch.isfinite(logits).all()), f"{cfg.name}: non-finite logits")
+        finite &= torch.isfinite(logits).all()
+    check(bool(finite), f"{cfg.name}: non-finite logits")
     return torch.stack(out, dim=1), pre_ms, step_ms, cache
 
 
@@ -1439,7 +1469,8 @@ def lm_incremental_rel(model, tokens, cache_dtype) -> float:
     S = tokens.shape[1]
     x, _, _ = model.forward({"tokens": tokens})
     ref = model.unembed(x[:, -1]).float()
-    cache = [{k: v.to(cache_dtype) for k, v in c.items()} for c in model.init_cache(tokens.shape[0], S)]
+    cache = [{k: v.to(cache_dtype) if v.is_floating_point() else v for k, v in c.items()}
+             for c in model.init_cache(tokens.shape[0], S)]
     for t in range(S):
         logits, cache = model.decode_step(tokens[:, t], cache, t)
     return ((logits - ref).abs().max() / ref.abs().max()).item()
@@ -1678,13 +1709,12 @@ def lm_widths_phase(ctx):
 
 def lm_train_flops(model, batch: int, seq: int) -> float:
     """Operations of one train step: 6·N·T for the matmuls (N the
-    parameters a token multiplies by — an untied input embedding is a
-    lookup and not counted — T = batch·seq tokens), plus causal attention's
-    QKᵀ and PV, forward and backward: 6·layers·batch·seq²·heads·head_dim."""
+    parameters a token multiplies by, :func:`lm_active_params` — an untied
+    input embedding is a lookup and not counted, nor the experts a token is
+    not routed to — T = batch·seq tokens), plus causal attention's QKᵀ and
+    PV, forward and backward: 6·layers·batch·seq²·heads·head_dim."""
     cfg = model.cfg
-    n = sum(p.numel() for p in model.parameters())
-    if not cfg.tie_embeddings:
-        n -= model.params["embed"].numel()
+    n = lm_active_params(cfg, [(p.shape, p.dtype) for p in model.parameters()])
     return 6.0 * n * batch * seq + 6.0 * cfg.num_layers * batch * seq * seq * cfg.num_heads * cfg.head_dim_
 
 
@@ -1751,12 +1781,15 @@ def lm_train_numbers(model, rows, batch: int, seq: int, traced, base: int, peak:
         loss=[f"{r[1]:.4f}" for r in rows], grad_norm=[f"{r[2]:.4f}" for r in rows])
 
 
-def lm_train_checks(phase: str, model, shapes, rows) -> None:
+def lm_train_checks(phase: str, model, shapes, rows, falls: bool = True) -> None:
+    """Every loss and grad norm finite, the parameters' shapes and dtypes
+    kept, and (``falls``) the last loss below the first."""
     from repro_torch.uda import tree_leaves
 
     check(all(math.isfinite(r[1]) and math.isfinite(r[2]) for r in rows),
           f"[{phase}] a loss or grad norm is not finite: {rows}")
-    check(rows[-1][1] < rows[0][1], f"[{phase}] the loss did not fall: {rows[0][1]} -> {rows[-1][1]}")
+    check(not falls or rows[-1][1] < rows[0][1],
+          f"[{phase}] the loss did not fall: {rows[0][1]} -> {rows[-1][1]}")
     check([(t.shape, t.dtype) for t in tree_leaves(model.params)] == shapes,
           f"[{phase}] a parameter changed its shape or dtype")
 
@@ -2084,6 +2117,305 @@ def lm_eval_phase(ctx):
     _free()
 
 
+def _expert_std(model) -> float:
+    """The std a layer's expert leaves were drawn at: 1/sqrt(fan-in), the
+    fan-in being the leaf's leading dim (the layer count of a stacked leaf,
+    E of a tail layer's), as the reference's rule has it."""
+    layers = model.params["layers"] or model.params["tail"]
+    wi = next(iter(layers.values()))["mlp"]["wi"]
+    return 1.0 / math.sqrt(wi.shape[0])
+
+
+def _expert_bytes(model) -> int:
+    """Bytes of every expert weight (wi, wg, wo of every MoE layer)."""
+    return sum(_nbytes({k: v for k, v in b["mlp"].items() if k != "router"})
+               for part in ("layers", "tail") for b in model.params[part].values())
+
+
+def _ring_ok(cache, cfg, pos_next: int) -> bool:
+    """Each attn_chunked layer's ring holds, in slot ``p % W``, the latest
+    position p below ``pos_next``, and -1 where no position was written."""
+    import torch
+
+    for c, lt in zip(cache, cfg.layer_types()):
+        if lt != "attn_chunked":
+            continue
+        W = c["kpos"].shape[0]
+        want = torch.full((W,), -1, dtype=torch.int32)
+        pos = torch.arange(max(0, pos_next - W), pos_next, dtype=torch.int32)
+        want[(pos % W).long()] = pos
+        if not torch.equal(c["kpos"].cpu(), want):
+            return False
+    return True
+
+
+def lm_moe_serve_phase(ctx, arch: str, layers: int, B: int, prompt: int, gen: int):
+    """[lm-moe-serve]: an MoE config at its full width, the depth cut to
+    ``layers``, random bf16 weights drawn from SEED (the sliced init):
+    greedy serving of B prompts of ``prompt`` tokens for ``gen`` tokens,
+    each call timed, beside greedy_generate; the ring's kpos after the
+    prefill and at the end (past a chunk boundary where the decode crosses
+    one); the share of (token, slot) pairs the prefill drops at the
+    config's capacity; the decode's byte bound and one traced step; then
+    incremental decode against the forward at a capacity that drops
+    nothing, in bf16 at this depth and in float32 at LM_MOE_F32_LAYERS."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import serve_step as SS
+    from repro_torch.data.tokens import token_batches
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as TT
+
+    dev = ctx.dev
+    full = lm_config(arch)
+    cfg = lm_config(arch, layers)
+    _free()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = TT.init_model(cfg, seed=SEED, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() - base
+    batch, _ = next(token_batches(cfg, B, prompt, seed=SEED, device=dev))
+    L = prompt + gen + 1
+    # first calls (cuBLAS handles, workspaces), and the ring after a prefill
+    _, cache = SS.make_prefill(cfg, L)(model, batch)
+    ring_prefill = _ring_ok(cache, cfg, prompt)
+    SS.make_decode(cfg)(model, cache, batch["tokens"][:, -1], prompt)
+    del cache
+    torch.cuda.reset_peak_memory_stats()
+    with MOE.drop_log() as drops:
+        toks, pre_ms, step_ms, cache = lm_serve(model, batch, gen)
+    peak = torch.cuda.max_memory_allocated() - base
+    dropped = sum(int(n) for n, _ in drops[:layers])  # the prefill: one call a layer
+    pairs = sum(m for _, m in drops[:layers])
+    ring_end = _ring_ok(cache, cfg, prompt + gen - 1)
+    chunked = "attn_chunked" in cfg.layer_types()
+    check(ring_prefill and ring_end, f"[lm-moe-serve] {arch}: a ring's kpos is not what the "
+          f"positions say (after the prefill: {ring_prefill}, at the end: {ring_end})")
+    t0 = time.perf_counter()
+    greedy = SS.greedy_generate(cfg, model, batch, steps=gen, cache_len=L)
+    torch.cuda.synchronize()
+    greedy_s = time.perf_counter() - t0
+    check(torch.equal(greedy, toks), f"[lm-moe-serve] {arch}: greedy_generate's tokens differ "
+          "from the timed run's")
+    check(int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_padded,
+          f"[lm-moe-serve] {arch}: a token outside the padded vocabulary")
+    nbytes = lm_decode_bytes(model, cache, B)
+    ebytes = _expert_bytes(model)
+    kernels, dev_ms, wall_ms = lm_decode_trace(model, cache, toks[:, -1], prompt + gen - 1)
+    del cache
+    # incremental decode against the forward at a capacity that drops
+    # nothing: a forward over B·S tokens and a decode over B fill the
+    # experts differently, so under drops they differ by design
+    nodrop = dataclasses.replace(cfg, expert_capacity_factor=LM_MOE_NODROP)
+    itoks = batch["tokens"][:2, :LM_INCR_TOKENS]
+    rel = lm_incremental_rel(TT.Transformer(nodrop, model.params), itoks, torch.bfloat16)
+    check(rel <= LM_BF16_INCR_TOL, f"[lm-moe-serve] {arch}: bf16 incremental decode off by {rel:.3e}")
+    n_params = sum(p.numel() for p in model.parameters())
+    wbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    std = _expert_std(model)
+    del model, greedy
+    _free()
+    c32 = dataclasses.replace(nodrop, num_layers=LM_MOE_F32_LAYERS)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        m32 = TT.init_model(c32, seed=SEED, dtype=torch.float32, device=dev)
+        f32_bytes = sum(p.numel() * p.element_size() for p in m32.parameters())
+        rel32 = lm_incremental_rel(m32, itoks, torch.float32)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    del m32
+    _free()
+    check(rel32 <= LM_F32_INCR_TOL, f"[lm-moe-serve] {arch}: f32 incremental decode off by {rel32:.3e}")
+    dec = statistics.median(step_ms)
+    say("lm-moe-serve", arch=cfg.name, cut=f"num_layers {full.num_layers}->{cfg.num_layers}",
+        layer_types=list(cfg.layer_types()), d_model=cfg.d_model,
+        heads=f"{cfg.num_heads}/{cfg.num_kv_heads}", d_ff=cfg.d_ff,
+        experts=f"{cfg.num_experts} top-{cfg.experts_per_token}", vocab_padded=cfg.vocab_padded,
+        attn_chunk=cfg.attn_chunk, softcap=cfg.logit_softcap, expert_std=f"{std:.6f}",
+        params=n_params, weight_bytes=wbytes, expert_bytes=ebytes, init_s=f"{init_s:.3f}",
+        peak_bytes_init=init_peak, batch=B, prompt=prompt, generated=gen,
+        prefill_ms=f"{pre_ms:.6f}", prefill_tokens_per_s=f"{B * prompt / pre_ms * 1e3:.1f}",
+        capacity_factor=cfg.expert_capacity_factor, moe_groups=cfg.moe_groups,
+        prefill_pairs_dropped=f"{dropped}/{pairs}", prefill_drop_share=f"{dropped / pairs:.6f}",
+        decode_ms_per_step=f"{dec:.6f}",
+        decode_ms_min_max=[f"{min(step_ms):.6f}", f"{max(step_ms):.6f}"],
+        decode_tokens_per_s=f"{B / dec * 1e3:.1f}", decode_bytes=nbytes,
+        decode_bound_ms=f"{nbytes / HBM_BYTES_PER_S * 1e3:.6f}",
+        experts_bound_ms=f"{ebytes / HBM_BYTES_PER_S * 1e3:.6f}", decode_kernels=kernels,
+        decode_device_ms=f"{dev_ms:.6f}", decode_traced_wall_ms=f"{wall_ms:.6f}",
+        decode_device_busy=f"{dev_ms / wall_ms:.3f}", greedy_generate_s=f"{greedy_s:.3f}",
+        greedy_equal=True, peak_bytes_serving=peak,
+        ring_kpos=("exact after the prefill and at the end" if chunked
+                   else "none (no attn_chunked layer)"),
+        crossed_chunk=(f"at decode step {cfg.attn_chunk - prompt}"
+                       if chunked and prompt < cfg.attn_chunk <= prompt + gen - 2 else "no"),
+        card=ctx.smi)
+    say("lm-moe-serve", arch=cfg.name, check="incremental decode vs forward",
+        capacity_factor=LM_MOE_NODROP, tokens=list(itoks.shape),
+        bf16=f"{cfg.num_layers} layers", bf16_rel=f"{rel:.3e}", bf16_tol=LM_BF16_INCR_TOL,
+        f32=f"{c32.num_layers} layer(s), {f32_bytes} bytes of float32 weights, tf32 off",
+        f32_rel=f"{rel32:.3e}", f32_tol=LM_F32_INCR_TOL)
+
+
+def lm_moe_aux(model, tokens) -> float:
+    """The load-balance term ``aux`` of one forward over ``tokens``."""
+    import torch
+
+    with torch.no_grad():
+        return model.forward({"tokens": tokens})[1].item()
+
+
+def lm_moe_train_phase(ctx):
+    """[lm-moe-train]: grok-1 at its full width, the depth cut to
+    LM_MOE_TRAIN's layers, at train_4k's sequence: bf16 parameters from
+    SEED, Adafactor, its config's 16 microbatches (the float32
+    accumulation) and remat="full", LM_MOE_TRAIN's steps timed and one more
+    traced; its state saved after half the steps, loaded onto the card and
+    resumed, bitwise the uninterrupted run; then llama4's and grok's smoke
+    configs on the card against the CPU port (float32, TF32 off): grads
+    within LM_CPU_TOL of the CPU port's, and two card runs bitwise equal."""
+    import torch
+
+    from repro_torch import ckpt
+    from repro_torch.data.tokens import token_batches
+    from repro_torch.models import transformer as TT
+    from repro_torch.training import train_step as TS
+    from repro_torch.uda import tree_leaves, tree_map
+
+    dev = ctx.dev
+    arch, layers, B, S, steps = LM_MOE_TRAIN
+    full = lm_config(arch)
+    cfg = lm_config(arch, layers)
+    check(cfg.optimizer == "adafactor" and cfg.train_microbatches == 16 and cfg.remat == "full",
+          f"[lm-moe-train] {arch}'s config lost Adafactor, its 16 microbatches or remat='full'")
+    step = TS.make_train_step(cfg, lr=LM_TRAIN_LR)
+    _free()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, opt = TS.init_train_state(cfg, seed=SEED, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_bytes = _nbytes(model.params) + _nbytes(list(opt[1:]))
+    shapes = [(t.shape, t.dtype) for t in tree_leaves(model.params)]
+    batches = token_batches(cfg, B, S, seed=SEED, device=dev)
+    probe = next(token_batches(cfg, B // cfg.train_microbatches, S, seed=SEED + 1, device=dev))[0]
+    aux0 = lm_moe_aux(model, probe["tokens"])
+    # the uninterrupted run, its state saved after half its steps (a save
+    # reads the state and changes nothing)
+    half = steps // 2
+    model, opt, rows, cursor = lm_train_steps(step, model, opt, batches, half)
+    path = ctx.work / "lm_moe_train.ckpt"
+    t0 = time.perf_counter()
+    ckpt.save_train_state(path, model.params, opt, half, cursor)
+    save_s = time.perf_counter() - t0
+    model, opt, more, _ = lm_train_steps(step, model, opt, batches, steps - half)
+    rows += more
+    peak = torch.cuda.max_memory_allocated() - base
+    # the loss need not fall in these steps: the cut's expert weights are
+    # drawn at std 1 (a one-layer stack's fan-in is 1) and kept in bf16
+    # with no master copy, where most of Adafactor's lr-sized updates round
+    # away; the steps are held to the reference's in tests/test_torch_moe.py
+    lm_train_checks("lm-moe-train", model, shapes, rows, falls=False)
+    snap = tree_map(lambda t: t.detach().to("cpu", copy=True), {"p": model.params, "o": opt})
+    aux1 = lm_moe_aux(model, probe["tokens"])
+    model, opt, traced = lm_train_trace(step, model, opt, next(batches)[0])
+    numbers = lm_train_numbers(model, rows, B, S, traced, base, peak)
+    std = _expert_std(model)
+    del model, opt
+    _free()
+    # the run resumed from the checkpoint: loaded onto the card, the rest of
+    # the steps from its data cursor, bitwise the uninterrupted run
+    t0 = time.perf_counter()
+    params, o2, at, cursor = ckpt.load_train_state(path, snap["p"], snap["o"], device=dev)
+    m2 = TT.Transformer(cfg, params).requires_grad_(True)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    nbytes = path.stat().st_size
+    path.unlink()
+    del params
+    m2, o2, _, _ = lm_train_steps(step, m2, o2, token_batches(cfg, B, S, start=cursor, seed=SEED,
+                                                              device=dev), steps - half)
+    same = all(torch.equal(a, b.cpu()) for a, b in zip(tree_leaves(snap),
+                                                         tree_leaves({"p": m2.params, "o": o2})))
+    check(at == half and same, f"[lm-moe-train] {half} steps, a checkpoint and {steps - half} more "
+          f"differ from {steps} uninterrupted steps")
+    del m2, o2, snap
+    _free()
+    say("lm-moe-train", arch=cfg.name, cut=f"num_layers {full.num_layers}->{cfg.num_layers}",
+        d_model=cfg.d_model, heads=f"{cfg.num_heads}/{cfg.num_kv_heads}", d_ff=cfg.d_ff,
+        experts=f"{cfg.num_experts} top-{cfg.experts_per_token}", expert_std=f"{std:.6f}",
+        lr=LM_TRAIN_LR, optimizer=cfg.optimizer, steps=f"{steps}+1 traced", init_s=f"{init_s:.3f}",
+        state_bytes=state_bytes, active_params=lm_active_params(cfg, shapes), **numbers,
+        aux_before_after=[f"{aux0:.6f}", f"{aux1:.6f}"], card=ctx.smi)
+    say("lm-moe-train", check="resume", steps=f"{half}+save+load+{steps - half}",
+        vs_uninterrupted="bitwise", checkpoint_bytes=nbytes, save_s=f"{save_s:.3f}",
+        load_s=f"{load_s:.3f}")
+    # the smoke configs on the card against the CPU port, the card twice
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for a in LM_MOE_ARCHS:
+            scfg = lm_config(a).smoke()
+            cpu = TT.init_model(scfg, seed=SEED, dtype=torch.float32, device="cpu").requires_grad_(True)
+            card = TT.Transformer(scfg, tree_map(lambda t: t.detach().to(dev, copy=True), cpu.params))
+            card.requires_grad_(True)
+            batch, _ = next(token_batches(scfg, *LM_MOE_CPU, seed=SEED, device="cpu"))
+            on_card = {k: v.to(dev) for k, v in batch.items()}
+            (la, _), ga = TS.value_and_grad(cpu, scfg, batch)
+            (lb, _), gb = TS.value_and_grad(card, scfg, on_card)
+            (lb2, _), gb2 = TS.value_and_grad(card, scfg, on_card)
+            twice = torch.equal(lb, lb2) and all(
+                torch.equal(x, y) for x, y in zip(tree_leaves(gb), tree_leaves(gb2)))
+            grel = max(((y.cpu() - x).abs().max() / x.abs().max()).item()
+                       for x, y in zip(tree_leaves(ga), tree_leaves(gb)))
+            check(twice, f"[lm-moe-train] {a}: two card runs of the backward differ")
+            check(grel <= LM_CPU_TOL, f"[lm-moe-train] {a}: the card's float32 grads off the CPU "
+                  f"port's by {grel:.3e}")
+            say("lm-moe-train", check="card vs CPU port", arch=scfg.name, config="smoke()",
+                dtype="float32", tf32=False, tokens=list(LM_MOE_CPU),
+                loss_cpu_card=[f"{la.item():.6f}", f"{lb.item():.6f}"], grad_rel=f"{grel:.3e}",
+                tol=LM_CPU_TOL, card_twice="bitwise")
+            del cpu, card, ga, gb, gb2
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    _free()
+
+
+def lm_active_params(cfg, shapes) -> int:
+    """Parameters a token multiplies by: all but the untied input embedding
+    (a lookup) and, of each MoE layer's experts, all but the k it routes to."""
+    n = sum(math.prod(s) for s, _ in shapes)
+    if not cfg.tie_embeddings:
+        n -= cfg.vocab_padded * cfg.d_model
+    if cfg.num_experts:
+        experts = cfg.num_layers * (3 if cfg.mlp_gated else 2) * cfg.d_model * cfg.d_ff
+        n -= experts * (cfg.num_experts - cfg.experts_per_token)
+    return n
+
+
+def moe_child(work: Path) -> None:
+    """The MoE phases in a process of their own, on a card that holds
+    nothing else (their weights take 43–69 GB): [lm-moe-serve] for each of
+    LM_MOE_SERVE's configs, then [lm-moe-train]."""
+    import torch
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    work.mkdir(parents=True, exist_ok=True)
+    ctx = types.SimpleNamespace(dev=torch.device(DEVICE), smi=smi, work=work)
+    for row in LM_MOE_SERVE:
+        lm_moe_serve_phase(ctx, *row)
+    lm_moe_train_phase(ctx)
+
+
 def run(work: Path) -> None:
     import torch
 
@@ -2114,6 +2446,16 @@ def run(work: Path) -> None:
         for line in _build.lib_path(src).with_suffix(".log").read_text().splitlines():
             if "Used" in line or "spill" in line:
                 print(f"  ptxas[{src}]:", line.strip())
+
+    # -- the MoE phases ([lm-moe-serve], [lm-moe-train]) in a process of
+    # their own, while the card holds nothing else: their weights take 43-69 GB
+    t0 = time.perf_counter()
+    sys.stdout.flush()
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    rc = subprocess.run([sys.executable, str(Path(__file__).resolve()), MOE_CHILD, str(work / "moe")],
+                        env=env, timeout=MOE_CHILD_S).returncode
+    check(rc == 0, f"the MoE phases' process exited with {rc}")
+    say("lm-moe", process_s=f"{time.perf_counter() - t0:.3f}")
 
     # -- data: generated, globally randomized and packed on the device ------
     t0 = time.perf_counter()

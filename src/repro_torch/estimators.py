@@ -201,6 +201,14 @@ def _running(x: torch.Tensor, largest: bool) -> torch.Tensor:
     return torch.where((v == 0) & seen, v.abs() if largest else -v.abs(), v)
 
 
+def _flush(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with subnormals flushed to a zero of their sign, as XLA's CPU
+    arithmetic reads and writes them (a compare sees -1.6e-42 as -0.0)."""
+    if not x.is_floating_point():
+        return x
+    return torch.where(x.abs() < torch.finfo(x.dtype).tiny, torch.copysign(torch.zeros_like(x), x), x)
+
+
 def monotone_envelope(lower, upper):
     """Running intersection of per-round confidence intervals.
 
@@ -218,15 +226,22 @@ def monotone_envelope(lower, upper):
 
     ``lower``/``upper`` are numpy arrays or tensors ``[R, ...]``; the
     result is a pair of tensors on the input's device, in its dtype.
+
+    Subnormal bounds are read as the reference's compiled CPU code reads
+    them, flushed to a zero of their sign: over several rounds the running
+    bounds come out flushed; a single round passes through bit for bit
+    (there is no running bound to compute), and its bounds cross only if
+    they do once flushed — ``[0, -1.6e-42]`` does not.
     """
-    lo = _running(torch.as_tensor(lower), largest=True)
-    hi = _running(torch.as_tensor(upper), largest=False)
-    crossed = lo > hi  # monotone along rounds: a suffix
+    lo, hi = torch.as_tensor(lower), torch.as_tensor(upper)
+    if lo.shape[0] > 1:
+        lo, hi = _running(_flush(lo), largest=True), _running(_flush(hi), largest=False)
+    crossed = _flush(lo) > _flush(hi)  # monotone along rounds: a suffix
     idx = torch.argmax(crossed.to(torch.int32), dim=0)  # first crossed round
     prev = torch.clamp(idx - 1, min=0)[None]
     frozen_lo = torch.take_along_dim(lo, prev, dim=0)[0]
     frozen_hi = torch.take_along_dim(hi, prev, dim=0)[0]
-    mid0 = 0.5 * (lo[0] + hi[0])
+    mid0 = _flush(0.5 * (_flush(lo[0]) + _flush(hi[0])))
     frozen_lo = torch.where(idx > 0, frozen_lo, mid0)
     frozen_hi = torch.where(idx > 0, frozen_hi, mid0)
     return (torch.where(crossed, frozen_lo, lo),

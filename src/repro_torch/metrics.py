@@ -90,7 +90,15 @@ def lm_loss_per_example(model, seq: int) -> Callable[[Chunk], torch.Tensor]:
     closure once on all the columns it scans — the whole ``[P, C, L]``
     shard under ``run_query`` — so the closure flattens the leading axes
     and runs the model over bounded blocks of examples
-    (``Transformer.example_nll``), never over all of them at once."""
+    (``Transformer.example_nll``), never over all of them at once.
+
+    An MoE model is refused here, before any scan (a ``ValueError``): under
+    the experts' capacity an example's loss depends on the examples that
+    share its forward (``transformer.check_per_example``)."""
+    from repro_torch.models.transformer import check_per_example
+
+    check_per_example(model.cfg)
+
     def loss_per_example(chunk):
         tt = torch.stack([chunk[f"t{j}"] for j in range(seq)], dim=-1)
         return model.example_nll(tt.reshape(-1, seq)).reshape(tt.shape[:-1])

@@ -18,6 +18,12 @@ import torch
 
 from repro_torch._device import resolve_device
 
+#: the largest float32 draw of one ``randn``: a leaf whose draw would be
+#: larger is drawn one slice of its leading axis at a time (a full-width
+#: expert leaf of llama4-maverick, [128, 5120, 8192], would take 21.5 GB in
+#: float32 before its cast to bf16)
+SLICE_BYTES = 8 * 2**30
+
 
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
@@ -60,8 +66,20 @@ def _init_one(spec: ParamSpec, generator: torch.Generator, device) -> torch.Tens
         # stacked over layers that is the layer count, as in the reference
         fan_in = spec.shape[0] if len(spec.shape) >= 2 else max(spec.shape[-1], 1)
         std = spec.scale / math.sqrt(fan_in)
-    x = torch.randn(spec.shape, generator=generator, dtype=torch.float32, device=device)
-    return x.mul_(std).to(spec.dtype)
+    return _draw(spec.shape, std, spec.dtype, generator, device)
+
+
+def _draw(shape, std: float, dtype, generator: torch.Generator, device) -> torch.Tensor:
+    """``randn(shape)`` in float32 times ``std``, cast to ``dtype``; past
+    SLICE_BYTES one slice of the leading axis at a time, in order, each by
+    the same rule."""
+    if 4 * math.prod(shape) <= SLICE_BYTES:
+        x = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+        return x.mul_(std).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for i in range(shape[0]):
+        out[i] = _draw(shape[1:], std, dtype, generator, device)
+    return out
 
 
 def init_params(spec_tree, generator: torch.Generator, device="cuda"):
@@ -71,9 +89,15 @@ def init_params(spec_tree, generator: torch.Generator, device="cuda"):
     depth first over sorted keys (:func:`spec_leaves`); each ``normal`` or
     ``embed`` leaf draws one ``torch.randn`` of its full shape in float32,
     scaled by its std and cast to its dtype; ``zeros`` and ``ones`` leaves
-    draw nothing.  The numbers differ from ``jax.random``'s: tests that
-    compare with the reference carry its parameters across instead
-    (``repro_torch.convert.lm_params_from_reference``)."""
+    draw nothing.  A leaf whose float32 draw would exceed
+    :data:`SLICE_BYTES` draws one ``randn`` a slice of its leading axis
+    instead, slice 0 first (a slice still past it is sliced again), at the
+    leaf's std: the fan-in rule sees the whole leaf.  No leaf of a dense
+    config at the depths the port has drawn them reaches it (the largest,
+    deepseek-7b's uncut stacked ``wi``, is 5.4 GB), so those weights are
+    the single draws of before.  The numbers differ from ``jax.random``'s:
+    tests that compare with the reference carry its parameters across
+    instead (``repro_torch.convert.lm_params_from_reference``)."""
     dev = resolve_device(device)
 
     def build(tree):

@@ -1,32 +1,41 @@
-"""The dense decoder-only LM: parameter specs, forward (prefill and
-training), the chunked cross-entropy, KV caches and the decode step.
+"""The decoder-only LM: parameter specs, forward (prefill and training),
+the chunked cross-entropy, KV caches and the decode step.
 
-Port of the dense path of ``repro/models/transformer.py``: every layer an
-``attn`` block (global causal attention + a dense MLP), RMSNorm or
-LayerNorm, RoPE or no positions, tied or untied unembedding, qk-norm, a
-bf16 or int8 KV cache.  The reference scans its layer groups over
-parameters stacked on a leading "layers" axis; here the parameters are
-those same stacked leaves, each group takes its slices inside the forward
-and the scan is a loop, under the config's ``remat`` policy
-(``torch.utils.checkpoint``) when the forward builds a graph.
-:class:`Transformer`'s methods carry the reference's function names:
-``forward(batch, cache_len=)``, ``unembed``, ``init_cache``,
-``decode_step``; :func:`xent_loss` is the reference's.
+Port of ``repro/models/transformer.py`` for the dense and MoE families:
+the ``attn`` block (global causal attention) and the ``attn_chunked``
+block (Llama-4's chunked local attention, or a sliding window in the
+hybrid family), each followed by a dense MLP or the routed experts of
+``models.moe``; RMSNorm or LayerNorm, RoPE (on every attention layer, as
+in the reference: Llama-4's global layers get it too) or no positions,
+tied or untied unembedding, qk-norm, a bf16 or int8 KV cache for ``attn``
+and a ring cache of the last W positions for ``attn_chunked``.  The
+per-layer calls dispatch on the layer type as the reference's
+``_block_specs``/``_block_train``/``_block_cache``/``_block_decode`` do.
+The reference scans its layer groups over parameters stacked on a leading
+"layers" axis; here the parameters are those same stacked leaves, each
+group takes its slices inside the forward and the scan is a loop, under
+the config's ``remat`` policy (``torch.utils.checkpoint``) when the
+forward builds a graph.  :class:`Transformer`'s methods carry the
+reference's function names: ``forward(batch, cache_len=)``, ``unembed``,
+``init_cache``, ``decode_step``; :func:`xent_loss` is the reference's.
 
 Left out on purpose: ``pin_batch_activation`` and ``_pin_replicated_heads``
-are GSPMD sharding constraints and mean nothing on one card.  Everything
-else the reference's configs use — the other block types, experts,
-encoder-decoder, frontends, learned positions — raises
-``NotImplementedError`` naming the ROADMAP slice that ports it.
+are GSPMD sharding constraints and mean nothing on one card.  The
+recurrent blocks (``rglru``, ``mlstm``, ``slstm``), encoder-decoder,
+frontends and learned positions raise ``NotImplementedError`` naming the
+ROADMAP slice that ports them (:func:`refuse_unported`).
 
 Caches: a list with one dict per layer, in layer order (the reference's
 tree of stacked leaves comes back through
 ``repro_torch.convert.lm_cache_to_numpy``).  The prefill's K/V are stored
 in bf16 whatever the parameters' dtype, as the reference's
 ``_kv_to_cache`` does; ``decode_step`` takes a bf16, float32 or int8
-cache.  ``decode_step`` writes the new token's K/V into the cache IN
-PLACE and returns the same cache (the reference returns a new tree): a
-caller that needs the old cache copies it first.
+cache.  An ``attn_chunked`` layer's cache holds W slots (the window, at
+most the cache length): position ``pos`` lives in slot ``pos % W`` and
+``kpos`` [W] int32 names the position in each slot (-1 where empty).
+``decode_step`` writes the new token's K/V into the cache IN PLACE and
+returns the same cache (the reference returns a new tree): a caller that
+needs the old cache copies it first.
 """
 from __future__ import annotations
 
@@ -43,33 +52,49 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import (apply_norm, apply_rope, decode_attention,
                                        flash_attention, mlp, rms_norm)
+from repro_torch.models.moe import moe_mlp
 from repro_torch.models.spec import ParamSpec, init_params
 
 _F32 = torch.float32
 
-#: where ROADMAP.md's Queue 1 ports what this slice refuses
-_SLICE_MOE = "LM slice (c) in ROADMAP.md (MoE and attn_chunked: llama4, grok)"
+#: where ROADMAP.md's Queue 1 ports what the port still refuses
 _SLICE_RECURRENT = "LM slice (d) in ROADMAP.md (the recurrent mixers: recurrentgemma, xlstm)"
 _SLICE_ENC = "LM slice (e) in ROADMAP.md (encoder-decoder and frontends: whisper, internvl2)"
+_ATTN = ("attn", "attn_chunked")
+_RECURRENT = ("rglru", "mlstm", "slstm")
 
 
-def check_dense(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for anything outside the dense path."""
+def _refuse_block(cfg: ArchConfig, ltype: str):
+    if ltype in _RECURRENT:
+        raise NotImplementedError(f"{cfg.name}: block {ltype!r} waits for {_SLICE_RECURRENT}")
+    raise ValueError(ltype)
+
+
+def refuse_unported(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` for what the port does not run yet:
+    the recurrent blocks, encoder-decoder, frontends, learned positions."""
     for lt in cfg.block_pattern:
-        if lt == "attn_chunked":
-            raise NotImplementedError(f"{cfg.name}: block 'attn_chunked' waits for {_SLICE_MOE}")
-        if lt in ("rglru", "mlstm", "slstm"):
-            raise NotImplementedError(f"{cfg.name}: block {lt!r} waits for {_SLICE_RECURRENT}")
-        if lt != "attn":
-            raise ValueError(lt)
-    if cfg.num_experts:
-        raise NotImplementedError(f"{cfg.name}: num_experts > 0 waits for {_SLICE_MOE}")
+        if lt not in _ATTN:
+            _refuse_block(cfg, lt)
     if cfg.is_encoder_decoder:
         raise NotImplementedError(f"{cfg.name}: is_encoder_decoder waits for {_SLICE_ENC}")
     if cfg.frontend:
         raise NotImplementedError(f"{cfg.name}: frontend {cfg.frontend!r} waits for {_SLICE_ENC}")
     if cfg.pos == "learned":
         raise NotImplementedError(f"{cfg.name}: pos='learned' waits for {_SLICE_ENC}")
+
+
+def check_per_example(cfg: ArchConfig) -> None:
+    """Raise ``ValueError`` where a per-example loss is not a function of
+    the example alone: the experts' capacity drops a token's pair by its
+    rank among the pairs of its dispatch group, so an MoE model's loss on
+    one example depends on which examples share its forward."""
+    if cfg.num_experts:
+        raise ValueError(
+            f"{cfg.name}: no per-example loss over an MoE model — under the experts' "
+            f"capacity (factor {cfg.expert_capacity_factor}) a token is dropped by its rank "
+            f"among the tokens of its dispatch group, so an example's loss depends on "
+            f"which examples share its forward, not on the example alone")
 
 
 # =========================================================================== specs
@@ -83,6 +108,16 @@ def _norm_spec(d, kind, dtype):
 
 def _mlp_specs(cfg: ArchConfig, dtype):
     d, f = cfg.d_model, cfg.d_ff
+    if cfg.num_experts:
+        E = cfg.num_experts
+        s = {
+            "router": ParamSpec((d, E), ("embed", None), dtype=torch.float32),
+            "wi": ParamSpec((E, d, f), ("experts", "embed", "mlp"), dtype=dtype),
+            "wo": ParamSpec((E, f, d), ("experts", "mlp", "embed"), dtype=dtype),
+        }
+        if cfg.mlp_gated:
+            s["wg"] = ParamSpec((E, d, f), ("experts", "embed", "mlp"), dtype=dtype)
+        return s
     s = {
         "wi": ParamSpec((d, f), ("embed", "mlp"), dtype=dtype),
         "wo": ParamSpec((f, d), ("mlp", "embed"), dtype=dtype),
@@ -109,6 +144,12 @@ def _attn_specs(cfg: ArchConfig, dtype):
     return s
 
 
+def _block_specs(cfg: ArchConfig, ltype: str, dtype):
+    if ltype in _ATTN:
+        return _attn_specs(cfg, dtype)
+    _refuse_block(cfg, ltype)
+
+
 def _stack_specs(tree, n: int):
     if isinstance(tree, ParamSpec):
         return dataclasses.replace(tree, shape=(n,) + tree.shape,
@@ -128,14 +169,14 @@ def param_specs(cfg: ArchConfig, dtype=torch.bfloat16) -> Dict[str, Any]:
     """The reference's parameter tree: ``embed``, ``layers`` (each pattern
     entry ``b{i}`` stacked over the layer groups), ``tail``, ``ln_f`` and,
     when the embeddings are not tied, ``lm_head``."""
-    check_dense(cfg)
+    refuse_unported(cfg)
     d, V = cfg.d_model, cfg.vocab_padded
     pat, n_groups, tail = _layer_layout(cfg)
-    group = {f"b{i}": _attn_specs(cfg, dtype) for i in range(len(pat))}
+    group = {f"b{i}": _block_specs(cfg, lt, dtype) for i, lt in enumerate(pat)}
     specs: Dict[str, Any] = {
         "embed": ParamSpec((V, d), ("vocab", "embed"), "embed", scale=0.02, dtype=dtype),
         "layers": _stack_specs(group, n_groups) if n_groups else {},
-        "tail": {f"t{i}": _attn_specs(cfg, dtype) for i in range(len(tail))},
+        "tail": {f"t{i}": _block_specs(cfg, lt, dtype) for i, lt in enumerate(tail)},
         "ln_f": _norm_spec(d, cfg.norm, dtype),
     }
     if not cfg.tie_embeddings:
@@ -238,28 +279,48 @@ def _dequant(q, s, dtype):
     return (q.to(torch.bfloat16) * s[..., None].to(torch.bfloat16)).to(dtype)
 
 
-def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device="cuda"):
-    """Zeroed decode caches, one dict per layer: ``k``/``v`` [B, S, K, dh]
-    in bf16, or int8 with float32 scales ``ks``/``vs`` [B, S, K]."""
-    check_dense(cfg)
-    dev = resolve_device(device)
+def _window(cfg: ArchConfig) -> int:
+    """An ``attn_chunked`` layer's window: the hybrid family's sliding
+    ``local_window``, else Llama-4's ``attn_chunk``."""
+    return cfg.local_window if cfg.family == "hybrid" else cfg.attn_chunk
+
+
+def _attn_cache(cfg: ArchConfig, ltype: str, batch: int, seq_len: int, dev):
     K, dh = cfg.num_kv_heads, cfg.head_dim_
+    if ltype == "attn_chunked":
+        W = min(_window(cfg), seq_len)
+        return {"k": torch.zeros((batch, W, K, dh), dtype=torch.bfloat16, device=dev),
+                "v": torch.zeros((batch, W, K, dh), dtype=torch.bfloat16, device=dev),
+                "kpos": torch.full((W,), -1, dtype=torch.int32, device=dev)}
     shape = (batch, seq_len, K, dh)
+    if cfg.kv_cache_dtype == "int8":
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "ks": torch.zeros(shape[:-1], dtype=_F32, device=dev),
+                "vs": torch.zeros(shape[:-1], dtype=_F32, device=dev)}
+    return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+            "v": torch.zeros(shape, dtype=torch.bfloat16, device=dev)}
 
-    def one():
-        if cfg.kv_cache_dtype == "int8":
-            return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
-                    "v": torch.zeros(shape, dtype=torch.int8, device=dev),
-                    "ks": torch.zeros(shape[:-1], dtype=_F32, device=dev),
-                    "vs": torch.zeros(shape[:-1], dtype=_F32, device=dev)}
-        return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-                "v": torch.zeros(shape, dtype=torch.bfloat16, device=dev)}
 
-    return [one() for _ in range(cfg.num_layers)]
+def _block_cache(cfg: ArchConfig, ltype: str, batch: int, seq_len: int, dev):
+    if ltype in _ATTN:
+        return _attn_cache(cfg, ltype, batch, seq_len, dev)
+    _refuse_block(cfg, ltype)
+
+
+def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device="cuda"):
+    """Zeroed decode caches, one dict per layer: an ``attn`` layer's
+    ``k``/``v`` [B, S, K, dh] in bf16, or int8 with float32 scales
+    ``ks``/``vs`` [B, S, K]; an ``attn_chunked`` layer's ring of W = min(
+    window, S) slots, ``k``/``v`` [B, W, K, dh] in bf16 and ``kpos`` [W]
+    int32, all -1."""
+    refuse_unported(cfg)
+    dev = resolve_device(device)
+    return [_block_cache(cfg, lt, batch, seq_len, dev) for lt in cfg.layer_types()]
 
 
 class Transformer(nn.Module):
-    """The dense LM over a parameter tree in the reference's layout (the
+    """The LM (dense or MoE) over a parameter tree in the reference's layout (the
     tree :func:`param_specs` describes, as tensors on one device).
 
     The parameters are the reference's leaves, stacked ones included:
@@ -274,7 +335,7 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ArchConfig, params: Dict[str, Any]):
         super().__init__()
-        check_dense(cfg)
+        refuse_unported(cfg)
         self.cfg = cfg
         self.weights = ParamTree(params)
         #: the parameters as the reference's dict tree (sorted keys)
@@ -285,7 +346,8 @@ class Transformer(nn.Module):
         """Each layer's parameter tree, in layer order (slices of the
         stacked leaves, then the tail's)."""
         pat, n_groups, tail = _layer_layout(self.cfg)
-        groups = [_unstack(self.params["layers"][f"b{j}"], n_groups) for j in range(len(pat))]
+        groups = ([_unstack(self.params["layers"][f"b{j}"], n_groups) for j in range(len(pat))]
+                  if n_groups else [])
         return ([g[i] for i in range(n_groups) for g in groups]
                 + [self.params["tail"][f"t{i}"] for i in range(len(tail))])
 
@@ -305,20 +367,41 @@ class Transformer(nn.Module):
             k = apply_rope(k, pos, cfg.rope_theta)
         return q, k, v
 
-    def _attn_train(self, p, x, cache_len: int):
+    def _attn_train(self, p, x, ltype: str, cache_len: int):
         cfg = self.cfg
         h = apply_norm(x, p["ln1"], cfg.norm)
         q, k, v = self._qkv(p, h, torch.arange(x.shape[1], device=x.device))
-        o = flash_attention(q, k, v, mode="causal", cap=cfg.logit_softcap)
+        mode, window = "causal", None
+        if ltype == "attn_chunked":
+            mode = "window" if cfg.family == "hybrid" else "chunk"
+            window = _window(cfg)
+        o = flash_attention(q, k, v, mode=mode, window=window, cap=cfg.logit_softcap)
         x = x + _out(o, p["wo"])
         h2 = apply_norm(x, p["ln2"], cfg.norm)
-        out = mlp(p["mlp"], h2, cfg)
-        cache = self._kv_to_cache(k, v, cache_len) if cache_len else None
-        return x + out, cache
+        if cfg.num_experts:
+            out, aux = moe_mlp(p["mlp"], h2, cfg, groups=cfg.moe_groups)
+        else:
+            out, aux = mlp(p["mlp"], h2, cfg), 0.0
+        cache = self._kv_to_cache(ltype, k, v, cache_len) if cache_len else None
+        return x + out, cache, aux
 
-    def _kv_to_cache(self, k, v, cache_len: int):
-        """Pack full-sequence K/V [B,S,K,dh] into a decode cache of cache_len."""
-        S = k.shape[1]
+    def _kv_to_cache(self, ltype: str, k, v, cache_len: int):
+        """Pack full-sequence K/V [B,S,K,dh] into a decode cache of
+        cache_len: an ``attn_chunked`` layer keeps the last min(W, S)
+        positions, each in slot ``pos % W``."""
+        B, S, K, dh = k.shape
+        if ltype == "attn_chunked":
+            W = min(_window(self.cfg), cache_len)
+            take = min(W, S)
+            kpos = torch.arange(S - take, S, dtype=torch.int32, device=k.device)
+            slots = (kpos % W).long()
+            cache = {"k": k.new_zeros((B, W, K, dh), dtype=torch.bfloat16),
+                     "v": v.new_zeros((B, W, K, dh), dtype=torch.bfloat16),
+                     "kpos": torch.full((W,), -1, dtype=torch.int32, device=k.device)}
+            cache["k"][:, slots] = k[:, S - take:].to(torch.bfloat16)
+            cache["v"][:, slots] = v[:, S - take:].to(torch.bfloat16)
+            cache["kpos"][slots] = kpos
+            return cache
         if S > cache_len:
             raise ValueError(f"prefill length {S} exceeds cache_len {cache_len}")
         pad = (0, 0, 0, 0, 0, cache_len - S)
@@ -329,14 +412,21 @@ class Transformer(nn.Module):
             return {"k": kq, "v": vq, "ks": ks, "vs": vs}
         return {"k": kf.to(torch.bfloat16), "v": vf.to(torch.bfloat16)}
 
-    def _group(self, x, gp, cache_len: int = 0):
+    def _block_train(self, p, x, ltype: str, cache_len: int):
+        """-> (x, the block's cache or None, its aux loss)."""
+        if ltype in _ATTN:
+            return self._attn_train(p, x, ltype, cache_len)
+        _refuse_block(self.cfg, ltype)
+
+    def _group(self, x, aux, gp, cache_len: int = 0):
         """One layer group (the reference's scanned ``group_fn``): each
-        block of the pattern in turn -> (x, the blocks' caches)."""
+        block of the pattern in turn -> (x, aux, the blocks' caches)."""
         caches = []
-        for j in range(len(self.cfg.block_pattern)):
-            x, c = self._attn_train(gp[f"b{j}"], x, cache_len)
+        for j, lt in enumerate(self.cfg.block_pattern):
+            x, c, a = self._block_train(gp[f"b{j}"], x, lt, cache_len)
+            aux = aux + a
             caches.append(c)
-        return x, caches
+        return x, aux, caches
 
     def forward(self, batch: Dict[str, torch.Tensor], cache_len: int = 0):
         """Full-sequence forward -> (final hidden states [B, S, d], aux,
@@ -360,16 +450,20 @@ class Transformer(nn.Module):
         group = functools.partial(self._group, cache_len=cache_len)
         if torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters()):
             group = _remat_wrap(group, cfg.remat)
-        stacks = [_unstack(self.params["layers"][f"b{j}"], n_groups) for j in range(len(pat))]
+        stacks = ([_unstack(self.params["layers"][f"b{j}"], n_groups) for j in range(len(pat))]
+                  if n_groups else [])
+        # aux in float32, summed over the groups' blocks and then the tail's,
+        # in the reference's order
+        aux = torch.zeros((), dtype=_F32, device=x.device)
         caches = []
         for i in range(n_groups):
-            x, cs = group(x, {f"b{j}": stacks[j][i] for j in range(len(pat))})
+            x, aux, cs = group(x, aux, {f"b{j}": stacks[j][i] for j in range(len(pat))})
             caches += cs
-        for i in range(len(tail)):
-            x, c = self._attn_train(self.params["tail"][f"t{i}"], x, cache_len)
+        for i, lt in enumerate(tail):
+            x, c, a = self._block_train(self.params["tail"][f"t{i}"], x, lt, cache_len)
+            aux = aux + a
             caches.append(c)
         x = apply_norm(x, self.params["ln_f"], cfg.norm)
-        aux = torch.zeros((), dtype=_F32, device=x.device)
         return x, aux, (caches if cache_len else None)
 
     def head(self):
@@ -384,13 +478,27 @@ class Transformer(nn.Module):
     def init_cache(self, batch: int, seq_len: int):
         return init_cache(self.cfg, batch, seq_len, self.device)
 
-    def _attn_decode(self, p, x1, cache, pos: int):
-        """x1 [B, d]; writes the token's K/V at ``pos`` in place."""
+    def _attn_decode(self, p, x1, cache, pos: int, ltype: str):
+        """x1 [B, d]; writes the token's K/V at ``pos`` (an ``attn_chunked``
+        layer: at slot ``pos % W``, with ``kpos``) in place."""
         cfg = self.cfg
         h = apply_norm(x1, p["ln1"], cfg.norm)
         q, k1, v1 = self._qkv(p, h, pos)
-        S = cache["k"].shape[1]
-        if cfg.kv_cache_dtype == "int8":
+        if ltype == "attn_chunked":
+            W = cache["k"].shape[1]
+            slot = pos % W
+            cache["k"][:, slot] = k1.to(cache["k"].dtype)
+            cache["v"][:, slot] = v1.to(cache["v"].dtype)
+            cache["kpos"][slot] = pos
+            kp = cache["kpos"]
+            if cfg.family == "hybrid":  # sliding window
+                valid = (kp >= 0) & (kp > pos - W) & (kp <= pos)
+            else:  # llama4's chunks: the keys of the query's own chunk
+                Wc = cfg.attn_chunk
+                valid = (kp >= 0) & (kp // Wc == pos // Wc) & (kp <= pos)
+            kc, vc = cache["k"], cache["v"]
+        elif cfg.kv_cache_dtype == "int8":
+            S = cache["k"].shape[1]
             kq, ks = _quant(k1)
             vq, vs = _quant(v1)
             cache["k"][:, pos] = kq
@@ -399,15 +507,24 @@ class Transformer(nn.Module):
             cache["vs"][:, pos] = vs
             kc = _dequant(cache["k"], cache["ks"], q.dtype)
             vc = _dequant(cache["v"], cache["vs"], q.dtype)
+            valid = torch.arange(S, device=x1.device) <= pos
         else:
+            S = cache["k"].shape[1]
             cache["k"][:, pos] = k1.to(cache["k"].dtype)
             cache["v"][:, pos] = v1.to(cache["v"].dtype)
             kc, vc = cache["k"], cache["v"]
-        valid = torch.arange(S, device=x1.device) <= pos
+            valid = torch.arange(S, device=x1.device) <= pos
         o = decode_attention(q, kc, vc, valid, cap=cfg.logit_softcap)
         x1 = x1 + _out(o, p["wo"])
         h2 = apply_norm(x1, p["ln2"], cfg.norm)
+        if cfg.num_experts:
+            return x1 + moe_mlp(p["mlp"], h2[:, None, :], cfg, groups=cfg.moe_groups)[0][:, 0]
         return x1 + mlp(p["mlp"], h2, cfg)
+
+    def _block_decode(self, p, x1, cache, pos: int, ltype: str):
+        if ltype in _ATTN:
+            return self._attn_decode(p, x1, cache, pos, ltype)
+        _refuse_block(self.cfg, ltype)
 
     @torch.no_grad()
     def decode_step(self, token, cache, pos):
@@ -415,8 +532,8 @@ class Transformer(nn.Module):
         Returns (logits [B, V_padded] float32, the cache updated in place)."""
         pos = int(pos)
         x1 = F.embedding(token.long(), self.params["embed"])
-        for p, c in zip(self.layers, cache):
-            x1 = self._attn_decode(p, x1, c, pos)
+        for p, c, lt in zip(self.layers, cache, self.cfg.layer_types()):
+            x1 = self._block_decode(p, x1, c, pos, lt)
         x1 = apply_norm(x1, self.params["ln_f"], self.cfg.norm)
         return self.unembed(x1).to(_F32), cache
 
@@ -430,7 +547,9 @@ class Transformer(nn.Module):
 
         Bounded memory: the forward runs over ``block`` examples at a time
         and the float32 logits of at most ``rows`` positions exist at once
-        (all n examples' logits at a real vocabulary would not fit)."""
+        (all n examples' logits at a real vocabulary would not fit).  An
+        MoE model is refused (:func:`check_per_example`)."""
+        check_per_example(self.cfg)
         n, S = tokens.shape
         head = self.head()
         out = torch.empty(n, dtype=_F32, device=self.device)

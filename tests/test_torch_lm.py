@@ -55,8 +55,8 @@ from repro_torch.models import spec as TSPEC
 from repro_torch.models import transformer as TT
 
 DENSE = ["smollm_135m", "deepseek_7b", "qwen3_32b", "nemotron_4_15b"]
-OTHERS = ["llama4_maverick_400b_a17b", "grok_1_314b", "whisper_base",
-          "internvl2_1b", "recurrentgemma_9b", "xlstm_125m"]
+MOE = ["llama4_maverick_400b_a17b", "grok_1_314b"]
+OTHERS = ["whisper_base", "internvl2_1b", "recurrentgemma_9b", "xlstm_125m"]
 B, S, STEPS = 2, 16, 6
 F32_TOL, BF16_TOL = 1e-4, 2e-2
 FLIP_FRACTION = 1e-3
@@ -255,7 +255,7 @@ def test_mlp_matches(arch):
 
 # --------------------------------------------------------------------------- specs
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_param_specs_are_the_reference_tree(arch):
     cfg = tget(arch).smoke()
     mine = TSPEC.spec_leaves(TT.param_specs(cfg, dtype=torch.float32))
@@ -281,6 +281,64 @@ def test_init_params_draw_order_and_fan_in():
         assert torch.equal(leaf, want), path
     # stacked leaves: fan-in is the layer count, as in the reference
     assert got["layers"]["b0"]["wq"].std().item() == pytest.approx(1 / np.sqrt(cfg.num_layers), rel=0.05)
+
+
+@pytest.mark.parametrize("arch,layers", [("smollm_135m", None), ("deepseek_7b", None),
+                                         ("deepseek_7b", 4), ("qwen3_32b", 8),
+                                         ("nemotron_4_15b", 8)])
+def test_init_params_draws_every_dense_leaf_whole(arch, layers):
+    """No leaf of a dense config at the depth ``chip_smoke.py`` draws it
+    (smollm-135m and deepseek-7b uncut, deepseek-7b at 4 layers, qwen3-32b
+    and nemotron-4-15b at 8) reaches SLICE_BYTES: each is still one
+    ``randn`` of its full shape, so the sliced draw leaves those weights
+    bitwise as they were."""
+    cfg = tget(arch) if layers is None else dataclasses.replace(tget(arch), num_layers=layers)
+    sizes = [4 * int(np.prod(s.shape)) for _, s in TSPEC.spec_leaves(TT.param_specs(cfg))]
+    assert max(sizes) <= TSPEC.SLICE_BYTES
+    if arch == "deepseek_7b" and layers is None:
+        assert max(sizes) == 4 * 30 * 4096 * 11008  # its stacked wi, 5.4 GB
+
+
+def _draw(shape, std, limit, gen):
+    if 4 * int(np.prod(shape)) <= limit:
+        return torch.randn(shape, generator=gen) * std
+    return torch.stack([_draw(shape[1:], std, limit, gen) for _ in range(shape[0])])
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_init_params_slices_a_leaf_past_the_threshold(arch, monkeypatch):
+    """A leaf whose float32 draw exceeds SLICE_BYTES draws one ``randn`` a
+    slice of its leading axis, in order, at the whole leaf's std (the fan-in
+    rule unchanged), a slice still past it sliced again; a leaf under it
+    draws whole.  The threshold is lowered to one expert's [d, f] so that
+    the smoke config's expert leaves (and its embedding) cross it; at the
+    default every leaf draws whole, as before."""
+    cfg = tget(arch).smoke()
+    specs = TT.param_specs(cfg, dtype=torch.float32)
+
+    def expected(limit):
+        gen = torch.Generator().manual_seed(5)
+        out = {}
+        for path, s in TSPEC.spec_leaves(specs):
+            if s.init in ("zeros", "ones"):
+                continue
+            std = s.scale if s.init == "embed" else s.scale / np.sqrt(s.shape[0])
+            out[path] = _draw(s.shape, std, limit, gen)
+        return out
+
+    def leaf(tree, path):
+        return functools.reduce(lambda t, k: t[k], path.split("/"), tree)
+
+    limit = 4 * cfg.d_model * cfg.d_ff
+    for lim in (limit, TSPEC.SLICE_BYTES):
+        monkeypatch.setattr(TSPEC, "SLICE_BYTES", lim)
+        got = TSPEC.init_params(specs, torch.Generator().manual_seed(5), "cpu")
+        for path, want in expected(lim).items():
+            assert torch.equal(leaf(got, path), want), (lim, path)
+    experts = [p for p, s in TSPEC.spec_leaves(specs) if "experts" in s.logical]
+    assert len(experts) == 3 * len(cfg.block_pattern) and all(
+        4 * int(np.prod(leaf(specs, p).shape)) > limit for p in experts)
+    assert 4 * int(np.prod(specs["layers"]["b0"]["wq"].shape)) <= limit  # drawn whole
 
 
 # --------------------------------------------------------------------------- the dense configs
@@ -431,8 +489,8 @@ def test_incremental_decode_matches_forward(arch):
 @pytest.mark.parametrize("arch", OTHERS)
 def test_other_families_raise_naming_their_slice(arch):
     cfg = tget(arch).smoke()
-    want = {"llama4_maverick_400b_a17b": "(c)", "grok_1_314b": "(c)", "whisper_base": "(e)",
-            "internvl2_1b": "(e)", "recurrentgemma_9b": "(d)", "xlstm_125m": "(d)"}[arch]
+    want = {"whisper_base": "(e)", "internvl2_1b": "(e)", "recurrentgemma_9b": "(d)",
+            "xlstm_125m": "(d)"}[arch]
     for fn in (lambda: TT.param_specs(cfg), lambda: TT.init_cache(cfg, 1, 4, "cpu"),
                lambda: TT.init_model(cfg, device="cpu")):
         with pytest.raises(NotImplementedError, match=re.escape(f"LM slice {want}")):

@@ -386,6 +386,18 @@ def test_monotone_envelope_orders_signed_zeros_as_the_reference(lower, upper):
         assert _bits(a, b)
 
 
+@pytest.mark.parametrize("lower,upper", [
+    ([0.0], [-1.64e-42]),  # crossed only unflushed: the bits pass through
+    ([-1e-40], [-2e-40]),
+    ([[1e-40], [0.0]], [[2e-40], [-1e-40]]),  # running bounds come out flushed
+    ([1.0, 5e-39, -1.64e-42], [2.0, 1e-40, 3.0]),
+])
+def test_monotone_envelope_reads_subnormal_bounds_as_the_reference(lower, upper):
+    lo, hi = (np.asarray(x, np.float32) for x in (lower, upper))
+    for a, b in zip(T.monotone_envelope(lo, hi), RE.monotone_envelope(lo, hi)):
+        assert _bits(a, b)
+
+
 def test_monotone_envelope_with_inf_rounds():
     """±inf rounds (poisoned early bounds) pass through: the envelope keeps
     the tightest finite bounds seen so far."""
