@@ -4,9 +4,8 @@ Port of ``repro/configs/base.py``, field for field: the port keeps its own
 copy (it imports nothing of ``repro``, not even this JAX-free module).
 Every assigned architecture is a ``repro_torch/configs/<id>.py`` exporting
 ``CONFIG``; reduced smoke variants come from :meth:`ArchConfig.smoke`.
-The tables are data: all ten are here, though ``repro_torch.models`` runs
-only the dense decoder-only family so far (``ROADMAP.md`` lists the slices
-that port the others).
+The tables are data: all ten are here, and ``repro_torch.models`` builds,
+serves and trains each of them.
 """
 from __future__ import annotations
 

@@ -6,6 +6,10 @@ reference where it decides the result:
 
 * the norms normalize in float32, cast back to ``x``'s dtype, and only then
   multiply by ``gamma``;
+* every step the reference takes in float32 (norms, RoPE angles, attention
+  products) runs in float32 or wider (:func:`acc_dtype`): float64 on float64
+  inputs, so that a float64 model is float64 throughout and measures how
+  far float32 rounding moves a result;
 * RoPE rotates the two halves of the head vector (not interleaved pairs),
   with angles in float32;
 * masked scores are ``NEG_INF = -1e30``, not ``-inf``, so a fully masked
@@ -43,16 +47,21 @@ NEG_INF = -1e30
 _F32 = torch.float32
 
 
+def acc_dtype(x) -> torch.dtype:
+    """float32, or ``x``'s dtype where that is wider (float64)."""
+    return torch.promote_types(x.dtype, _F32)
+
+
 # --------------------------------------------------------------------------- norms
 
 def rms_norm(x, gamma, eps=1e-6):
-    x32 = x.to(_F32)
+    x32 = x.to(acc_dtype(x))
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * gamma
 
 
 def layer_norm(x, gamma, beta, eps=1e-5):
-    x32 = x.to(_F32)
+    x32 = x.to(acc_dtype(x))
     mu = torch.mean(x32, dim=-1, keepdim=True)
     var = torch.var(x32, dim=-1, keepdim=True, correction=0)
     y = (x32 - mu) * torch.rsqrt(var + eps)
@@ -65,22 +74,32 @@ def apply_norm(x, p, kind):
     return layer_norm(x, p["scale"], p["bias"])
 
 
+def proj(h, w):
+    """``h [..., d] @ w [d, a, b] -> [..., a, b]`` (the reference's
+    ``einsum("bsd,dhe->bshe")`` and its one-token form) as one matmul, in
+    the dtype the two promote to (``jnp``'s rule: float32 with bf16 gives
+    float32)."""
+    dt = torch.promote_types(h.dtype, w.dtype)
+    return (h.to(dt) @ w.reshape(w.shape[0], -1).to(dt)).reshape(*h.shape[:-1], *w.shape[1:])
+
+
 # --------------------------------------------------------------------------- rope
 
-def rope_freqs(head_dim: int, theta: float, device=None):
-    return theta ** (-torch.arange(0, head_dim, 2, dtype=_F32, device=device) / head_dim)
+def rope_freqs(head_dim: int, theta: float, device=None, dtype=_F32):
+    return theta ** (-torch.arange(0, head_dim, 2, dtype=dtype, device=device) / head_dim)
 
 
 def apply_rope(x, positions, theta: float):
     """x [B,S,H,dh] with positions [S], or [B,H,dh] with a scalar position."""
     dh = x.shape[-1]
-    freqs = rope_freqs(dh, theta, x.device)                # [dh/2]
-    pos = torch.as_tensor(positions, dtype=_F32, device=x.device)
+    acc = acc_dtype(x)
+    freqs = rope_freqs(dh, theta, x.device, acc)           # [dh/2]
+    pos = torch.as_tensor(positions, dtype=acc, device=x.device)
     ang = pos[..., None] * freqs                           # [S, dh/2] | [dh/2]
     if x.ndim == 4:                                        # [B,S,H,dh]
         ang = ang.reshape((1,) + tuple(ang.shape[:-1]) + (1, dh // 2))
     cos, sin = torch.cos(ang), torch.sin(ang)
-    x1f, x2f = x[..., : dh // 2].to(_F32), x[..., dh // 2:].to(_F32)
+    x1f, x2f = x[..., : dh // 2].to(acc), x[..., dh // 2:].to(acc)
     out = torch.cat([x1f * cos - x2f * sin, x2f * cos + x1f * sin], dim=-1)
     return out.to(x.dtype)
 
@@ -141,10 +160,11 @@ def flash_attention(q, k, v, *, mode="causal", window=None, cap=None,
     n_q, n_kv = Sq // qb, Sk // kvb
     scale = 1.0 / math.sqrt(dh)
     vdt = v.dtype
+    acc = acc_dtype(q)
 
     def block(i, lo, hi, qi, kj, vj):
-        qi = qi.reshape(B, qb, K, G, dh).to(_F32)
-        s = torch.einsum("bqkgd,btkd->bqkgt", qi, kj.to(_F32)) * scale
+        qi = qi.reshape(B, qb, K, G, dh).to(acc)
+        s = torch.einsum("bqkgd,btkd->bqkgt", qi, kj.to(acc)) * scale
         s = softcap(s, cap)
         if mode != "full":
             qpos = i * qb + torch.arange(qb, device=q.device)
@@ -158,7 +178,7 @@ def flash_attention(q, k, v, *, mode="causal", window=None, cap=None,
         m = torch.amax(s, dim=-1, keepdim=True)
         p = torch.exp(s - m)
         den = torch.sum(p, dim=-1)
-        o = torch.einsum("bqkgt,btkd->bqkgd", p.to(vdt).to(_F32), vj.to(_F32))
+        o = torch.einsum("bqkgt,btkd->bqkgd", p.to(vdt).to(acc), vj.to(acc))
         o = o / torch.clamp(den, min=1e-30)[..., None]
         return o.reshape(B, qb, H, dh)
 
@@ -184,8 +204,9 @@ def decode_attention(q, k_cache, v_cache, valid, *, cap=None):
     B, H, dh = q.shape
     K = k_cache.shape[2]
     G = H // K
-    qh = q.reshape(B, K, G, dh).to(_F32)
-    kc = k_cache.to(q.dtype).to(_F32)
+    acc = acc_dtype(q)
+    qh = q.reshape(B, K, G, dh).to(acc)
+    kc = k_cache.to(q.dtype).to(acc)
     s = torch.einsum("bkgd,btkd->bkgt", qh, kc)
     s = s / math.sqrt(dh)
     s = softcap(s, cap)
@@ -193,8 +214,8 @@ def decode_attention(q, k_cache, v_cache, valid, *, cap=None):
         valid = valid[None, :]
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    vc = v_cache.to(q.dtype).to(_F32)
-    o = torch.einsum("bkgt,btkd->bkgd", p.to(q.dtype).to(_F32), vc)
+    vc = v_cache.to(q.dtype).to(acc)
+    o = torch.einsum("bkgt,btkd->bkgd", p.to(q.dtype).to(acc), vc)
     return o.reshape(B, H, dh).to(q.dtype)
 
 

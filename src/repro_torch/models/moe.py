@@ -2,8 +2,8 @@
 
 Port of ``repro/models/moe.py``.  Tokens are processed in ``g`` groups
 (the reference aligns them with its data-parallel shards).  Within a group
-each (token, slot) pair is routed in float32 (softmax, top-k, the gates
-renormalised over the k slots), ranked inside its chosen expert in token
+each (token, slot) pair is routed in float32, or float64 for a float64
+model (softmax, top-k, the gates renormalised over the k slots), ranked inside its chosen expert in token
 order (:func:`_ranks_within_expert`), dropped at the capacity ``cap``,
 placed in a dense ``[g, E, cap, d]`` buffer, pushed through the expert
 matmuls, and gathered back weighted by its gate.  The Switch-style ``aux``
@@ -42,9 +42,8 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import mlp_act
+from repro_torch.models.layers import acc_dtype, mlp_act
 
-_F32 = torch.float32
 
 #: (pairs dropped, pairs) of each moe_mlp call inside :func:`drop_log`
 _DROPS: Optional[List[Tuple[torch.Tensor, int]]] = None
@@ -94,18 +93,19 @@ def dispatch_shape(T: int, groups: int, cfg) -> Tuple[int, int, int]:
 
 
 def route(router, xf, cfg, cap: int):
-    """The routing of ``xf [g, Tg, d]``: (probs [g, Tg, E] float32, eidx
-    [g, Tg, k] int64, ranks [g, Tg·k] int64, keep [g, Tg·k] float32 —
-    the renormalised gate where the rank is under ``cap``, else 0)."""
+    """The routing of ``xf [g, Tg, d]``: (probs [g, Tg, E] float32 (or
+    wider), eidx [g, Tg, k] int64, ranks [g, Tg·k] int64, keep [g, Tg·k]
+    in probs' dtype — the renormalised gate where the rank is under
+    ``cap``, else 0)."""
     g, Tg, _ = xf.shape
     k = cfg.experts_per_token
     logits = xf @ router.to(xf.dtype)
-    probs = torch.softmax(logits.to(_F32), dim=-1)
+    probs = torch.softmax(logits.to(acc_dtype(xf)), dim=-1)
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate, eidx = vals[..., :k], idx[..., :k]
     gate = gate / torch.sum(gate, dim=-1, keepdim=True)
     ranks = _ranks_within_expert(eidx.reshape(g, Tg * k), cfg.num_experts)
-    keep = (ranks < cap).to(_F32) * gate.reshape(g, Tg * k)
+    keep = (ranks < cap).to(probs.dtype) * gate.reshape(g, Tg * k)
     return probs, eidx, ranks, keep
 
 
@@ -113,7 +113,7 @@ def moe_mlp(p, x, cfg, *, groups: int):
     """``x [B, S, d] -> ([B, S, d], aux)`` through the top-k routed experts.
 
     ``p``: ``router [d, E]`` (float32), ``wi``/``wg [E, d, f]``, ``wo [E, f,
-    d]``; ``aux`` is a float32 scalar."""
+    d]``; ``aux`` is a float32 (or wider) scalar."""
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
     g, Tg, cap = dispatch_shape(B * S, groups, cfg)
@@ -146,6 +146,6 @@ def moe_mlp(p, x, cfg, *, groups: int):
     out = torch.sum(out_pairs.view(g, Tg, k, d), dim=2)
     # the auxiliary load-balance loss (Switch-style)
     me = torch.mean(probs, dim=(0, 1))
-    ce = torch.mean(F.one_hot(eidx[..., 0], E).to(_F32), dim=(0, 1))
+    ce = torch.mean(F.one_hot(eidx[..., 0], E).to(probs.dtype), dim=(0, 1))
     aux = E * torch.sum(me * ce)
     return out.reshape(B, S, d), aux

@@ -1,29 +1,42 @@
-"""The decoder-only LM: parameter specs, forward (prefill and training),
-the chunked cross-entropy, KV caches and the decode step.
+"""The LM: parameter specs, forward (prefill and training), the chunked
+cross-entropy, decode caches and the decode step, for every family of
+``configs/``.
 
-Port of ``repro/models/transformer.py`` for the dense and MoE families:
-the ``attn`` block (global causal attention) and the ``attn_chunked``
-block (Llama-4's chunked local attention, or a sliding window in the
-hybrid family), each followed by a dense MLP or the routed experts of
-``models.moe``; RMSNorm or LayerNorm, RoPE (on every attention layer, as
-in the reference: Llama-4's global layers get it too) or no positions,
-tied or untied unembedding, qk-norm, a bf16 or int8 KV cache for ``attn``
-and a ring cache of the last W positions for ``attn_chunked``.  The
-per-layer calls dispatch on the layer type as the reference's
-``_block_specs``/``_block_train``/``_block_cache``/``_block_decode`` do.
+Port of ``repro/models/transformer.py``.  The config's ``block_pattern`` is
+cycled over ``num_layers``; each block type owns its parameters, its decode
+cache and its train/decode apply, dispatched on the layer type as the
+reference's ``_block_specs``/``_block_train``/``_block_cache``/
+``_block_decode`` do:
+
+  attn           global causal attention + dense MLP or routed experts
+                 (``models.moe``)
+  attn_chunked   Llama-4's chunked local attention, or a sliding window of
+                 ``local_window`` in the hybrid family (ring cache)
+  rglru          RG-LRU temporal mixing + dense MLP (``models.recurrent``)
+  mlstm / slstm  xLSTM blocks, self-contained (``models.recurrent``,
+                 ``models.mlstm_chunked``)
+
+RMSNorm or LayerNorm; RoPE (on every attention layer, as in the reference),
+learned positions (``pos_embed`` [MAX_LEARNED_POS, d]) or none; tied or
+untied unembedding; qk-norm; a bf16 or int8 KV cache for ``attn``.  An
+encoder-decoder config (whisper) runs a bidirectional encoder over the
+audio stub's ``frames`` and cross attention in every decoder block; a
+vision-stub config (internvl2) prepends the batch's ``patches``, cast to the
+activations' dtype, to the embedded tokens.  The encoder runs in the dtype
+the frames and its weights promote to (float32 frames: float32, as the
+reference's ``jnp`` promotion has it), and its cross K/V are cached in bf16.
+
 The reference scans its layer groups over parameters stacked on a leading
 "layers" axis; here the parameters are those same stacked leaves, each
 group takes its slices inside the forward and the scan is a loop, under
 the config's ``remat`` policy (``torch.utils.checkpoint``) when the
-forward builds a graph.  :class:`Transformer`'s methods carry the
-reference's function names: ``forward(batch, cache_len=)``, ``unembed``,
-``init_cache``, ``decode_step``; :func:`xent_loss` is the reference's.
+forward builds a graph; the encoder's layers likewise.
+:class:`Transformer`'s methods carry the reference's function names:
+``forward(batch, cache_len=)``, ``unembed``, ``init_cache``,
+``decode_step``; :func:`xent_loss` is the reference's.
 
 Left out on purpose: ``pin_batch_activation`` and ``_pin_replicated_heads``
-are GSPMD sharding constraints and mean nothing on one card.  The
-recurrent blocks (``rglru``, ``mlstm``, ``slstm``), encoder-decoder,
-frontends and learned positions raise ``NotImplementedError`` naming the
-ROADMAP slice that ports them (:func:`refuse_unported`).
+are GSPMD sharding constraints and mean nothing on one card.
 
 Caches: a list with one dict per layer, in layer order (the reference's
 tree of stacked leaves comes back through
@@ -32,10 +45,14 @@ in bf16 whatever the parameters' dtype, as the reference's
 ``_kv_to_cache`` does; ``decode_step`` takes a bf16, float32 or int8
 cache.  An ``attn_chunked`` layer's cache holds W slots (the window, at
 most the cache length): position ``pos`` lives in slot ``pos % W`` and
-``kpos`` [W] int32 names the position in each slot (-1 where empty).
-``decode_step`` writes the new token's K/V into the cache IN PLACE and
-returns the same cache (the reference returns a new tree): a caller that
-needs the old cache copies it first.
+``kpos`` [W] int32 names the position in each slot (-1 where empty).  An
+encoder-decoder's attention layers add ``xk``/``xv`` [B, encoder_seq, K,
+dh] (bf16).  A recurrent layer's cache is its float32 state; the prefill
+returns it only when ``cache_len`` > 0.  ``decode_step`` updates the cache
+IN PLACE and returns the same list: attention layers write the token's K/V
+into their tensors, recurrent layers replace the entries of their own
+state dict (the dict object stays); a caller that needs the old cache
+copies it first.
 """
 from __future__ import annotations
 
@@ -50,38 +67,16 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import (apply_norm, apply_rope, decode_attention,
-                                       flash_attention, mlp, rms_norm)
+from repro_torch.models import recurrent as R
+from repro_torch.models.layers import (acc_dtype, apply_norm, apply_rope, decode_attention,
+                                       flash_attention, mlp, proj, rms_norm)
 from repro_torch.models.moe import moe_mlp
 from repro_torch.models.spec import ParamSpec, init_params
+from repro_torch.uda import tree_map
 
 _F32 = torch.float32
-
-#: where ROADMAP.md's Queue 1 ports what the port still refuses
-_SLICE_RECURRENT = "LM slice (d) in ROADMAP.md (the recurrent mixers: recurrentgemma, xlstm)"
-_SLICE_ENC = "LM slice (e) in ROADMAP.md (encoder-decoder and frontends: whisper, internvl2)"
+MAX_LEARNED_POS = 32768
 _ATTN = ("attn", "attn_chunked")
-_RECURRENT = ("rglru", "mlstm", "slstm")
-
-
-def _refuse_block(cfg: ArchConfig, ltype: str):
-    if ltype in _RECURRENT:
-        raise NotImplementedError(f"{cfg.name}: block {ltype!r} waits for {_SLICE_RECURRENT}")
-    raise ValueError(ltype)
-
-
-def refuse_unported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet:
-    the recurrent blocks, encoder-decoder, frontends, learned positions."""
-    for lt in cfg.block_pattern:
-        if lt not in _ATTN:
-            _refuse_block(cfg, lt)
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"{cfg.name}: is_encoder_decoder waits for {_SLICE_ENC}")
-    if cfg.frontend:
-        raise NotImplementedError(f"{cfg.name}: frontend {cfg.frontend!r} waits for {_SLICE_ENC}")
-    if cfg.pos == "learned":
-        raise NotImplementedError(f"{cfg.name}: pos='learned' waits for {_SLICE_ENC}")
 
 
 def check_per_example(cfg: ArchConfig) -> None:
@@ -98,13 +93,6 @@ def check_per_example(cfg: ArchConfig) -> None:
 
 
 # =========================================================================== specs
-
-def _norm_spec(d, kind, dtype):
-    if kind == "rms":
-        return {"scale": ParamSpec((d,), ("embed",), "ones", dtype=dtype)}
-    return {"scale": ParamSpec((d,), ("embed",), "ones", dtype=dtype),
-            "bias": ParamSpec((d,), ("embed",), "zeros", dtype=dtype)}
-
 
 def _mlp_specs(cfg: ArchConfig, dtype):
     d, f = cfg.d_model, cfg.d_ff
@@ -127,27 +115,42 @@ def _mlp_specs(cfg: ArchConfig, dtype):
     return s
 
 
-def _attn_specs(cfg: ArchConfig, dtype):
+def _attn_specs(cfg: ArchConfig, dtype, cross: bool = False):
     d, H, K, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     s = {
-        "ln1": _norm_spec(d, cfg.norm, dtype),
+        "ln1": R.norm_spec(d, cfg.norm, dtype),
         "wq": ParamSpec((d, H, dh), ("embed", "heads", None), dtype=dtype),
         "wk": ParamSpec((d, K, dh), ("embed", "kv", None), dtype=dtype),
         "wv": ParamSpec((d, K, dh), ("embed", "kv", None), dtype=dtype),
         "wo": ParamSpec((H, dh, d), ("heads", None, "embed"), dtype=dtype),
-        "ln2": _norm_spec(d, cfg.norm, dtype),
+        "ln2": R.norm_spec(d, cfg.norm, dtype),
         "mlp": _mlp_specs(cfg, dtype),
     }
     if cfg.qk_norm:
         s["qn"] = ParamSpec((dh,), (None,), "ones", dtype=dtype)
         s["kn"] = ParamSpec((dh,), (None,), "ones", dtype=dtype)
+    if cross:
+        s["lnx"] = R.norm_spec(d, cfg.norm, dtype)
+        s["xq"] = ParamSpec((d, H, dh), ("embed", "heads", None), dtype=dtype)
+        s["xk"] = ParamSpec((d, K, dh), ("embed", "kv", None), dtype=dtype)
+        s["xv"] = ParamSpec((d, K, dh), ("embed", "kv", None), dtype=dtype)
+        s["xo"] = ParamSpec((H, dh, d), ("heads", None, "embed"), dtype=dtype)
     return s
 
 
-def _block_specs(cfg: ArchConfig, ltype: str, dtype):
+def _block_specs(cfg: ArchConfig, ltype: str, dtype, cross: bool = False):
     if ltype in _ATTN:
-        return _attn_specs(cfg, dtype)
-    _refuse_block(cfg, ltype)
+        return _attn_specs(cfg, dtype, cross=cross)
+    if ltype == "rglru":
+        s = R.rglru_specs(cfg, dtype)
+        s["ln2"] = R.norm_spec(cfg.d_model, cfg.norm, dtype)
+        s["mlp"] = _mlp_specs(cfg, dtype)
+        return s
+    if ltype == "mlstm":
+        return R.mlstm_specs(cfg, dtype)
+    if ltype == "slstm":
+        return R.slstm_specs(cfg, dtype)
+    raise ValueError(ltype)
 
 
 def _stack_specs(tree, n: int):
@@ -167,20 +170,34 @@ def _layer_layout(cfg: ArchConfig):
 
 def param_specs(cfg: ArchConfig, dtype=torch.bfloat16) -> Dict[str, Any]:
     """The reference's parameter tree: ``embed``, ``layers`` (each pattern
-    entry ``b{i}`` stacked over the layer groups), ``tail``, ``ln_f`` and,
-    when the embeddings are not tied, ``lm_head``."""
-    refuse_unported(cfg)
+    entry ``b{i}`` stacked over the layer groups), ``tail``, ``ln_f``; when
+    the embeddings are not tied, ``lm_head``; with learned positions,
+    ``pos_embed`` [MAX_LEARNED_POS, d]; for an encoder-decoder, the
+    decoder's attention blocks with cross attention (``lnx``, ``xq``,
+    ``xk``, ``xv``, ``xo``) and the ``encoder`` (``pos`` [encoder_seq, d],
+    its blocks stacked as ``layers/b0``, ``ln_f``)."""
     d, V = cfg.d_model, cfg.vocab_padded
     pat, n_groups, tail = _layer_layout(cfg)
-    group = {f"b{i}": _block_specs(cfg, lt, dtype) for i, lt in enumerate(pat)}
+    cross = cfg.is_encoder_decoder
+    group = {f"b{i}": _block_specs(cfg, lt, dtype, cross=cross) for i, lt in enumerate(pat)}
     specs: Dict[str, Any] = {
         "embed": ParamSpec((V, d), ("vocab", "embed"), "embed", scale=0.02, dtype=dtype),
         "layers": _stack_specs(group, n_groups) if n_groups else {},
-        "tail": {f"t{i}": _block_specs(cfg, lt, dtype) for i, lt in enumerate(tail)},
-        "ln_f": _norm_spec(d, cfg.norm, dtype),
+        "tail": {f"t{i}": _block_specs(cfg, lt, dtype, cross=cross) for i, lt in enumerate(tail)},
+        "ln_f": R.norm_spec(d, cfg.norm, dtype),
     }
     if not cfg.tie_embeddings:
         specs["lm_head"] = ParamSpec((d, V), ("embed", "vocab"), scale=1.0, dtype=dtype)
+    if cfg.pos == "learned":
+        specs["pos_embed"] = ParamSpec((MAX_LEARNED_POS, d), (None, "embed"), "embed",
+                                       scale=0.02, dtype=dtype)
+    if cfg.is_encoder_decoder:
+        specs["encoder"] = {
+            "pos": ParamSpec((cfg.encoder_seq, d), (None, "embed"), "embed", scale=0.02,
+                             dtype=dtype),
+            "layers": _stack_specs({"b0": _attn_specs(cfg, dtype)}, cfg.encoder_layers),
+            "ln_f": R.norm_spec(d, cfg.norm, dtype),
+        }
     return specs
 
 
@@ -248,15 +265,11 @@ def _remat_wrap(fn, policy: str):
     return lambda *a: checkpoint(fn, *a, use_reentrant=False)
 
 
-def _proj(h, w):
-    """``h [..., d] @ w [d, a, b] -> [..., a, b]`` (the reference's
-    ``einsum("bsd,dhe->bshe")`` and its one-token form) as one matmul."""
-    return (h @ w.reshape(w.shape[0], -1)).reshape(*h.shape[:-1], *w.shape[1:])
-
-
 def _out(o, w):
-    """``o [..., H, dh] @ w [H, dh, d] -> [..., d]``."""
-    return o.reshape(*o.shape[:-2], -1) @ w.reshape(-1, w.shape[-1])
+    """``o [..., H, dh] @ w [H, dh, d] -> [..., d]``, in the dtype the two
+    promote to."""
+    dt = torch.promote_types(o.dtype, w.dtype)
+    return o.reshape(*o.shape[:-2], -1).to(dt) @ w.reshape(-1, w.shape[-1]).to(dt)
 
 
 def _quant(x):
@@ -304,8 +317,19 @@ def _attn_cache(cfg: ArchConfig, ltype: str, batch: int, seq_len: int, dev):
 
 def _block_cache(cfg: ArchConfig, ltype: str, batch: int, seq_len: int, dev):
     if ltype in _ATTN:
-        return _attn_cache(cfg, ltype, batch, seq_len, dev)
-    _refuse_block(cfg, ltype)
+        c = _attn_cache(cfg, ltype, batch, seq_len, dev)
+        if cfg.is_encoder_decoder:
+            K, dh = cfg.num_kv_heads, cfg.head_dim_
+            for k in ("xk", "xv"):
+                c[k] = torch.zeros((batch, cfg.encoder_seq, K, dh), dtype=torch.bfloat16, device=dev)
+        return c
+    if ltype == "rglru":
+        return R.rglru_state(cfg, batch, dev)
+    if ltype == "mlstm":
+        return R.mlstm_state(cfg, batch, dev)
+    if ltype == "slstm":
+        return R.slstm_state(cfg, batch, dev)
+    raise ValueError(ltype)
 
 
 def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device="cuda"):
@@ -313,15 +337,17 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device="cuda"):
     ``k``/``v`` [B, S, K, dh] in bf16, or int8 with float32 scales
     ``ks``/``vs`` [B, S, K]; an ``attn_chunked`` layer's ring of W = min(
     window, S) slots, ``k``/``v`` [B, W, K, dh] in bf16 and ``kpos`` [W]
-    int32, all -1."""
-    refuse_unported(cfg)
+    int32, all -1; an encoder-decoder's cross ``xk``/``xv`` [B,
+    encoder_seq, K, dh] in bf16; a recurrent layer's float32 state
+    (``models.recurrent``'s ``*_state``)."""
     dev = resolve_device(device)
     return [_block_cache(cfg, lt, batch, seq_len, dev) for lt in cfg.layer_types()]
 
 
 class Transformer(nn.Module):
-    """The LM (dense or MoE) over a parameter tree in the reference's layout (the
-    tree :func:`param_specs` describes, as tensors on one device).
+    """The LM (any family of ``configs/``) over a parameter tree in the
+    reference's layout (the tree :func:`param_specs` describes, as tensors
+    on one device).
 
     The parameters are the reference's leaves, stacked ones included:
     ``params["layers"]["b0"]["wq"]`` is one [n_groups, d, H, dh] parameter,
@@ -335,7 +361,6 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ArchConfig, params: Dict[str, Any]):
         super().__init__()
-        refuse_unported(cfg)
         self.cfg = cfg
         self.weights = ParamTree(params)
         #: the parameters as the reference's dict tree (sorted keys)
@@ -359,7 +384,7 @@ class Transformer(nn.Module):
 
     def _qkv(self, p, h, pos):
         cfg = self.cfg
-        q, k, v = _proj(h, p["wq"]), _proj(h, p["wk"]), _proj(h, p["wv"])
+        q, k, v = proj(h, p["wq"]), proj(h, p["wk"]), proj(h, p["wv"])
         if cfg.qk_norm:  # the reference's qk-norm is rms_norm's arithmetic
             q, k = rms_norm(q, p["qn"]), rms_norm(k, p["kn"])
         if cfg.pos == "rope":
@@ -367,7 +392,7 @@ class Transformer(nn.Module):
             k = apply_rope(k, pos, cfg.rope_theta)
         return q, k, v
 
-    def _attn_train(self, p, x, ltype: str, cache_len: int):
+    def _attn_train(self, p, x, ltype: str, cache_len: int, enc_out=None):
         cfg = self.cfg
         h = apply_norm(x, p["ln1"], cfg.norm)
         q, k, v = self._qkv(p, h, torch.arange(x.shape[1], device=x.device))
@@ -377,12 +402,21 @@ class Transformer(nn.Module):
             window = _window(cfg)
         o = flash_attention(q, k, v, mode=mode, window=window, cap=cfg.logit_softcap)
         x = x + _out(o, p["wo"])
+        if enc_out is not None:  # cross attention over the encoder's output
+            hx = apply_norm(x, p["lnx"], cfg.norm)
+            qx = proj(hx, p["xq"])
+            kx, vx = proj(enc_out, p["xk"]), proj(enc_out, p["xv"])
+            x = x + _out(flash_attention(qx, kx, vx, mode="full"), p["xo"])
         h2 = apply_norm(x, p["ln2"], cfg.norm)
         if cfg.num_experts:
             out, aux = moe_mlp(p["mlp"], h2, cfg, groups=cfg.moe_groups)
         else:
             out, aux = mlp(p["mlp"], h2, cfg), 0.0
-        cache = self._kv_to_cache(ltype, k, v, cache_len) if cache_len else None
+        cache = None
+        if cache_len:
+            cache = self._kv_to_cache(ltype, k, v, cache_len)
+            if enc_out is not None:
+                cache["xk"], cache["xv"] = kx.to(torch.bfloat16), vx.to(torch.bfloat16)
         return x + out, cache, aux
 
     def _kv_to_cache(self, ltype: str, k, v, cache_len: int):
@@ -412,21 +446,56 @@ class Transformer(nn.Module):
             return {"k": kq, "v": vq, "ks": ks, "vs": vs}
         return {"k": kf.to(torch.bfloat16), "v": vf.to(torch.bfloat16)}
 
-    def _block_train(self, p, x, ltype: str, cache_len: int):
+    def _block_train(self, p, x, ltype: str, cache_len: int, enc_out=None):
         """-> (x, the block's cache or None, its aux loss)."""
+        cfg = self.cfg
         if ltype in _ATTN:
-            return self._attn_train(p, x, ltype, cache_len)
-        _refuse_block(self.cfg, ltype)
+            return self._attn_train(p, x, ltype, cache_len, enc_out)
+        if ltype == "rglru":
+            x, st = R.rglru_train(p, x, cfg)
+            x = x + mlp(p["mlp"], apply_norm(x, p["ln2"], cfg.norm), cfg)
+        elif ltype == "mlstm":
+            x, st = R.mlstm_train(p, x, cfg)
+        elif ltype == "slstm":
+            x, st = R.slstm_train(p, x, cfg)
+        else:
+            raise ValueError(ltype)
+        return x, (st if cache_len else None), 0.0
 
-    def _group(self, x, aux, gp, cache_len: int = 0):
+    def _group(self, x, aux, gp, enc_out=None, cache_len: int = 0):
         """One layer group (the reference's scanned ``group_fn``): each
         block of the pattern in turn -> (x, aux, the blocks' caches)."""
         caches = []
         for j, lt in enumerate(self.cfg.block_pattern):
-            x, c, a = self._block_train(gp[f"b{j}"], x, lt, cache_len)
+            x, c, a = self._block_train(gp[f"b{j}"], x, lt, cache_len, enc_out)
             aux = aux + a
             caches.append(c)
         return x, aux, caches
+
+    def _enc_block(self, x, pp):
+        """One encoder layer: bidirectional attention (the reference's
+        ``_qkv``: no RoPE, no qk-norm) and the MLP."""
+        cfg = self.cfg
+        h = apply_norm(x, pp["ln1"], cfg.norm)
+        q, k, v = proj(h, pp["wq"]), proj(h, pp["wk"]), proj(h, pp["wv"])
+        x = x + _out(flash_attention(q, k, v, mode="full"), pp["wo"])
+        return x + mlp(pp["mlp"], apply_norm(x, pp["ln2"], cfg.norm), cfg)
+
+    def _encoder_forward(self, frames):
+        """The audio stub's frames [B, T, d] plus the encoder's positions,
+        through its layers (each under the config's remat when a graph is
+        built) and its final norm.  It runs in the dtype the frames and the
+        weights promote to: the weights are cast to it, as ``jnp``'s
+        promotion casts them in the reference's products."""
+        cfg = self.cfg
+        p = self.params["encoder"]
+        x = frames + p["pos"][None, :frames.shape[1]]
+        blk = self._enc_block
+        if torch.is_grad_enabled() and any(t.requires_grad for t in self.parameters()):
+            blk = _remat_wrap(blk, cfg.remat)
+        for pp in _unstack(p["layers"]["b0"], cfg.encoder_layers):
+            x = blk(x, tree_map(lambda t: t.to(x.dtype), pp))
+        return apply_norm(x, p["ln_f"], cfg.norm)
 
     def forward(self, batch: Dict[str, torch.Tensor], cache_len: int = 0):
         """Full-sequence forward -> (final hidden states [B, S, d], aux,
@@ -447,6 +516,11 @@ class Transformer(nn.Module):
         # (index_put_ with accumulate) is not deterministic on the CPU, and
         # a resumed run must be bitwise an uninterrupted one
         x = F.embedding(batch["tokens"].long(), self.params["embed"])
+        if cfg.frontend == "vision_stub" and "patches" in batch:
+            x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+        enc_out = self._encoder_forward(batch["frames"]) if cfg.is_encoder_decoder else None
+        if cfg.pos == "learned":
+            x = x + self.params["pos_embed"][None, :x.shape[1]]
         group = functools.partial(self._group, cache_len=cache_len)
         if torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters()):
             group = _remat_wrap(group, cfg.remat)
@@ -457,10 +531,10 @@ class Transformer(nn.Module):
         aux = torch.zeros((), dtype=_F32, device=x.device)
         caches = []
         for i in range(n_groups):
-            x, aux, cs = group(x, aux, {f"b{j}": stacks[j][i] for j in range(len(pat))})
+            x, aux, cs = group(x, aux, {f"b{j}": stacks[j][i] for j in range(len(pat))}, enc_out)
             caches += cs
         for i, lt in enumerate(tail):
-            x, c, a = self._block_train(self.params["tail"][f"t{i}"], x, lt, cache_len)
+            x, c, a = self._block_train(self.params["tail"][f"t{i}"], x, lt, cache_len, enc_out)
             aux = aux + a
             caches.append(c)
         x = apply_norm(x, self.params["ln_f"], cfg.norm)
@@ -480,7 +554,8 @@ class Transformer(nn.Module):
 
     def _attn_decode(self, p, x1, cache, pos: int, ltype: str):
         """x1 [B, d]; writes the token's K/V at ``pos`` (an ``attn_chunked``
-        layer: at slot ``pos % W``, with ``kpos``) in place."""
+        layer: at slot ``pos % W``, with ``kpos``) in place; an
+        encoder-decoder attends the cached ``xk``/``xv`` at every slot."""
         cfg = self.cfg
         h = apply_norm(x1, p["ln1"], cfg.norm)
         q, k1, v1 = self._qkv(p, h, pos)
@@ -516,15 +591,32 @@ class Transformer(nn.Module):
             valid = torch.arange(S, device=x1.device) <= pos
         o = decode_attention(q, kc, vc, valid, cap=cfg.logit_softcap)
         x1 = x1 + _out(o, p["wo"])
+        if cfg.is_encoder_decoder:  # cross attention over the cached encoder K/V
+            qx = proj(apply_norm(x1, p["lnx"], cfg.norm), p["xq"])
+            every = torch.ones(cache["xk"].shape[1], dtype=torch.bool, device=x1.device)
+            x1 = x1 + _out(decode_attention(qx, cache["xk"], cache["xv"], every), p["xo"])
         h2 = apply_norm(x1, p["ln2"], cfg.norm)
         if cfg.num_experts:
             return x1 + moe_mlp(p["mlp"], h2[:, None, :], cfg, groups=cfg.moe_groups)[0][:, 0]
         return x1 + mlp(p["mlp"], h2, cfg)
 
     def _block_decode(self, p, x1, cache, pos: int, ltype: str):
+        """-> x1 after the block; the block's cache updated in place (a
+        recurrent layer's state dict gets its new entries)."""
+        cfg = self.cfg
         if ltype in _ATTN:
             return self._attn_decode(p, x1, cache, pos, ltype)
-        _refuse_block(self.cfg, ltype)
+        if ltype == "rglru":
+            x1, st = R.rglru_decode(p, x1, cache, cfg)
+            x1 = x1 + mlp(p["mlp"], apply_norm(x1, p["ln2"], cfg.norm), cfg)
+        elif ltype == "mlstm":
+            x1, st = R.mlstm_decode(p, x1, cache, cfg)
+        elif ltype == "slstm":
+            x1, st = R.slstm_decode(p, x1, cache, cfg)
+        else:
+            raise ValueError(ltype)
+        cache.update(st)
+        return x1
 
     @torch.no_grad()
     def decode_step(self, token, cache, pos):
@@ -532,6 +624,8 @@ class Transformer(nn.Module):
         Returns (logits [B, V_padded] float32, the cache updated in place)."""
         pos = int(pos)
         x1 = F.embedding(token.long(), self.params["embed"])
+        if self.cfg.pos == "learned":
+            x1 = x1 + self.params["pos_embed"][pos]
         for p, c, lt in zip(self.layers, cache, self.cfg.layer_types()):
             x1 = self._block_decode(p, x1, c, pos, lt)
         x1 = apply_norm(x1, self.params["ln_f"], self.cfg.norm)
@@ -569,7 +663,8 @@ class Transformer(nn.Module):
 
 def xent_loss(model: Transformer, cfg: ArchConfig, x, targets, mask, seq_chunk: int = 1024):
     """Chunked softmax cross-entropy (the reference's ``xent_loss``): the
-    masked negative log-likelihood summed in float32 over sequence chunks of
+    masked negative log-likelihood summed in float32 (float64 for a float64
+    model) over sequence chunks of
     ``seq_chunk`` (lowered until it divides S), over the mask's sum.
 
     x [B, S, d]; targets and mask [B, S].  One chunk's float32 logits [B, c,
@@ -582,13 +677,14 @@ def xent_loss(model: Transformer, cfg: ArchConfig, x, targets, mask, seq_chunk: 
         c -= 1
 
     def chunk_loss(xc, tc, mc, head):
-        logits = (xc @ head).to(_F32)
+        logits = xc @ head
+        logits = logits.to(acc_dtype(logits))
         lse = torch.logsumexp(logits, dim=-1)
         gold = logits.gather(-1, tc.long()[..., None])[..., 0]
         return torch.sum((lse - gold) * mc)
 
     remat = torch.is_grad_enabled() and (x.requires_grad or head.requires_grad)
-    total = torch.zeros((), dtype=_F32, device=x.device)
+    total = torch.zeros((), dtype=acc_dtype(x), device=x.device)
     for i in range(S // c):
         args = (x[:, i * c:(i + 1) * c], targets[:, i * c:(i + 1) * c],
                 mask[:, i * c:(i + 1) * c], head)

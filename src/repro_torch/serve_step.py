@@ -1,4 +1,4 @@
-"""LM serving: batched prefill and greedy decode over the dense transformer.
+"""LM serving: batched prefill and greedy decode over the transformer.
 
 Port of ``repro/serving/serve_step.py`` (and of the demo
 ``examples/llm_serve_demo.py`` as :func:`main`).  Three entry points:
@@ -14,6 +14,7 @@ the padded vocabulary, as in the reference.
 
     python -m repro_torch.serve_step --arch smollm_135m            # on the card
     python -m repro_torch.serve_step --arch qwen3_32b --smoke --device cpu
+    python -m repro_torch.serve_step --arch whisper_base --smoke --device cpu
 """
 from __future__ import annotations
 
@@ -46,12 +47,21 @@ def make_decode(cfg: ArchConfig):
     return decode_step
 
 
+def prefix_len(cfg: ArchConfig, batch) -> int:
+    """Positions the frontend puts before the text: the vision stub's
+    ``vis_tokens`` when the batch has ``patches``, else 0."""
+    return cfg.vis_tokens if cfg.frontend == "vision_stub" and "patches" in batch else 0
+
+
 def greedy_generate(cfg: ArchConfig, model, batch, *, steps: int, cache_len: int):
     """Greedy generation: one prefill, then ``steps - 1`` decode steps on
-    the host loop; returns the ``steps`` chosen tokens [B, steps] int32."""
+    the host loop; returns the ``steps`` chosen tokens [B, steps] int32.
+    With a vision stub's ``patches`` in the batch the prefill's sequence is
+    the ``vis_tokens`` patches and then the text, so decoding starts after
+    both."""
     prefill, decode = make_prefill(cfg, cache_len), make_decode(cfg)
     logits, cache = prefill(model, batch)
-    pos0 = batch["tokens"].shape[1]
+    pos0 = batch["tokens"].shape[1] + prefix_len(cfg, batch)
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
     out = [tok]
     for i in range(steps - 1):
@@ -82,7 +92,7 @@ def main(argv=None):
     sync()
     t0 = time.perf_counter()
     out = greedy_generate(cfg, model, batch, steps=args.gen,
-                          cache_len=args.prompt_len + args.gen + 1)
+                          cache_len=prefix_len(cfg, batch) + args.prompt_len + args.gen + 1)
     sync()
     dt = time.perf_counter() - t0
     print(f"arch={cfg.name} device={dev} generated [{args.batch}, {args.gen}] tokens "

@@ -29,7 +29,6 @@ Tolerances, each relative to the largest |logit| of the reference:
   against its running maximum).
 """
 import dataclasses
-import re
 import functools
 
 import jax
@@ -38,6 +37,7 @@ import numpy as np
 import pytest
 import torch
 
+import lm_parity as LP
 from repro.configs import base as RB
 from repro.configs import get_config as rget
 from repro.data import tokens as RTOK
@@ -255,7 +255,7 @@ def test_mlp_matches(arch):
 
 # --------------------------------------------------------------------------- specs
 
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", DENSE + MOE + OTHERS)
 def test_param_specs_are_the_reference_tree(arch):
     cfg = tget(arch).smoke()
     mine = TSPEC.spec_leaves(TT.param_specs(cfg, dtype=torch.float32))
@@ -484,23 +484,37 @@ def test_incremental_decode_matches_forward(arch):
     assert rel < 2e-3, rel
 
 
-# --------------------------------------------------------------------------- what this slice refuses
+# --------------------------------------------------------------------------- the other families' trees
 
 @pytest.mark.parametrize("arch", OTHERS)
-def test_other_families_raise_naming_their_slice(arch):
-    cfg = tget(arch).smoke()
-    want = {"whisper_base": "(e)", "internvl2_1b": "(e)", "recurrentgemma_9b": "(d)",
-            "xlstm_125m": "(d)"}[arch]
-    for fn in (lambda: TT.param_specs(cfg), lambda: TT.init_cache(cfg, 1, 4, "cpu"),
-               lambda: TT.init_model(cfg, device="cpu")):
-        with pytest.raises(NotImplementedError, match=re.escape(f"LM slice {want}")):
-            fn()
+def test_full_size_param_specs_are_the_reference_tree_with_its_dtypes(arch):
+    """The four families the later slices ported, at their published sizes:
+    paths, shapes, logical axes, inits, scales and dtypes (bf16 parameters,
+    float32 ``lam``/``b_if``/sLSTM biases), specs only — nothing is drawn."""
+    LP.check_param_specs(arch, full=True)
 
 
-def test_learned_positions_raise():
-    cfg = dataclasses.replace(tget("smollm_135m").smoke(), pos="learned")
-    with pytest.raises(NotImplementedError, match=r"pos='learned'.*LM slice \(e\)"):
-        TT.param_specs(cfg)
+def test_learned_positions_build_pos_embed_as_the_reference():
+    """A smollm variant with ``pos="learned"``: the tree gains ``pos_embed``
+    [MAX_LEARNED_POS, d] (init "embed", std 0.02), and the forward adds its
+    rows, within the float32 tolerance of the reference's logits."""
+    rcfg = dataclasses.replace(rget("smollm_135m").smoke(), pos="learned")
+    tcfg = dataclasses.replace(tget("smollm_135m").smoke(), pos="learned")
+    spec = TT.param_specs(tcfg, dtype=torch.float32)["pos_embed"]
+    rspec = RT.param_specs(rcfg, dtype=jnp.float32)["pos_embed"]
+    assert (spec.shape, spec.logical, spec.init, spec.scale) == (
+        rspec.shape, rspec.logical, rspec.init, rspec.scale) == (
+        (TT.MAX_LEARNED_POS, 64), (None, "embed"), "embed", 0.02)
+    params = RSPEC.init_params(RT.param_specs(rcfg, dtype=jnp.float32), jax.random.key(1))
+    model = convert.lm_params_from_reference(jax.tree.map(np.asarray, params), tcfg, device="cpu")
+    toks = _tokens(rcfg, 0, (B, S))
+    x, _, _ = RT.forward(params, rcfg, {"tokens": jnp.asarray(toks)})
+    tx, _, _ = model.forward({"tokens": torch.from_numpy(toks)})
+    assert _rel(model.unembed(tx), RT.unembed(params, rcfg, x)) < F32_TOL
+    rl, rc = RSS.make_decode(rcfg)(params, RT.init_cache(rcfg, B, 8), jnp.asarray(toks[:, 0]),
+                                   jnp.asarray(5, jnp.int32))
+    tl, _ = SS.make_decode(tcfg)(model, model.init_cache(B, 8), torch.from_numpy(toks[:, 0]), 5)
+    assert _rel(tl, rl) < F32_TOL
 
 
 def test_no_cpu_fallback():
