@@ -468,6 +468,7 @@ def _dist_gloo(mesh, work: Path) -> dict:
     """[dist-gloo], [dist-fault] and the pauses of [dist-elastic] on this
     rank's P/W partitions of the npy copy."""
     import repro_torch as T
+    from repro_torch import audit as AU
     from repro_torch import fault as FT
     from repro_torch import scan
     from repro_torch.kernels import fused_agg as FK
@@ -492,6 +493,15 @@ def _dist_gloo(mesh, work: Path) -> dict:
     npy = T.NpyMmapSource(work / "npy")
     ph["streamed q6"] = _rank_phase(
         mesh, lambda: T.Session(spec(q6), npy, mesh=mesh).run(), ROUNDS)
+    # the audit of the Q6 plan across the group: every rank together
+    FK.reset_launch_counts()
+    mesh.reset_stats()
+    t0 = time.perf_counter()
+    rep = AU.audit_plan(q6, block, rounds=ROUNDS, emit="kernel", mesh=mesh,
+                        checks=AU.ALL_CHECKS)
+    out["audit"] = {"report": rep, "seconds": time.perf_counter() - t0,
+                    "launches": FK.launch_counts(), "dispatches": FK.dispatch_counts(),
+                    "collectives_after": mesh.stats()["calls"]}
     small = {k: v[:, :SYNC_C] for k, v in block.items()}
     sched = T.straggler_schedule(P, SYNC_C, ROUNDS, SPEEDS)
     for cost in (True, False):
@@ -1234,6 +1244,124 @@ def eval_phase(ctx):
         rounds_total=sess.rounds_total,
         mean=[float(lo[-1]), float(mean[-1]), float(hi[-1])],
         seconds=f"{ctx.e2e['eval session']:.3f}", launches=got)
+
+
+#: [audit]: the checks that must pass (not skip) on each plan of the phase
+AUDIT_MUST_PASS = {
+    "q6 emit=chunk": ("one_chunk_pass", "o_slice_footprint", "dtype_discipline"),
+    "q6 emit=kernel": ("fused_single_dispatch", "o_slice_footprint", "dtype_discipline"),
+    "q1-large": ("fused_single_dispatch", "o_slice_footprint", "dtype_discipline"),
+    "[q6, q1-small, q1-large, nation]": ("fused_single_dispatch", "o_slice_footprint",
+                                         "dtype_discipline"),
+    "q3-orders join": ("single_kernel_dispatch", "o_slice_footprint", "dtype_discipline"),
+    "q6 encoded": ("bytes_moved", "fused_single_dispatch", "o_slice_footprint",
+                   "dtype_discipline"),
+    "q6 npy": ("o_slice_footprint", "fused_single_dispatch", "dtype_discipline"),
+}
+
+
+def audit_checked(tag: str, name: str, rep, must_pass=(), **line) -> None:
+    """``rep`` ok, each of ``must_pass`` a pass, and the dry step's launches
+    on the card its dispatches; prints the plan's line (``line`` added)."""
+    check(rep.ok, f"[{tag}] {name}: the audit failed:\n{rep.summary()}")
+    for c in must_pass:
+        check(rep.result(c).passed, f"[{tag}] {name}: {c} did not pass: {rep.result(c)}")
+    extra = {}
+    for c in ("fused_single_dispatch", "single_kernel_dispatch"):
+        r = rep.result(c)
+        if r.passed:
+            check(r.data["launches"] == r.data["dispatches"],
+                  f"[{tag}] {name}: launched {r.data['launches']}, dispatched "
+                  f"{r.data['dispatches']}")
+            extra["dispatches"] = r.data["dispatches"]
+    fp = rep.result("o_slice_footprint")
+    if fp.passed:
+        peak = fp.data["peak_bytes"]  # None off the card
+        extra.update(handed_bytes=fp.data["handed_bytes"], slice_bytes=fp.data["slice_bytes"],
+                     peak_bytes=peak, peak_in_slices=None if peak is None
+                     else f"{peak / fp.data['slice_bytes']:.3f}")
+    if rep.result("one_chunk_pass").passed:
+        extra["chunk_steps"] = rep.result("one_chunk_pass").data["chunk_steps"]
+    if rep.result("bytes_moved").passed:
+        extra["bytes_ratio"] = f"{rep.result('bytes_moved').data['ratio']:.4f}"
+    say(tag, plan=name, path=rep.plan["path"],
+        checks={r.name: r.status for r in rep.results}, **extra, **line)
+
+
+def audit_phase(ctx):
+    """[audit]: the plan auditor (``repro_torch.audit``) with every check
+    over the main path's full-size plans — the Q6 chunk scan, K1 scalar,
+    group and bundle, K3 (Q3 past the fused budget), the encoded copy (the
+    decode's own launch, the bytes moved) and the npy copy (the card's peak)
+    — each report ok with its named checks passed, the dry step's launches
+    its dispatches and the launch counts untouched; an audited Q1-large
+    session bitwise the unaudited one; and the serving churn audit."""
+    import torch
+
+    import repro_torch as T
+    from repro_torch import audit as AU
+    from repro_torch.kernels import fused_agg as FK
+
+    dev, shards, g = ctx.dev, ctx.shards, ctx.glas
+    t_phase = time.perf_counter()
+    bundle = T.GLABundle([g["q6"], g["q1-small"], g["q1-large"], g["nation"]])
+    plans = (("q6 emit=chunk", g["q6"], "chunk", shards),
+             ("q6 emit=kernel", g["q6"], "kernel", shards),
+             ("q1-large", g["q1-large"], "kernel", shards),
+             ("[q6, q1-small, q1-large, nation]", bundle, "kernel", shards),
+             ("q3-orders join", g["q3"], "kernel", shards),
+             ("q6 encoded", g["q6"], "kernel", ctx.enc_src),
+             ("q6 npy", g["q6"], "kernel", ctx.npy_src))
+    zero = dict.fromkeys(FK.LAUNCHES, 0)
+    for name, gla, emit, data in plans:
+        torch.cuda.synchronize()
+        FK.reset_launch_counts()
+        t0 = time.perf_counter()
+        rep = AU.audit_plan(gla, data, rounds=ROUNDS, emit=emit, device=dev,
+                            checks=AU.ALL_CHECKS)
+        secs = time.perf_counter() - t0
+        check(FK.launch_counts() == FK.dispatch_counts() == zero,
+              f"[audit] {name}: the audit left launches {FK.launch_counts()}, "
+              f"dispatches {FK.dispatch_counts()}")
+        audit_checked("audit", name, rep, AUDIT_MUST_PASS[name], seconds=f"{secs:.3f}")
+    # Session(audit=True) run to its end, held to the run's exact launches
+    # (the audit's dry step among them, were it counted) and to the
+    # unaudited session's bits
+    spec = T.QuerySpec(g["q1-large"], rounds=ROUNDS, emit="kernel")
+    k1g = {"fused_round_step/group": ROUNDS}
+    held = {}
+
+    def audited_run():
+        t0 = time.perf_counter()
+        held["sess"] = T.Session(spec, shards, device=dev, audit=True)
+        held["audit_s"] = time.perf_counter() - t0
+        return held["sess"].run()
+
+    audited, _ = _timed(ctx, "audit session q1-large audited", audited_run, k1g)
+    plain, _ = _timed(ctx, "audit session q1-large",
+                      lambda: T.Session(spec, shards, device=dev).run(), k1g)
+    report = held["sess"].audit_report
+    check(report.ok and digest(_result_tree(audited)) == digest(_result_tree(plain)),
+          "[audit] the audited Q1-large session differs from the unaudited one")
+    say("audit", session="q1-large(2^13 buckets)", audit="STATIC_CHECKS",
+        checks={r.name: r.status for r in report.results}, vs_unaudited="bitwise",
+        audit_s=f"{held['audit_s']:.3f}",
+        seconds=f"{ctx.e2e['audit session q1-large audited']:.3f}",
+        unaudited_seconds=f"{ctx.e2e['audit session q1-large']:.3f}")
+    # the serving churn certificate over the serving phases' family
+    FK.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = AU.audit_service(serve_family(), shards, rounds=SERVE_ROUNDS, device=dev)
+    secs = time.perf_counter() - t0
+    r = rep.results[0]
+    check(rep.ok and r.passed and FK.launch_counts() == FK.dispatch_counts() == zero,
+          f"[audit] audit_service: {rep.summary()}; launches {FK.launch_counts()}")
+    say("audit", service="serve_family()", status=r.status,
+        **{k: r.data[k] for k in ("arrivals", "doublings", "banks", "stepped_capacities",
+                                  "cache_miss_delta", "budget")},
+        seconds=f"{secs:.3f}")
+    ctx.e2e["audit phase"] = time.perf_counter() - t_phase
+    say("audit", phase_s=f"{ctx.e2e['audit phase']:.3f}")
 
 
 def randomize_phase(ctx):
@@ -3746,6 +3874,21 @@ def run(work: Path) -> None:
                        e2e[f"resident {qname}"])
     dist_phase("dist-gloo", "gloo", "streamed q6", _to_cpu(twins["q6"]), scalar_k,
                e2e["streamed npy q6"])
+    audits = [r["audit"] for r in ranks["gloo"]]
+    zero = dict.fromkeys(FK.LAUNCHES, 0)
+    for k, a in enumerate(audits):
+        check(a["launches"] == a["dispatches"] == zero and a["collectives_after"] == 0,
+              f"[dist-gloo] audit: rank {k} left launches {a['launches']}, collectives "
+              f"{a['collectives_after']}")
+        audit_checked("dist-gloo", f"audit q6 rank {k}", a["report"],
+                      ("one_collective_per_round", "fused_single_dispatch",
+                       "o_slice_footprint", "dtype_discipline"),
+                      seconds=f"{a['seconds']:.3f}",
+                      collective_calls=a["report"].result(
+                          "one_collective_per_round").data["calls"])
+    calls = [a["report"].result("one_collective_per_round").data for a in audits]
+    check(all(c == calls[0] for c in calls),
+          f"[dist-gloo] audit: the ranks' collective calls differ: {calls}")
     for cost in (True, False):
         name = f"sync q6 chunk, sync_cost_model={cost}"
         outs = [r["phases"][name]["out"] for r in ranks["gloo"]]
@@ -4390,6 +4533,8 @@ def run(work: Path) -> None:
     envelope_phase(ctx, having)
     sketch_phase(ctx)
     eval_phase(ctx)
+    ctx.npy_src = npy_src
+    audit_phase(ctx)
     # -- 4f. the loading side: the streamed sessions read from a parquet
     # copy, and the paper's distributed randomization
     ctx.__dict__.update(exact6=exact6, smi=smi, work=work, streamed=streamed, twins=twins,

@@ -379,3 +379,22 @@ def run_queries(specs, data, *, device=None, mesh=None, **plan):
                         None if res.estimates is None else res.estimates[i],
                         res.d_total, res.d_local)
             for i in range(len(glas))]
+
+
+def audit_plan(gla, data, *, rounds: int = 8, schedule=None, emit: str = "chunk",
+               mode: str = "async", lanes: int = 1, snapshots: bool = True,
+               confidence: float = 0.95, mesh=None, device=None, checks=None,
+               raise_on_failure: bool = False):
+    """Certify a query plan against the invariant catalog before it runs.
+
+    Thin re-export of :func:`repro_torch.audit.audit_plan`, as the
+    reference's ``engine.audit_plan``; args mirror it, plus ``device``
+    ("cuda" by default).  Returns an ``AuditReport``; the dry-step checks
+    read one round-slice and throw the result away.
+    """
+    from repro_torch import audit as AU  # local: audit imports this module
+
+    return AU.audit_plan(
+        gla, data, rounds=rounds, schedule=schedule, emit=emit, mode=mode,
+        lanes=lanes, snapshots=snapshots, confidence=confidence, mesh=mesh,
+        device=device, checks=checks, raise_on_failure=raise_on_failure)

@@ -4,8 +4,13 @@ checks, the CPU/CUDA route and the ctypes launch.
 A wrapper checks device, dtype, shape and contiguity, runs its kernel's
 plain version (``kernels/ref.py``) on CPU tensors, and on CUDA tensors
 launches the kernel — or raises, never falling back.  Each launch adds one
-to its kernel's count in :data:`LAUNCHES` (the counterpart of the
-reference's ``count_dispatches``); the plain route counts nothing.
+to its kernel's count in :data:`LAUNCHES`; the plain route counts nothing
+there.  :data:`DISPATCHES` counts on both routes (the counterpart of the
+reference's ``count_dispatches``, which counts at trace time on any
+backend): a launch adds one, and the plain route adds the launches the
+CUDA route would have made for the same call (:func:`plain`), so after any
+call on the card ``DISPATCHES == LAUNCHES``, and on the CPU a plan's
+dispatch structure is countable all the same.
 """
 from __future__ import annotations
 
@@ -26,6 +31,10 @@ LAUNCHES = {
     "decode": 0,
 }
 
+#: dispatches per kernel, on either route, since the last
+#: :func:`reset_launch_counts`
+DISPATCHES = dict.fromkeys(LAUNCHES, 0)
+
 F32, I32 = torch.float32, torch.int32
 
 #: rows one block of the group step sorts in shared memory
@@ -34,12 +43,23 @@ MAX_GROUP_ROWS = 4096
 
 
 def reset_launch_counts() -> None:
+    """Zero :data:`LAUNCHES` and :data:`DISPATCHES`."""
     for k in LAUNCHES:
-        LAUNCHES[k] = 0
+        LAUNCHES[k] = DISPATCHES[k] = 0
 
 
 def launch_counts() -> dict:
     return dict(LAUNCHES)
+
+
+def dispatch_counts() -> dict:
+    return dict(DISPATCHES)
+
+
+def plain(count: str, n: int = 1) -> None:
+    """Count ``n`` dispatches of ``count`` taken by the plain route: the
+    launches the CUDA route makes for the same call."""
+    DISPATCHES[count] += n
 
 
 def check(name, t, dtype, shape, device) -> None:
@@ -74,6 +94,7 @@ def launch(lib: ctypes.CDLL, fn, *args, device: torch.device, count: str) -> Non
         msg = lib.pf_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel launch failed: {msg} (error {err})")
     LAUNCHES[count] += 1
+    DISPATCHES[count] += 1
 
 
 def ptr(t):

@@ -68,6 +68,7 @@ def decode(columns):
     if any(x.device != dev for x, _ in columns):
         raise ValueError("decode: every column must be on one device")
     if RT.route(dev) == "plain":
+        RT.plain("decode", -(-len(columns) // MAX_COLUMNS))
         out = [ref.decode_dict(x, _value_table(enc, dev)) if is_dict
                else ref.decode_bitpacked(x, enc.bits)
                for (x, enc), is_dict in zip(columns, kinds)]

@@ -37,8 +37,8 @@ The tensor-level wrappers (:func:`scalar_round_step`, :func:`scalar_prefix`,
 :func:`group_round_step`, :func:`bundle_round_step`) check device, dtype,
 shape and contiguity, run the plain version (``kernels/ref.py``) on CPU
 tensors, and on CUDA tensors launch the kernel — or raise, never falling
-back.  Each launch adds one to its kernel's count in :data:`LAUNCHES`
-(``kernels/_runtime.py``).  ``scanned`` is summed outside the kernels, as
+back.  Each launch adds one to its kernel's count in :data:`LAUNCHES`,
+and either route to :data:`DISPATCHES` (``kernels/_runtime.py``).  ``scanned`` is summed outside the kernels, as
 in the reference: live counts are integers and need only ``_mask``.
 """
 from __future__ import annotations
@@ -52,7 +52,9 @@ from repro_torch.data import encodings as ENC
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import _runtime as RT
 from repro_torch.kernels._runtime import (  # noqa: F401 — re-exported
+    DISPATCHES,
     LAUNCHES,
+    dispatch_counts,
     launch_counts,
     reset_launch_counts,
 )
@@ -83,7 +85,9 @@ def _scalar(vals, w, carry, prefix: bool):
     _check("w", w, _F32, (P, C, L), dev)
     if carry is not None:
         _check("carry", carry, _F32, (P, 2 * A + 1), dev)
+    count = "fused_prefix_states" if prefix else "fused_round_step/scalar"
     if _route(dev) == "plain":
+        RT.plain(count)
         return (ref.scalar_prefix(vals, w) if prefix
                 else ref.scalar_round_step(vals, w, carry))
     part = torch.empty((P, C, 2 * A + 1), dtype=_F32, device=dev)
@@ -91,8 +95,7 @@ def _scalar(vals, w, carry, prefix: bool):
     pre = torch.empty_like(part) if prefix else None
     lib = _lib()
     RT.launch(lib, lib.pf_scalar, _ptr(vals), _ptr(w), _ptr(part), _ptr(carry),
-              _ptr(out), _ptr(pre), P, C, L, A, device=dev,
-              count="fused_prefix_states" if prefix else "fused_round_step/scalar")
+              _ptr(out), _ptr(pre), P, C, L, A, device=dev, count=count)
     return pre if prefix else out
 
 
@@ -140,6 +143,7 @@ def group_round_step(vals, w, gids, carry_s, carry_q, carry_m):
     P, C, L, A = vals.shape
     dev = vals.device
     if _route(dev) == "plain":
+        RT.plain("fused_round_step/group")
         return ref.group_round_step(vals, w, gids, carry_s, carry_q, carry_m)
     G = carry_m.shape[-1]
     out_s, out_q = torch.empty_like(carry_s), torch.empty_like(carry_q)
@@ -181,6 +185,7 @@ def bundle_round_step(members):
         if m[0].shape[:3] != (P, C, L):
             raise ValueError("bundle members need the same P, C, L")
     if _route(dev) == "plain":
+        RT.plain("fused_round_step/bundle", -(-len(members) // MAX_BUNDLE_MEMBERS))
         return ref.bundle_round_step(members)
     outs = []
     for i in range(0, len(members), MAX_BUNDLE_MEMBERS):

@@ -27,8 +27,9 @@ call covers every partition.  K3 runs the group step of K1
 (``csrc/agg_common.cuh``): per-chunk partials into a scratch table, then
 an ordered fold, in tiles of chunks sized by :func:`group_step_tile`; one
 call counts as one launch however many tiles and grids it takes.  On CPU
-tensors the wrappers run the plain versions in ``kernels/ref.py``; on
-CUDA tensors they launch the kernel or raise (``kernels/_runtime.py``).
+tensors the wrappers run the plain versions in ``kernels/ref.py`` (counted
+in ``DISPATCHES`` only); on CUDA tensors they launch the kernel or raise
+(``kernels/_runtime.py``).
 """
 from __future__ import annotations
 
@@ -100,6 +101,7 @@ def group_agg(vals: torch.Tensor, weight: torch.Tensor, gids: torch.Tensor, *,
         raise ValueError(f"group_agg needs P, A, G, block_rows >= 1 and N % "
                          f"block_rows == 0, got N={N}, block_rows={block_rows}")
     if RT.route(dev) == "plain":
+        RT.plain("group_agg")
         return ref.group_agg(vals, weight, gids, num_groups, block_rows)
     if block_rows > RT.MAX_GROUP_ROWS:
         raise ValueError(f"group_agg sorts a block in shared memory: "
@@ -132,6 +134,7 @@ def shard_chunk_partials(vals: torch.Tensor, weight: torch.Tensor,
     for name, t in (("vals", v), ("weight", w), ("mask", m)):
         RT.check(name, t, RT.F32, mask.shape, dev)
     if RT.route(dev) == "plain":
+        RT.plain("shard_chunk_partials")
         return ref.shard_chunk_partials(v, w, m)
     P, C, L = mask.shape
     out = torch.empty((P, C, 4), dtype=RT.F32, device=dev)
@@ -162,6 +165,7 @@ def chunk_agg(vals: torch.Tensor, weight: torch.Tensor,
     for name, t in (("vals", v), ("weight", w), ("mask", m)):
         RT.check(name, t, RT.F32, mask.shape, dev)
     if RT.route(dev) == "plain":
+        RT.plain("chunk_agg")
         return ref.chunk_agg(v, w, m)
     _check_rows(m.numel())
     part = torch.empty(4 * _FLAT_BLOCKS, dtype=RT.F32, device=dev)
@@ -193,6 +197,7 @@ def q6_agg(params: torch.Tensor, shipdate: torch.Tensor, discount: torch.Tensor,
                          "disc_lo, disc_hi, qty_eq)")
     RT.check("params", params, RT.F32, params.shape, dev)
     if RT.route(dev) == "plain":
+        RT.plain("q6_agg")
         return ref.q6_agg(params, shipdate, discount, quantity, extendedprice, mask)
     _check_rows(mask.numel())
     part = torch.empty(4 * _FLAT_BLOCKS, dtype=RT.F32, device=dev)

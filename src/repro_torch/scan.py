@@ -49,6 +49,11 @@ from repro_torch.uda import GLA, tree_map, tree_stack
 
 Pytree = Any
 
+#: chunks folded by :func:`accumulate_chunk` (every partition's chunk c in
+#: one call) in this process: what the audit's ``one_chunk_pass`` reads
+#: around a dry step (``repro_torch.audit``)
+CHUNK_STEPS = 0
+
 
 # ---------------------------------------------------------------------------
 # lane (work-unit) handling
@@ -71,7 +76,10 @@ def fold_merge(merge, states: Pytree, n: int, dim: int = 0) -> Pytree:
 def accumulate_chunk(gla: GLA, states: Pytree, chunk: dict, lanes: int):
     """Advance per-partition states by one chunk ({name: [P, L]}); return
     (states, lane-merged view).  With ``lanes > 1`` the states are
-    [P, lanes, ...] and each lane takes a contiguous L/lanes of the rows."""
+    [P, lanes, ...] and each lane takes a contiguous L/lanes of the rows.
+    Adds one to :data:`CHUNK_STEPS`."""
+    global CHUNK_STEPS
+    CHUNK_STEPS += 1
     if lanes == 1:
         st = gla.accumulate(states, chunk)
         return st, st

@@ -158,7 +158,8 @@ class _Bank:
         self.generation = np.zeros(1, np.int64)
         self.slots: List[Optional[SlotRecord]] = [None]
         self.states: list = [None]
-        self.plans: Dict[int, _StepPlan] = {}  # one per capacity stepped
+        self.plans: Dict[int, _StepPlan] = {}  # one per capacity built
+        self.stepped_ks: set = set()  # capacities actually stepped
 
     @property
     def active(self) -> int:
@@ -289,10 +290,11 @@ class SharedScan:
             bank.detach(rec)
 
     def compile_budget(self) -> int:
-        """Step plans this scan's workload built: one per (bank, capacity)
-        actually stepped — at most 1 + doublings per stepped bank, never one
-        per arrival."""
-        return sum(len(b.plans) for b in self.banks.values())
+        """Step plans this scan's workload is allowed to have built: one per
+        (bank, capacity) actually stepped — at most 1 + doublings per
+        stepped bank, never one per arrival.  What a churn check holds
+        :func:`serve_step_cache_sizes`' growth to."""
+        return sum(len(b.stepped_ks) for b in self.banks.values())
 
     # -- the drive ----------------------------------------------------------
 
@@ -371,6 +373,7 @@ class SharedScan:
                     mesh=self.mesh, confidence=self.confidence, all_alive=True)
             bank.states = list(new_states)
             bank.fresh[:] = False
+            bank.stepped_ks.add(bank.K)
             dt = time.perf_counter() - t0
             for k, rec in enumerate(bank.slots):
                 if rec is None:

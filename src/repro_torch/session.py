@@ -385,6 +385,24 @@ class _SlicePrefetcher:
 # the session
 # ---------------------------------------------------------------------------
 
+def session_path(gla: GLA, columns, emit: str, lanes: int) -> str:
+    """The per-round path a session runs for ``gla`` over a source whose
+    column table is ``columns``: ``"scan"`` unless ``emit="kernel"``, then
+    ``"kernel_fused"`` (K1) whenever the fused contract can be used, else
+    ``"kernel_bundle"`` or ``"kernel_group"`` (K3) or ``"kernel_scalar"``
+    (K4) — the reference's routing.  ``repro_torch.audit`` certifies the
+    path this returns."""
+    if emit != "kernel":
+        return "scan"
+    if lanes != 1:
+        raise ValueError("emit='kernel' runs single-lane")
+    if SC.fused_available(gla, columns):
+        return "kernel_fused"
+    return ("kernel_bundle" if gla.members
+            else "kernel_group" if gla.kernel_num_groups is not None
+            else "kernel_scalar")
+
+
 class Session:
     """A long-lived OLA query: advance round by round, stop early.
 
@@ -411,9 +429,13 @@ class Session:
     group's device: ``data`` is this rank's resident block ``[P/W, C, L]``
     or a source over the whole layout, whose partitions
     :meth:`repro_torch.sharded.PartitionGroup.bounds` gives this rank.
+
+    ``audit=True`` (or a tuple of check names) certifies the plan with
+    :func:`repro_torch.audit.audit_plan` before the first slice is read and
+    raises ``AuditError`` on a failure; the report is ``audit_report``.
     """
 
-    def __init__(self, spec, data, *, device=None, mesh=None, **plan):
+    def __init__(self, spec, data, *, device=None, mesh=None, audit=None, **plan):
         qspec = QS.coerce_spec(spec, plan, caller="Session")
         self._mesh = mesh
         if mesh is None:
@@ -483,17 +505,7 @@ class Session:
                 "incrementally-steppable config: sync=False with a "
                 "partition-uniform schedule and no [R, P] alive schedule "
                 "(whole-scan semantics require resident shards)")
-        if self._emit == "kernel":
-            if self._lanes != 1:
-                raise ValueError("emit='kernel' runs single-lane")
-            if SC.fused_available(gla, source.spec.columns):
-                self._path = "kernel_fused"
-            else:
-                self._path = ("kernel_bundle" if gla.members
-                              else "kernel_group" if gla.kernel_num_groups
-                              is not None else "kernel_scalar")
-        else:
-            self._path = "scan"
+        self._path = session_path(gla, source.spec.columns, self._emit, self._lanes)
         # an encoded source ships physical columns; _step decodes them
         self._encodings = tuple(source.encodings or ())
         self._prefetch: Optional[_SlicePrefetcher] = None
@@ -511,6 +523,24 @@ class Session:
         self._converged = False
         self._fused = False  # ran the whole-scan program: nothing to pause
         self._result: Optional[EN.QueryResult] = None
+
+        # audit=True certifies the plan against the static invariant
+        # catalog (repro_torch.audit) before the first slice is read;
+        # audit=("name", ...) selects checks.  A failure raises AuditError
+        # here, so a bad plan never runs; the report stays on
+        # ``self.audit_report`` (None without an audit).  Under a mesh every
+        # rank audits together, as every rank constructs the session.
+        self.audit_report = None
+        if audit:
+            from repro_torch import audit as AU  # audit imports session
+
+            self.audit_report = AU.audit_plan(
+                gla, source if mesh is None else SH.RankView(source, self._whole),
+                rounds=self._rounds, schedule=self._sched, emit=self._emit,
+                mode=self._mode, lanes=self._lanes, snapshots=self._snapshots,
+                confidence=self._confidence, mesh=mesh, device=dev,
+                checks=None if audit is True else tuple(audit),
+                raise_on_failure=True)
 
     # -- introspection -------------------------------------------------------
 

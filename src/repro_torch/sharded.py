@@ -123,7 +123,10 @@ class PartitionGroup:
             return tree
         parts, sizes = [], []
         for x in leaves:
-            b = x.to(self.device).contiguous().reshape(-1).view(torch.uint8)
+            flat = x.to(self.device).reshape(-1)
+            if flat.stride(0) != 1:  # a one-element view keeps its parent's stride
+                flat = flat.clone(memory_format=torch.contiguous_format)
+            b = flat.view(torch.uint8)
             sizes.append(b.numel())
             pad = -b.numel() % 8  # every leaf starts 8-byte aligned
             parts.append(torch.cat([b, b.new_zeros(pad)]) if pad else b)
