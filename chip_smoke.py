@@ -55,6 +55,13 @@ nothing else: greedy serving of llama4-maverick (full width, 2 layers, a
 prompt of 8,160 tokens whose decode crosses its 8,192-token chunk) and
 grok-1 (full width, 4 layers), and training of grok-1 at full width cut to
 one layer through its 16-microbatch float32 accumulation and a resume.
+The dry run (``repro_torch.dryrun``) of every (arch × shape) cell on both
+H100 production meshes runs on the host beside those, in a process of its
+own (the fake process group must not meet a real one); at the end its
+cells, one cell held against the card itself, the hill-climb's roofline
+terms and the port's contract linter are read.  Every line printed while
+that process ran is named in ``[dryrun-wait]``: their host times were taken
+beside its load.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.  The last line is the run's JSON summary.
@@ -81,7 +88,12 @@ P, C, L = 8, 14_336, 2048
 ROWS = P * C * L
 ROUNDS = 16
 DEVICE = "cuda"
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+try:  # the H100 SXM datasheet's figures, from the port's roofline table
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.mesh import HBM_BW as HBM_BYTES_PER_S
+    from repro_torch.mesh import PEAK_FLOPS_BF16 as BF16_FLOPS_PER_S
+except ImportError:  # outside a checkout: main() fails with its message
+    HBM_BYTES_PER_S = BF16_FLOPS_PER_S = None
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32, no tensor cores
 SUM_RTOL = 1e-5  # f32 sums: the summation order differs from the plain version
 ORACLE_RTOL = 1e-3  # finals against the float64 exact answer
@@ -129,6 +141,7 @@ FAIL_P, FAIL_R = 2, 5
 SPEEDS = [1.0] * (P - 1) + [0.25]
 #: argument that runs the [pause] phase's resume in a fresh process
 RESUME_CHILD = "--resume-child"
+_STARTED: list = []  # background processes run() starts; main() stops any left
 #: the [dist] phases: W gloo ranks sharing the card, each over P/W partitions
 #: read from the npy copy; one NCCL rank over all of them
 DIST_WORLD = 4
@@ -200,7 +213,6 @@ LM_TRAIN_7B, LM_TRAIN_7B_LAYERS, LM_TRAIN_7B_STEPS = (8, 4096), 4, 3
 #: microbatches a step, examples and tokens a microbatch, the target relative
 #: width, steps
 LM_ADAPTIVE = (16, 4, 512, 0.08, 4)
-BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 dense, tensor cores
 #: the MoE phases, in a process of their own (argument MOE_CHILD) on an
 #: empty card: [lm-moe-serve] (arch, layers, batch, prompt, generated
 #: tokens) — llama4-maverick at full width cut 48 -> 2 layers (its first two
@@ -256,6 +268,20 @@ LM_ENCDEC_TRAIN = (8, 4096, 3)
 #: weights (its floor): rounding alone stays a quarter of the way to the
 #: tolerance; the incremental checks hold only there
 LM_RESOLVE_FACTOR = 4.0
+#: [dryrun]: ``python -m repro_torch.dryrun --all`` on the single and the
+#: multi production mesh and [hillclimb]'s cell, in a process of its own
+#: (argument DRYRUN_CHILD) started right after the build, at nice 19, its cells
+#: DRYRUN_JOBS at a time while the MoE and recurrent processes use the card
+#: (meta tensors only: it touches no card)
+DRYRUN_CHILD, DRYRUN_CHILD_S, DRYRUN_JOBS = "--dryrun-child", 900, 6
+HILLCLIMB = ("qwen3_32b", "train_4k", "single")
+#: [dryrun-card]: one cell on a (data=1, model=1) mesh against the card
+#: (arch, shape, layers, batch): deepseek-7b's train_4k cut 30 -> 2 layers
+#: and 256 -> 8 sequences (its 4 microbatches of 2: the loop-scaled count
+#: runs 3 of them); its flops against lm_train_flops times (6 + 2)/6 (the
+#: full remat's second forward), within DRYRUN_TRAIN_RTOL
+DRYRUN_CARD = ("deepseek_7b", "train_4k", 2, 8)
+DRYRUN_TRAIN_RTOL = 0.02
 #: a card-vs-CPU grad leaf whose CPU float32 floor passes LM_CPU_TOL over
 #: this factor is held to this factor times that floor (the card's float32
 #: no coarser than the CPU's) and to 1e-9 in float64
@@ -271,7 +297,11 @@ def check(cond, msg: str) -> None:
         fail(msg)
 
 
+_SAID: list = []  # (phase, time.monotonic()) of each line said, for [dryrun-wait]
+
+
 def say(phase: str, **kv) -> None:
+    _SAID.append((phase, time.monotonic()))
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()), flush=True)
 
 
@@ -281,6 +311,9 @@ def main() -> None:
     sys.path.insert(0, str(ROOT / "src"))
     import torch
 
+    if sys.argv[1:2] == [DRYRUN_CHILD]:  # the dry run's process: meta tensors, no card
+        dryrun_child(Path(sys.argv[2]), jobs=int(sys.argv[3]))
+        return
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
     if sys.argv[1:2] == [RESUME_CHILD]:  # the [pause] phase's fresh process
@@ -294,7 +327,10 @@ def main() -> None:
     try:
         run(work)
     finally:
+        for proc in _STARTED:
+            _stop(proc)
         shutil.rmtree(work, ignore_errors=True)
+        shutil.rmtree(ROOT / "build" / "chip_smoke_dryrun", ignore_errors=True)
 
 
 def make_data(dev):
@@ -1622,14 +1658,16 @@ def lm_decode_trace(model, cache, tok, pos):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.cost import trace_summary
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         model.decode_step(tok, cache, pos)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    evs = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    return (sum(e.count for e in evs), sum(e.self_device_time_total for e in evs) / 1e3, wall)
+    s = trace_summary(prof)
+    return s["kernels"], s["device_ms"], wall
 
 
 def lm_incremental(model, tokens, cache_dtype, frames=None):
@@ -1953,18 +1991,17 @@ def lm_train_trace(step, model, opt, batch):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.cost import trace_summary
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         model, opt, _ = step(model, opt, batch)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    evs = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0),
-                 key=lambda e: -e.self_device_time_total)
-    gemm = sum(e.self_device_time_total for e in evs if "gemm" in e.key.lower()) / 1e3
-    top = [(e.key[:72], f"{e.self_device_time_total / 1e3:.3f}", e.count) for e in evs[:5]]
-    return model, opt, (sum(e.count for e in evs), sum(e.self_device_time_total for e in evs) / 1e3,
-                        wall, gemm, top)
+    s = trace_summary(prof)
+    top = [(k[:72], f"{ms:.3f}", n) for k, ms, n in s["top"]]
+    return model, opt, (s["kernels"], s["device_ms"], wall, s["gemm_ms"], top)
 
 
 def lm_train_numbers(model, rows, batch: int, seq: int, traced, base: int, peak: int) -> dict:
@@ -2832,11 +2869,13 @@ def lm_kernels(fn) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.cost import trace_summary
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages() if e.self_device_time_total > 0)
+    return trace_summary(prof)["kernels"]
 
 
 def lm_slstm_share(model, batch) -> float:
@@ -2967,6 +3006,190 @@ def child(work: Path, phases) -> None:
     phases(types.SimpleNamespace(dev=torch.device(DEVICE), smi=smi, work=work))
 
 
+def dryrun_child(out: Path, jobs: int) -> None:
+    """The dry run's process (no card): ``repro_torch.dryrun --all`` on the
+    single and the multi mesh, ``jobs`` cells at a time, then
+    ``repro_torch.hillclimb`` on HILLCLIMB's cell, each a subprocess writing
+    under ``out``; ``out/summary.json`` gets their exit codes and seconds,
+    and the host's monotonic clock at the end."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    summary = {"rc": {}, "seconds": {}}
+    for mesh in ("single", "multi"):
+        t0 = time.perf_counter()
+        summary["rc"][mesh] = subprocess.run(
+            [sys.executable, "-m", "repro_torch.dryrun", "--all", "--force", "--mesh", mesh,
+             "--jobs", str(jobs), "--out", str(out / "cells")],
+            cwd=str(ROOT), env=env, timeout=DRYRUN_CHILD_S).returncode
+        summary["seconds"][mesh] = time.perf_counter() - t0
+    arch, shape, mesh = HILLCLIMB
+    t0 = time.perf_counter()
+    summary["rc"]["hillclimb"] = subprocess.run(
+        [sys.executable, "-m", "repro_torch.hillclimb", arch, shape, "--mesh", mesh,
+         "--label", "chip", "--out", str(out / "hillclimb")],
+        cwd=str(ROOT), env=env, timeout=DRYRUN_CHILD_S).returncode
+    summary["seconds"]["hillclimb"] = time.perf_counter() - t0
+    summary["end"] = time.monotonic()
+    (out / "summary.json").write_text(json.dumps(summary))
+
+
+def dryrun_start(out: Path):
+    """Starts :func:`dryrun_child` in a niced process of its own, its output
+    to ``out/log.txt``; returns (the process, its start on the host's
+    monotonic clock)."""
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    log = open(out / "log.txt", "w")
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), DRYRUN_CHILD,
+                             str(out), str(DRYRUN_JOBS)],
+                            stdout=log, stderr=subprocess.STDOUT,
+                            start_new_session=True, preexec_fn=lambda: os.nice(19))
+    log.close()
+    _STARTED.append(proc)
+    return proc, time.monotonic()
+
+
+def _stop(proc) -> None:
+    """Ends ``proc`` and every process it started (its session)."""
+    if proc.poll() is None:
+        try:
+            os.killpg(proc.pid, 9)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+
+
+def dryrun_phase(ctx, proc, t_start: float, out: Path) -> None:
+    """[dryrun] every cell of both meshes OK or SKIP (the dry run's process
+    waited for); [hillclimb] its cell's roofline terms against the H100
+    constants; [dryrun-card] DRYRUN_CARD's cell on a (data=1, model=1)
+    mesh against the card: ``argument_bytes`` equal to the bytes of the
+    same parameters, optimizer state and batch allocated on the card, the
+    loop-scaled ``meta`` flop count equal to the count of the real step
+    there, that count against :func:`lm_train_flops`, and ``temp_bytes``
+    against the step's peak above what was allocated before it; then
+    [contracts]: the port's linter over its default targets, 0 violations."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import cost as CT
+    from repro_torch import dryrun as DR
+    from repro_torch.configs import list_archs
+    from repro_torch.mesh import HBM_PER_CHIP
+    from repro_torch.shapes import SHAPES
+
+    t_wait = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=2 * DRYRUN_CHILD_S + 300)
+    except subprocess.TimeoutExpired:
+        _stop(proc)
+        fail("[dryrun] the dry run's process did not finish")
+    waited = time.perf_counter() - t_wait
+    log = (out / "log.txt").read_text()
+    check(rc == 0, f"[dryrun] the dry run's process exited with {rc}: {log[-3000:]}")
+    summary = json.loads((out / "summary.json").read_text())
+    for mesh in ("single", "multi"):
+        recs = {}
+        for arch in list_archs():
+            for shape in SHAPES:
+                cell = f"{arch}.{shape}.{mesh}"
+                f = out / "cells" / f"{cell}.json"
+                check(f.exists(), f"[dryrun] {cell} wrote no record")
+                recs[cell] = json.loads(f.read_text())
+        bad = {c: r.get("stderr", "")[-400:] for c, r in recs.items()
+               if r["status"] not in ("OK", "SKIP")}
+        check(not bad and summary["rc"][mesh] == 0, f"[dryrun] {mesh}: failed cells {bad}")
+        ok = {c: r for c, r in recs.items() if r["status"] == "OK"}
+        peak = {c: r["memory"]["peak_estimate"] for c, r in ok.items()}
+        say("dryrun", mesh=mesh, chips=next(iter(ok.values()))["chips"], cells=len(recs),
+            ok=len(ok), skip=len(recs) - len(ok), fail=0,
+            skipped=sorted(c.rsplit(".", 1)[0] for c, r in recs.items() if r["status"] == "SKIP"),
+            over_hbm=sorted(c.rsplit(".", 1)[0] for c, b in peak.items() if b > HBM_PER_CHIP),
+            max_peak_gb={max(peak, key=peak.get).rsplit(".", 1)[0]: f"{max(peak.values()) / 1e9:.3f}"},
+            tflops_per_device={c.rsplit(".", 1)[0]: f"{r['flops_per_device'] / 1e12:.6g}"
+                               for c, r in ok.items()},
+            peak_gb={c.rsplit(".", 1)[0]: f"{b / 1e9:.3f}" for c, b in peak.items()},
+            count_s_max=f"{max(r['count_s'] for r in ok.values()):.3f}",
+            seconds=f"{summary['seconds'][mesh]:.3f}", card=ctx.smi)
+    check(summary["rc"]["hillclimb"] == 0, "[hillclimb] exited non-zero")
+    arch, shape, mesh = HILLCLIMB
+    hc = json.loads((out / "hillclimb" / f"{arch}.{shape}.chip.json").read_text())
+    check(all(math.isfinite(hc[k]) and hc[k] >= 0 for k in ("compute_s", "memory_s", "collective_s")),
+          "[hillclimb] a non-finite roofline term")
+    say("hillclimb", cell=hc["cell"], compute_s=f"{hc['compute_s']:.6g}",
+        memory_s=f"{hc['memory_s']:.6g}", collective_s=f"{hc['collective_s']:.6g}",
+        dominant=hc["dominant"], flops_per_device=f"{hc['flops_per_device']:.6e}",
+        bytes_per_device=f"{hc['bytes_per_device']:.6e}",
+        collective_bytes={k: f"{v:.6e}" for k, v in hc["collective_bytes"].items()},
+        peak_gb=f"{hc['peak_gb']:.3f}", peak_flops_bf16=BF16_FLOPS_PER_S,
+        hbm_bw=HBM_BYTES_PER_S, top_bytes=[(k[:60], f"{v:.3e}") for k, v in hc["top_bytes"][:5]],
+        seconds=f"{summary['seconds']['hillclimb']:.3f}", card=ctx.smi)
+    beside = list(dict.fromkeys(p for p, t in _SAID if t_start <= t <= summary["end"]))
+    say("dryrun-wait", process_s=f"{summary['end'] - t_start:.3f}",
+        waited_at_the_end_s=f"{waited:.3f}", jobs=DRYRUN_JOBS,
+        lines_printed_beside_it=beside, card=ctx.smi)
+
+    # -- one cell against the card
+    t0 = time.perf_counter()
+    arch, shape, layers, batch = DRYRUN_CARD
+    cfg0 = lm_config(arch)
+    cfg = dataclasses.replace(cfg0, num_layers=layers)
+    one = types.SimpleNamespace(mesh_dim_names=("data", "model"), shape=(1, 1))
+    cell = DR.build_cell(arch, shape, one, cfg=cfg, batch=batch)
+    c_meta, mem, meta_s = DR.measure(cell, one)
+    _free()
+    base0 = torch.cuda.memory_allocated()
+    args = DR.materialize(cell, ctx.dev, seed=SEED)
+    torch.cuda.synchronize()
+    held = list(CT._tensors(tuple(args[1:]))) + list(args[0].parameters())
+    alloc = sum(t.untyped_storage().nbytes() for t in held)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    _, c_card = CT.count(cell.step, *args)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated() - base
+    check(mem["argument_bytes"] == alloc,
+          f"[dryrun-card] argument_bytes {mem['argument_bytes']} != allocated {alloc}")
+    check(c_card.cost.flops == c_meta.cost.flops,
+          f"[dryrun-card] card flops {c_card.cost.flops} != meta {c_meta.cost.flops}")
+    formula = lm_train_flops(args[0], batch, SHAPES[shape]["seq"])
+    remat = (6 + 2 * (cfg.remat != "none")) / 6
+    rel = c_card.cost.flops / (formula * remat) - 1
+    check(abs(rel) <= DRYRUN_TRAIN_RTOL,
+          f"[dryrun-card] flops {c_card.cost.flops:.6e} vs lm_train_flops x {remat:.4f}: {rel:+.4f}")
+    say("dryrun-card", cell=f"{arch}.{shape}", mesh="(data=1, model=1)",
+        cut={"layers": f"{cfg0.num_layers} -> {layers}",
+             "batch": f"{SHAPES[shape]['batch']} -> {batch}"},
+        microbatches=cell.microbatches, argument_bytes=mem["argument_bytes"],
+        allocated_bytes=alloc, allocated_by_the_allocator=base - base0, bytes_equal=True,
+        flops_meta=f"{c_meta.cost.flops:.9e}", flops_card=f"{c_card.cost.flops:.9e}",
+        flops_equal=True, matmul_flops=f"{c_card.matmul_flops():.9e}",
+        bytes_meta=f"{c_meta.cost.bytes:.9e}", bytes_card=f"{c_card.cost.bytes:.9e}",
+        lm_train_flops=f"{formula:.9e}", remat_factor=f"{remat:.4f}", vs_formula=f"{rel:+.5f}",
+        formula_leaves_out="transcendental ops and the recurrences' cells; attention as a "
+                           "full square (the port visits a triangle of key blocks and "
+                           "recomputes each in the backward)",
+        temp_bytes=mem["temp_bytes"], peak_above_base=peak,
+        temp_over_peak=f"{mem['temp_bytes'] / max(peak, 1):.4f}",
+        meta_count_s=f"{meta_s:.3f}", card_counted_step_s=f"{step_s:.3f}",
+        seconds=f"{time.perf_counter() - t0:.3f}", card=ctx.smi)
+    del args, held, c_card
+    _free()
+
+    # -- the port's contract linter (the reference's over src/repro_torch is
+    # a CPU test: tests/test_contracts.py::test_repo_lints_clean)
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    port = subprocess.run([sys.executable, "-m", "repro_torch.contracts"], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True)
+    check(port.returncode == 0 and "contracts: OK" in port.stdout,
+          f"[contracts] the port's linter: {port.stdout[-2000:]}{port.stderr[-1000:]}")
+    say("contracts", port=port.stdout.strip().splitlines()[-1],
+        seconds=f"{time.perf_counter() - t0:.3f}", card=ctx.smi)
+
+
 def run(work: Path) -> None:
     import torch
 
@@ -2997,6 +3220,10 @@ def run(work: Path) -> None:
         for line in _build.lib_path(src).with_suffix(".log").read_text().splitlines():
             if "Used" in line or "spill" in line:
                 print(f"  ptxas[{src}]:", line.strip())
+
+    # -- the dry run's process, on the host beside the phases below
+    dry_out = ROOT / "build" / "chip_smoke_dryrun"  # git-ignored; deleted at the end
+    dry, t_dry = dryrun_start(dry_out)
 
     # -- the MoE phases ([lm-moe-serve], [lm-moe-train]), then the
     # recurrent, encoder-decoder and vision phases ([lm-rec-serve],
@@ -4552,6 +4779,10 @@ def run(work: Path) -> None:
     lm_train_7b_phase(ctx)
     lm_adaptive_phase(ctx)
     lm_eval_phase(ctx)
+    # -- 4i. the dry run of every cell, one cell against the card, the
+    # hill-climb's terms and the contract linters (no kernel of the path)
+    dryrun_phase(ctx, dry, t_dry, dry_out)
+    shutil.rmtree(dry_out, ignore_errors=True)
 
     say("main-path launches", **launches)
     for k, n in launches.items():
@@ -4584,6 +4815,8 @@ def run(work: Path) -> None:
         holds of those launched); "not measured" where it holds none."""
         from torch.profiler import ProfilerActivity, profile
 
+        from repro_torch.cost import trace_summary
+
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:  # kernels only:
@@ -4592,15 +4825,13 @@ def run(work: Path) -> None:
             torch.cuda.synchronize()
         tot, n = dict.fromkeys(split, 0.0), dict.fromkeys(split, 0)
         other = 0.0
-        for ev in prof.key_averages():
-            if ev.self_device_time_total <= 0:
-                continue  # host-side events
-            key = next((k for k, (part, _) in split.items() if part in ev.key), None)
+        for name, ms, count in trace_summary(prof, top=None)["top"]:   # device entries
+            key = next((k for k, (part, _) in split.items() if part in name), None)
             if key is None:
-                other += ev.self_device_time_total / 1e3
+                other += ms
                 continue
-            tot[key] += ev.self_device_time_total / 1e3
-            n[key] += ev.count
+            tot[key] += ms
+            n[key] += count
         out = {k: (f"{tot[k] / n[k] * per:.6f}" if n[k] else "not measured")
                for k, (_, per) in split.items()}
         out["other_ms"] = f"{other / reps:.6f}"

@@ -337,7 +337,7 @@ def fused_round_step(gla, state, cols: dict, encodings=()):
     outside the kernel."""
     specs = _fused_specs(gla)
     cols = ENC.decode_cols(cols, encodings)
-    is_bundle = bool(gla.members)
+    is_bundle = bool(gla.members)  # torch-contracts: allow(C003)
     states = tuple(state) if is_bundle else (state,)
     delta = _live_counts(cols["_mask"]).sum(dim=1).to(_F32)
     args = [_member_args(fs, st, cols) for fs, st in zip(specs, states)]

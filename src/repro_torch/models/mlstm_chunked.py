@@ -21,6 +21,8 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.cost import fill_trips, trips
+
 NEG = -1e30
 
 
@@ -72,10 +74,11 @@ def mlstm_chunkwise(q, k, v, logi, logf, *, chunk: int = 128, initial=None):
     remat = torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k, v, logi, logf, C, n, m))
     hs = []
-    for i in range(0, S, c):
+    for j in trips(S // c):      # identical trips: repro_torch.cost scales them
+        i = j * c
         args = (C, n, m, qh[:, :, i:i + c], kh[:, :, i:i + c], vh[:, :, i:i + c],
                 lih[:, :, i:i + c], lfh[:, :, i:i + c])
         C, n, m, h = (checkpoint(_chunk_step, *args, use_reentrant=False) if remat
                       else _chunk_step(*args))
         hs.append(h)
-    return torch.cat(hs, dim=2).transpose(1, 2), (C, n, m)
+    return torch.cat(fill_trips(hs, S // c), dim=2).transpose(1, 2), (C, n, m)

@@ -45,6 +45,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.cost import fill_trips, trips
 from repro_torch.models.layers import acc_dtype, apply_norm, mlp_act, proj
 from repro_torch.models.spec import ParamSpec
 
@@ -70,7 +71,8 @@ def _blocked_scan(step, carry, xs, block: int, consts=()):
     time-major ``xs`` (a tuple of [S, ...] tensors) -> (final carry, ys
     [S, ...]).  ``block`` shrinks to a divisor of S; when a graph is built
     each block runs under ``torch.utils.checkpoint`` (the reference's
-    ``jax.checkpoint`` around its inner scan)."""
+    ``jax.checkpoint`` around its inner scan).  The blocks are a loop of
+    identical trips for ``repro_torch.cost``'s loop-scaled count."""
     S = xs[0].shape[0]
     b = min(block, S)
     while S % b:
@@ -87,12 +89,13 @@ def _blocked_scan(step, carry, xs, block: int, consts=()):
 
     remat = _graph(*carry, *xs, *consts)
     outs = []
-    for i in range(0, S, b):
+    for j in trips(S // b):
+        i = j * b
         args = (*consts, *carry, *(x[i:i + b] for x in xs))
         res = checkpoint(run, *args, use_reentrant=False) if remat else run(*args)
         carry, ys = tuple(res[:-1]), res[-1]
         outs.append(ys)
-    return carry, torch.cat(outs)
+    return carry, torch.cat(fill_trips(outs, S // b))
 
 
 def _causal_conv(u, kernel):

@@ -4,9 +4,10 @@ parameter, as one tree.
 Port of ``repro/models/spec.py``.  A model definition builds a tree (nested
 dicts) of :class:`ParamSpec`; :func:`init_params` materializes it.  The
 logical axis names are the reference's ("embed", "mlp", "heads", "kv",
-"vocab", "layers", ...); they mean nothing on one card and are kept so the
-sharding slice can read them.  ``abstract_params`` and ``param_pspecs``
-come with that slice.
+"vocab", "layers", ...); they mean nothing on one card, and
+``repro_torch.sharding``'s rule table reads them (``param_pspecs``).
+:func:`abstract_params` gives the tree as ``meta`` tensors, for the dry run
+(``repro_torch.dryrun``) to count bytes and operations without memory.
 """
 from __future__ import annotations
 
@@ -106,3 +107,14 @@ def init_params(spec_tree, generator: torch.Generator, device="cuda"):
         return {k: build(tree[k]) for k in sorted(tree)}
 
     return build(spec_tree)
+
+
+def abstract_params(spec_tree):
+    """A spec tree as a tree of ``meta`` tensors of the same shapes and
+    dtypes (the reference's ``ShapeDtypeStruct`` tree): nothing is allocated
+    and nothing is drawn.  ``meta`` is for counting only (the dry run, the
+    cost counter): no model runs there, and :func:`init_params` still
+    refuses any device but ``cuda`` and ``cpu``."""
+    if is_spec(spec_tree):
+        return torch.empty(spec_tree.shape, dtype=spec_tree.dtype, device="meta")
+    return {k: abstract_params(spec_tree[k]) for k in sorted(spec_tree)}

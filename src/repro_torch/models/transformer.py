@@ -36,7 +36,10 @@ forward builds a graph; the encoder's layers likewise.
 ``decode_step``; :func:`xent_loss` is the reference's.
 
 Left out on purpose: ``pin_batch_activation`` and ``_pin_replicated_heads``
-are GSPMD sharding constraints and mean nothing on one card.
+are GSPMD sharding constraints against the ambient mesh.  The port's
+``repro_torch.sharding.ambient_mesh`` is always ``None``: the port places
+parameters by the rule table (``sharding.param_pspecs``) for the dry run,
+but executes a model on one card only, so there is nothing to pin against.
 
 Caches: a list with one dict per layer, in layer order (the reference's
 tree of stacked leaves comes back through
@@ -344,6 +347,15 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device="cuda"):
     return [_block_cache(cfg, lt, batch, seq_len, dev) for lt in cfg.layer_types()]
 
 
+def abstract_cache(cfg: ArchConfig, batch: int, seq_len: int):
+    """:func:`init_cache`'s tree as ``meta`` tensors (the reference's
+    ``jax.eval_shape(init_cache)``): same shapes and dtypes, nothing
+    allocated.  ``meta`` is for counting only (the dry run); it does not go
+    through ``resolve_device``, which keeps refusing it."""
+    meta = torch.device("meta")
+    return [_block_cache(cfg, lt, batch, seq_len, meta) for lt in cfg.layer_types()]
+
+
 class Transformer(nn.Module):
     """The LM (any family of ``configs/``) over a parameter tree in the
     reference's layout (the tree :func:`param_specs` describes, as tensors
@@ -622,7 +634,7 @@ class Transformer(nn.Module):
     def decode_step(self, token, cache, pos):
         """One decoding step: token [B] ids, ``pos`` the position (an int).
         Returns (logits [B, V_padded] float32, the cache updated in place)."""
-        pos = int(pos)
+        pos = int(pos)  # torch-contracts: allow(C003)
         x1 = F.embedding(token.long(), self.params["embed"])
         if self.cfg.pos == "learned":
             x1 = x1 + self.params["pos_embed"][pos]

@@ -19,6 +19,7 @@ from typing import Dict
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.cost import trips
 from repro_torch.models import transformer as T
 from repro_torch.training import optimizer as O
 from repro_torch.uda import tree_leaves, tree_map
@@ -96,6 +97,15 @@ def _split_micro(batch, m: int):
     return {k: x.reshape(m, x.shape[0] // m, *x.shape[1:]) for k, x in batch.items()}
 
 
+def microbatch_count(cfg: ArchConfig, batch: int, dp_size: int = 1) -> int:
+    """``cfg.train_microbatches`` lowered until each microbatch of a
+    ``batch`` still splits evenly over ``dp_size`` data shards."""
+    M = cfg.train_microbatches
+    while M > 1 and (batch % M or (batch // M) % dp_size):
+        M -= 1
+    return M
+
+
 def make_train_step(cfg: ArchConfig, *, lr: float = 1e-4, clip: float = 1.0,
                     dp_size: int = 1):
     """Build the train step for an architecture.
@@ -105,10 +115,7 @@ def make_train_step(cfg: ArchConfig, *, lr: float = 1e-4, clip: float = 1.0,
     over it."""
 
     def train_step(model, opt_state, batch):
-        B = batch["tokens"].shape[0]
-        M = cfg.train_microbatches
-        while M > 1 and (B % M or (B // M) % dp_size):
-            M -= 1
+        M = microbatch_count(cfg, batch["tokens"].shape[0], dp_size)
 
         if M == 1:
             (_, ce), grads = value_and_grad(model, cfg, batch)
@@ -119,7 +126,7 @@ def make_train_step(cfg: ArchConfig, *, lr: float = 1e-4, clip: float = 1.0,
             grads = tree_map(lambda p: torch.zeros(p.shape, dtype=_F32, device=p.device),
                              model.params)
             ce_sum = ce_sumsq = torch.zeros((), dtype=_F32, device=model.device)
-            for i in range(M):
+            for i in trips(M):     # identical trips: repro_torch.cost scales them
                 (_, ce), gi = value_and_grad(model, cfg, {k: v[i] for k, v in micro.items()})
                 for a, g in zip(tree_leaves(grads), tree_leaves(gi)):
                     a.add_(g.to(_F32) / M)
