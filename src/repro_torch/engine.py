@@ -36,6 +36,7 @@ from typing import Any, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch import scan as SC
 from repro_torch import spec as QS
 from repro_torch.uda import GLA, Estimate, tree_map
@@ -122,13 +123,15 @@ def _merge_round(gla: GLA, views, w_r: torch.Tensor, d_local: torch.Tensor,
     EstimatorTerminate per partition with its |D_i|, EstimatorMerge under
     the round's weights [P], and the round's Estimate (None without an
     estimation model).  Returns (merged, estimate)."""
-    term = gla.estimator_terminate(views, {"d_local": d_local})
-    merged = _merge_rounds(gla, tree_map(lambda x: x[:, None], term), w_r[:, None],
-                           gla.estimator_merge, all_alive)
-    merged = tree_map(lambda x: x[0], merged)
-    est = None
-    if gla.estimate is not None:
-        est = gla.estimate(merged, confidence, {"d_total": d_total})
+    with obs.span("pfola.merge"):
+        term = gla.estimator_terminate(views, {"d_local": d_local})
+        merged = _merge_rounds(gla, tree_map(lambda x: x[:, None], term), w_r[:, None],
+                               gla.estimator_merge, all_alive)
+        merged = tree_map(lambda x: x[0], merged)
+        est = None
+        if gla.estimate is not None:
+            with obs.span("pfola.estimate"):
+                est = gla.estimate(merged, confidence, {"d_total": d_total})
     return merged, est
 
 
@@ -198,20 +201,22 @@ def _merge_result(gla: GLA, finals, round_states, d_local: torch.Tensor, alive,
                   all_alive: bool) -> QueryResult:
     """The merging half of the whole-scan program, over every partition's
     final and round states (leaves [P, ...] and [P, R, ...])."""
-    d_total = d_local.sum()
-    w_pr, w_final = SC.round_weights(alive, rounds, d_local.device)
-    # Final result: plain Merge across partitions, then Terminate.
-    final = gla.terminate(_merge_over_partitions(gla, finals, w_final, all_alive))
-    if not snapshots:
-        return QueryResult(final, None, None, d_total, d_local)
+    with obs.span("pfola.merge"):
+        d_total = d_local.sum()
+        w_pr, w_final = SC.round_weights(alive, rounds, d_local.device)
+        # Final result: plain Merge across partitions, then Terminate.
+        final = gla.terminate(_merge_over_partitions(gla, finals, w_final, all_alive))
+        if not snapshots:
+            return QueryResult(final, None, None, d_total, d_local)
 
-    # EstimatorTerminate per (partition, round) with the partition's |D_i|,
-    # then EstimatorMerge across partitions (paper §3.1: intra- then inter-).
-    terminated = gla.estimator_terminate(round_states, {"d_local": d_local})
-    merged = _merge_rounds(gla, terminated, w_pr, gla.estimator_merge, all_alive)
-    estimates = None
-    if gla.estimate is not None:
-        estimates = gla.estimate(merged, confidence, {"d_total": d_total})
+        # EstimatorTerminate per (partition, round) with the partition's |D_i|,
+        # then EstimatorMerge across partitions (paper §3.1: intra- then inter-).
+        terminated = gla.estimator_terminate(round_states, {"d_local": d_local})
+        merged = _merge_rounds(gla, terminated, w_pr, gla.estimator_merge, all_alive)
+        estimates = None
+        if gla.estimate is not None:
+            with obs.span("pfola.estimate"):
+                estimates = gla.estimate(merged, confidence, {"d_total": d_total})
     return QueryResult(final, merged, estimates, d_total, d_local)
 
 
@@ -219,8 +224,9 @@ def _run_vmapped(gla: GLA, shards: dict, sched: np.ndarray, alive, *,
                  mode: str, emit: str, lanes: int, snapshots: bool,
                  confidence: float, all_alive: bool) -> QueryResult:
     """The whole-scan program over every partition at once."""
-    finals, round_states, d_local = _scan_states(
-        gla, shards, sched, mode=mode, emit=emit, lanes=lanes, snapshots=snapshots)
+    with obs.span("pfola.scan"):
+        finals, round_states, d_local = _scan_states(
+            gla, shards, sched, mode=mode, emit=emit, lanes=lanes, snapshots=snapshots)
     return _merge_result(gla, finals, round_states, d_local, alive,
                          rounds=sched.shape[1] - 1, snapshots=snapshots,
                          confidence=confidence, all_alive=all_alive)
@@ -338,9 +344,15 @@ def run_query(spec, data, *, device=None, mesh=None, **plan) -> QueryResult:
         rank returns the whole query's result, bitwise the one-process
         run's (``repro_torch.sharded``).
     """
+    with obs.root("pfola.pass"):
+        return _run_query(QS.coerce_spec(spec, plan, caller="run_query"), data,
+                          device=device, mesh=mesh)
+
+
+def _run_query(qspec: QS.QuerySpec, data, *, device, mesh) -> QueryResult:
+    """:func:`run_query`'s pass, inside the caller's ``pfola.pass``."""
     from repro_torch import session as SN  # local: session imports engine
 
-    qspec = QS.coerce_spec(spec, plan, caller="run_query")
     return SN.Session(qspec, data, device=device, mesh=mesh).run()
 
 
@@ -367,18 +379,19 @@ def run_queries(specs, data, *, device=None, mesh=None, **plan):
     """
     from repro_torch.gla import GLABundle  # local: gla is a leaf module
 
-    qspec = QS.coerce_spec(specs, plan, caller="run_queries")
-    if not qspec.is_multi:
-        raise TypeError("run_queries() takes a sequence of GLAs — for a "
-                        "single query use run_query()")
-    glas = list(qspec.gla)
-    qspec = qspec.with_(emit=qspec.resolved_emit(), gla=GLABundle(glas))
-    res = run_query(qspec, data, device=device, mesh=mesh)
-    return [QueryResult(res.final[i],
-                        None if res.snapshots is None else res.snapshots[i],
-                        None if res.estimates is None else res.estimates[i],
-                        res.d_total, res.d_local)
-            for i in range(len(glas))]
+    with obs.root("pfola.pass"):
+        qspec = QS.coerce_spec(specs, plan, caller="run_queries")
+        if not qspec.is_multi:
+            raise TypeError("run_queries() takes a sequence of GLAs — for a "
+                            "single query use run_query()")
+        glas = list(qspec.gla)
+        qspec = qspec.with_(emit=qspec.resolved_emit(), gla=GLABundle(glas))
+        res = _run_query(qspec, data, device=device, mesh=mesh)
+        return [QueryResult(res.final[i],
+                            None if res.snapshots is None else res.snapshots[i],
+                            None if res.estimates is None else res.estimates[i],
+                            res.d_total, res.d_local)
+                for i in range(len(glas))]
 
 
 def audit_plan(gla, data, *, rounds: int = 8, schedule=None, emit: str = "chunk",

@@ -19,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.uda import Estimate
 
 
@@ -68,7 +69,8 @@ def variance_estimate(sum_, sumsq, scanned, d_total):
     sum_ = torch.as_tensor(sum_)
     sumsq = torch.as_tensor(sumsq, dtype=sum_.dtype, device=sum_.device)
     s = _align(scanned, sum_)
-    d = torch.as_tensor(d_total, dtype=sum_.dtype, device=sum_.device)
+    with obs.span("pfola.sync.d_copy"):  # a host |D| to the card waits for the stream
+        d = torch.as_tensor(d_total, dtype=sum_.dtype, device=sum_.device)
     safe = torch.clamp(s, min=2.0)
     num = d * torch.clamp(d - s, min=0.0)
     den = safe * safe * (safe - 1.0)
@@ -77,7 +79,9 @@ def variance_estimate(sum_, sumsq, scanned, d_total):
 
 
 def normal_bounds(est, var, confidence):
-    half = zq(confidence).to(var.device) * torch.sqrt(var)
+    with obs.span("pfola.sync.zq"):  # the host's quantile to the card waits for the stream
+        z = zq(confidence).to(var.device)
+    half = z * torch.sqrt(var)
     return est - half, est + half
 
 
@@ -89,7 +93,9 @@ def single_estimate(state: SumState, confidence, *, d_total) -> Estimate:
     est = horvitz_estimate(state.sum, state.scanned, d_total)
     var = variance_estimate(state.sum, state.sumsq, state.scanned, d_total)
     lo, hi = normal_bounds(est, var, confidence)
-    frac = state.scanned / max(float(d_total), 1.0)
+    with obs.span("pfola.sync.d_total"):  # a card |D| to the host waits for the stream
+        d = max(float(d_total), 1.0)
+    frac = state.scanned / d
     return Estimate(est, lo, hi, info={"var": var, "frac": frac})
 
 

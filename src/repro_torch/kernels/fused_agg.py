@@ -48,6 +48,7 @@ import ctypes
 import torch
 
 from repro_torch import estimators as E
+from repro_torch import obs
 from repro_torch.data import encodings as ENC
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import _runtime as RT
@@ -306,10 +307,12 @@ def _fused_specs(gla):
     return specs
 
 
-def _member_args(fs, state: E.SumState, cols: dict) -> tuple:
+def _member_args(fs, state: E.SumState, cols: dict, member: int = 0) -> tuple:
     """One member's kernel operands: (vals, w, None, carry) for a scalar
-    contract, (vals, w, gids, carry_s, carry_q, carry_m) for a group one."""
-    vals, w, gids = project(fs, cols)
+    contract, (vals, w, gids, carry_s, carry_q, carry_m) for a group one;
+    ``member`` is its index in the bundle."""
+    with obs.span("pfola.project", member=member):
+        vals, w, gids = project(fs, cols)
     if gids is None:
         carry = torch.cat([state.sum, state.sumsq, state.matched[:, None]],
                           dim=1).contiguous()
@@ -336,17 +339,22 @@ def fused_round_step(gla, state, cols: dict, encodings=()):
     ``pf_bundle`` launch for every member; ``scanned`` is summed once,
     outside the kernel."""
     specs = _fused_specs(gla)
-    cols = ENC.decode_cols(cols, encodings)
+    if encodings:
+        with obs.span("pfola.decode"):
+            cols = ENC.decode_cols(cols, encodings)
     is_bundle = bool(gla.members)  # torch-contracts: allow(C003)
     states = tuple(state) if is_bundle else (state,)
     delta = _live_counts(cols["_mask"]).sum(dim=1).to(_F32)
-    args = [_member_args(fs, st, cols) for fs, st in zip(specs, states)]
+    args = [_member_args(fs, st, cols, i) for i, (fs, st) in enumerate(zip(specs, states))]
     if is_bundle:
-        outs = bundle_round_step(args)
+        with obs.span("pfola.kernel", kernel="bundle"):
+            outs = bundle_round_step(args)
     elif args[0][2] is None:
-        outs = [scalar_round_step(args[0][0], args[0][1], args[0][3])]
+        with obs.span("pfola.kernel", kernel="scalar"):
+            outs = [scalar_round_step(args[0][0], args[0][1], args[0][3])]
     else:
-        outs = [group_round_step(*args[0])]
+        with obs.span("pfola.kernel", kernel="group"):
+            outs = [group_round_step(*args[0])]
     new = [_member_state(o, a[0].shape[-1], st.scanned + delta)
            for o, a, st in zip(outs, args, states)]
     return tuple(new) if is_bundle else new[0]

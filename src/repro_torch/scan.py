@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch import estimators as E
+from repro_torch import obs
 from repro_torch.data import encodings as ENC
 from repro_torch.kernels import fused_agg, ops
 from repro_torch.uda import GLA, tree_map, tree_stack
@@ -250,8 +251,9 @@ def fused_rounds_states(gla: GLA, cols: dict, rounds: int, encodings=()):
     P = cols["_mask"].shape[0]
     st = stack_init(gla, (P,), cols["_mask"].device)
     views = []
-    for sl in _round_slices(cols, rounds, "the fused kernel path"):
-        st = fused_round_step(gla, st, sl, encodings)
+    for r, sl in enumerate(_round_slices(cols, rounds, "the fused kernel path")):
+        with obs.span("pfola.round", r=r):
+            st = fused_round_step(gla, st, sl, encodings)
         views.append(st)
     return st, tree_stack(views, dim=1)
 
@@ -490,7 +492,8 @@ def round_weights(alive, rounds: int, device=None):
     ``alive`` is [P] (partition dead for the whole query) or [R, P] (row r
     gives liveness during round r).  The final result merges with the last
     round's liveness."""
-    alive = torch.as_tensor(alive, device=device)
+    with obs.span("pfola.sync.weights"):  # from the host: waits for the stream
+        alive = torch.as_tensor(alive, device=device)
     if alive.ndim == 1:
         a = alive.to(torch.float32)
         return a[:, None].expand(alive.shape[0], rounds), a

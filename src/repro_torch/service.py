@@ -75,6 +75,7 @@ import numpy as np
 import torch
 
 from repro_torch import engine as EN
+from repro_torch import obs
 from repro_torch import scan as SC
 from repro_torch import sharded as SH
 from repro_torch._device import resolve_device
@@ -134,6 +135,7 @@ class SlotRecord:
     done: bool = False
     converged: bool = False  # stop rule fired (vs full pass)
     detached: bool = False
+    query_id: Optional[int] = None  # the ``pfola.query`` span's id, while recording
 
 
 class _Bank:
@@ -339,6 +341,13 @@ class SharedScan:
         """Advance every bank with live queries one round-slice; return the
         (record, progress) of each slot that witnessed the round.  Completed
         slots come back with ``done`` set — the caller detaches them."""
+        with obs.span("pfola.serve.step") as sp:
+            out = self._step()
+            if sp:
+                sp.note(live=len(out), queries=[rec.query_id for rec, _ in out])
+        return out
+
+    def _step(self) -> List[Tuple[SlotRecord, RoundProgress]]:
         t0 = time.perf_counter()
         r = self.cursor % self.rounds
         lo, hi = r * self.width, (r + 1) * self.width
@@ -453,6 +462,7 @@ class QueryHandle:
         self._error: Optional[BaseException] = None
         self._record: Optional[SlotRecord] = None
         self._cancelled = False
+        self._span = obs.begin("pfola.query")  # closed by result()
 
     @property
     def done(self) -> bool:
@@ -462,6 +472,7 @@ class QueryHandle:
         """The outcome once the query converges or completes its pass; the
         step's exception if a step of its scan failed."""
         await self._done.wait()
+        obs.end(self._span)
         if self._error is not None:
             raise self._error
         assert self._outcome is not None
@@ -815,6 +826,7 @@ class OLAService:
                 return
             q = handle.query
             rec = runner.scan.attach(q, handle._stop)
+            rec.query_id = None if handle._span is None else handle._span.id
             handle._record = rec
             runner.handles[id(rec)] = handle
             n = runner.ids[id(rec)] = runner.next_id

@@ -61,6 +61,7 @@ import torch
 from repro_torch import ckpt
 from repro_torch import engine as EN
 from repro_torch import fault as FT
+from repro_torch import obs
 from repro_torch import scan as SC
 from repro_torch import sharded as SH
 from repro_torch import spec as QS
@@ -436,17 +437,18 @@ class Session:
     """
 
     def __init__(self, spec, data, *, device=None, mesh=None, audit=None, **plan):
-        qspec = QS.coerce_spec(spec, plan, caller="Session")
-        self._mesh = mesh
-        if mesh is None:
-            dev = resolve_device("cuda" if device is None else device)
-            source, whole = DS.as_source(data), None
-        else:
-            dev = SH.resolve_device(mesh, device)
-            source, whole = SH.rank_view(mesh, data)
-        source = DS.place(source, dev)
-        self._whole = whole or source.spec  # the whole layout's spec
-        qspec = EN.normalize_plan(qspec, self._whole)
+        with obs.span("pfola.session.init"):
+            qspec = QS.coerce_spec(spec, plan, caller="Session")
+            self._mesh = mesh
+            if mesh is None:
+                dev = resolve_device("cuda" if device is None else device)
+                source, whole = DS.as_source(data), None
+            else:
+                dev = SH.resolve_device(mesh, device)
+                source, whole = SH.rank_view(mesh, data)
+            source = DS.place(source, dev)
+            self._whole = whole or source.spec  # the whole layout's spec
+            qspec = EN.normalize_plan(qspec, self._whole)
         self.spec = qspec  # the resolved plan, for introspection
         gla: GLA = qspec.gla
         self._gla = gla
@@ -677,6 +679,10 @@ class Session:
     def step(self) -> RoundProgress:
         """Advance one round-slice; evaluate the stopping rule; return what
         it saw."""
+        with obs.span("pfola.round", r=self._steps):
+            return self._step()
+
+    def _step(self) -> RoundProgress:
         if self._result is not None:
             raise RuntimeError("session already ran to completion")
         if not self._incremental_ok:
