@@ -135,6 +135,14 @@ PR14_MS = {"fused_round_step/group[G=4]": 165.432549,
 #: `pr16_ms`
 PR16_MS = {"fused_round_step/scalar": 0.144752, "fused_prefix_states": 1.777168,
            "decode": 0.337696, "fused_round_step/bundle": 2.549664}
+#: Q15's round-slice at SF 100 in the kernel table: olabench's tpch-sf100
+#: packs 600,037,902 rows into C = 36,624 chunks of 2,048 per partition, 16
+#: rounds of 2,289, grouped by 1,000,000 suppliers
+Q15_CHUNKS, Q15_SUPPLIERS = 2289, 1_000_000
+#: the report bundle's round-slices in olabench's two cells, (chunks a
+#: partition, suppliers): tpch-sf100 as above, tpch-sf10 228 chunks of 2,048
+#: rows and 100,000 suppliers
+REPORT_SLICES = {"sf100": (Q15_CHUNKS, Q15_SUPPLIERS), "sf10": (228, 100_000)}
 #: the [fault] and [fault-stream] phases lose partition 2 at round 5
 FAIL_P, FAIL_R = 2, 5
 #: the [straggler] phase's relative partition speeds: the last one at 1/4
@@ -350,6 +358,40 @@ def make_data(dev):
     parts = randomize.randomize_global(cols, gen, P)
     del cols
     return randomize.pack_partitions(parts, chunk_len=L)
+
+
+def report_bundle(dev, chunks: int, suppliers: int, seed: int) -> list:
+    """K1 bundle operands of one report round-slice ([P, chunks, L] rows),
+    as olabench's report traffic launches it: Q6 (scalar, A = 1), Q1 by
+    returnflag x linestatus (4 groups, A = 4) and Q15 by ``suppliers``
+    (A = 1, w = 0 outside the quarter: about 96% of the rows), each with a
+    random carry.  The same tensors from the same seed."""
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def rand(*shape, scale):
+        return torch.rand(shape, generator=g, device=dev) * scale
+
+    def ids(groups):
+        return torch.randint(0, groups, (P, chunks, L), generator=g, device=dev,
+                             dtype=torch.int32)
+
+    def counts(groups):
+        return torch.randint(0, 500, (P, groups), generator=g, device=dev).float()
+
+    w = (rand(P, chunks, L, scale=1) < 0.5).float()
+    w15 = (rand(P, chunks, L, scale=1) < 0.04).float()
+    v1, v4 = rand(P, chunks, L, 1, scale=1e4), rand(P, chunks, L, 4, scale=1e4)
+    carry = torch.cat([rand(P, 2, scale=1e6), torch.randint(
+        0, 500, (P, 1), generator=g, device=dev).float()], 1)
+    members = [(v1, w, None, carry)]
+    for v, w_, G in ((v4, w, 4), (v1, w15, suppliers)):
+        A = v.shape[-1]
+        members.append((v, w_, ids(G), rand(P, G, A, scale=1e6),
+                        rand(P, G, A, scale=1e9), counts(G)))
+    return members
 
 
 def q6_q1s(d: float, estimator: str = "single"):
@@ -3368,6 +3410,25 @@ def run(work: Path) -> None:
         group_inputs[label] = (gla, vals, w, gids, cs, cq, cm)
         say("check", kernel=f"fused_round_step/group[{label}]",
             shape=tuple(vals.shape), max_abs_err=err, repeat="bitwise-equal")
+    # Q15's round-slice at SF 100 (tpch-sf100 in olabench: C = 2,289 chunks a
+    # round-slice, 1,000,000 suppliers, about 96% of the rows outside the
+    # quarter with w = 0): the fold's windows of 32*s ids, s = 32
+    G = Q15_SUPPLIERS
+    vals = torch.rand((P, Q15_CHUNKS, L, 1), generator=g, device=dev) * 1e4
+    w = (torch.rand((P, Q15_CHUNKS, L), generator=g, device=dev) < 0.04).float()
+    gids = torch.randint(0, G, (P, Q15_CHUNKS, L), generator=g, device=dev,
+                         dtype=torch.int32)
+    cs = torch.rand((P, G, 1), generator=g, device=dev) * 1e6
+    cq = torch.rand((P, G, 1), generator=g, device=dev) * 1e9
+    cm = torch.randint(0, 500, (P, G), generator=g, device=dev).float()
+    got = twice(lambda: FK.group_round_step(vals, w, gids, cs, cq, cm))
+    err = compare("K1 group Q15", got, ref.group_round_step(vals, w, gids, cs, cq, cm), {2})
+    checks["fused_round_step/group"] = max(checks["fused_round_step/group"], err)
+    group_inputs["Q15"] = (None, vals, w, gids, cs, cq, cm)
+    say("check", kernel="fused_round_step/group[Q15]", shape=tuple(vals.shape),
+        groups=G, span=ops.group_step_span(L, 1, G), max_abs_err=err,
+        repeat="bitwise-equal")
+    del got
 
     valsK2, wK2, _ = FK.project(q6.fused, shards)  # K2 runs on the whole shard
     got = twice(lambda: FK.scalar_prefix(valsK2, wK2))[0]
@@ -3439,28 +3500,46 @@ def run(work: Path) -> None:
                 vals, w, gids, torch.rand((P, G, A), generator=g, device=dev) * 1e3,
                 torch.rand((P, G, A), generator=g, device=dev) * 1e6,
                 torch.randint(0, 1000, (P, G), generator=g, device=dev).float()))
-    got = FK.bundle_round_step(bundle_args)
-    again = FK.bundle_round_step(bundle_args)
-    want = ref.bundle_round_step(bundle_args)
-    torch.cuda.synchronize()
-    err = 0.0
-    for i, (m, a, b, r) in enumerate(zip(bundle_args, got, again, want)):
-        if m[2] is None:
-            solo = FK.scalar_round_step(m[0], m[1], m[3])
-            A = m[0].shape[-1]
-            a, b, r, solo = ((t[:, :2 * A], t[:, 2 * A]) for t in (a, b, r, solo))
-            exact = {1}
-        else:
-            solo, exact = FK.group_round_step(*m), {2}
-        check(all(torch.equal(x, y) for x, y in zip(a, b)),
-              f"K1 bundle member {i}: repeat run is not bitwise-equal")
-        check(all(torch.equal(x, y) for x, y in zip(a, solo)),
-              f"K1 bundle member {i}: differs from its solo launch")
-        err = max(err, compare(f"K1 bundle member {i}", a, r, exact))
-    checks["fused_round_step/bundle"] = err
+
+    def check_bundle(name, margs):
+        """K1 bundle against its plain version: repeats bitwise-equal, every
+        member bitwise-equal to its solo K1 launch; the largest error."""
+        got = FK.bundle_round_step(margs)
+        again = FK.bundle_round_step(margs)
+        want = ref.bundle_round_step(margs)
+        torch.cuda.synchronize()
+        err = 0.0
+        for i, (m, a, b, r) in enumerate(zip(margs, got, again, want)):
+            if m[2] is None:
+                solo = FK.scalar_round_step(m[0], m[1], m[3])
+                A = m[0].shape[-1]
+                a, b, r, solo = ((t[:, :2 * A], t[:, 2 * A]) for t in (a, b, r, solo))
+                exact = {1}
+            else:
+                solo, exact = FK.group_round_step(*m), {2}
+            check(all(torch.equal(x, y) for x, y in zip(a, b)),
+                  f"{name} member {i}: repeat run is not bitwise-equal")
+            check(all(torch.equal(x, y) for x, y in zip(a, solo)),
+                  f"{name} member {i}: differs from its solo launch")
+            err = max(err, compare(f"{name} member {i}", a, r, exact))
+        return err
+
+    checks["fused_round_step/bundle"] = check_bundle("K1 bundle", bundle_args)
     say("check", kernel="fused_round_step/bundle", members=len(bundle_args),
-        max_abs_err=err, repeat="bitwise-equal", members_vs_solo="bitwise-equal")
-    del got, again, want
+        max_abs_err=checks["fused_round_step/bundle"], repeat="bitwise-equal",
+        members_vs_solo="bitwise-equal")
+    # olabench's report bundle [Q6, Q1 by returnflag x linestatus, Q15] at
+    # both cells' round-slices: Q1 at s = 1 beside Q15 at s > 1 in one fold
+    # launch
+    for label, (chunks, suppliers) in REPORT_SLICES.items():
+        margs = report_bundle(dev, chunks, suppliers, SEED + 15)
+        err = check_bundle(f"K1 report bundle {label}", margs)
+        checks["fused_round_step/bundle"] = max(checks["fused_round_step/bundle"], err)
+        say("check", kernel=f"fused_round_step/bundle[report-{label}]",
+            shape=tuple(margs[0][0].shape), groups=[4, suppliers],
+            span=[ops.group_step_span(L, 4, 4), ops.group_step_span(L, 1, suppliers)],
+            max_abs_err=err, repeat="bitwise-equal", members_vs_solo="bitwise-equal")
+        del margs
 
     # K1's decode stage on the encoded source's first round-slice: every
     # encoded column in one launch, bitwise its plain version and the plain
@@ -4898,24 +4977,25 @@ def run(work: Path) -> None:
             **phases(lambda: FK.scalar_round_step(vals6, w6, carry), scalar_split)})
     del x
 
-    # K1 group on one round-slice, both group shapes of the main path and
-    # the one-group table
-    for label in ("G=4", "G=8192", "G=1"):
+    # K1 group on one round-slice, both group shapes of the main path, the
+    # one-group table and Q15's round-slice at SF 100
+    for label in ("G=4", "G=8192", "G=1", "Q15"):
         gla, vals, w, gids, cs, cq, cm = group_inputs[label]
         G = cm.shape[-1]
         N = w.numel()
         src = stacked(vals, w)
         idx = (gids.long() + torch.arange(P, device=dev)[:, None, None] * G).reshape(-1)
         acc = torch.zeros((P * G, src.shape[1]), device=dev)
-        st = scan.stack_init(gla, (P,), dev)
         ms = median_ms(lambda: FK.group_round_step(vals, w, gids, cs, cq, cm), 10)
         plain = median_ms(lambda: ref.group_round_step(vals, w, gids, cs, cq, cm), 3)
         lib = median_ms(lambda: acc.index_add_(0, idx, src), 10)
-        withc = (None if label == "G=1"  # no GLA has this table: kernel alone
-                 else f"{median_ms(lambda: FK.fused_round_step(gla, st, sl), 5):.6f}")
+        withc = None  # G=1 and Q15: no GLA of this run has the table, kernel alone
+        if label in ("G=4", "G=8192"):
+            st = scan.stack_init(gla, (P,), dev)
+            withc = f"{median_ms(lambda: FK.fused_round_step(gla, st, sl), 5):.6f}"
         nbytes = 4 * (vals.numel() + 2 * N + 2 * (cs.numel() + cq.numel() + cm.numel()))
         pr14 = PR14_MS.get(f"fused_round_step/group[{label}]")
-        nt = tiles(per, [(vals.shape[-1], G)])
+        nt = tiles(w.shape[1], [(vals.shape[-1], G)])
         ph = {"tiles": nt, **phases(lambda: FK.group_round_step(vals, w, gids, cs, cq, cm),
                                     group_split(nt))}
         if label == "G=8192":
@@ -4925,8 +5005,10 @@ def run(work: Path) -> None:
             b, by = bound(nbytes, 17 * N)
             say("time", kernel=f"fused_round_step/group[{label}]", ms=f"{ms:.6f}",
                 plain_ms=f"{plain:.6f}", bound_ms=f"{b:.6f}", bound_by=by,
-                library_ms=lib, with_closures_ms=withc, pr14_ms=pr14, **ph)
+                library_ms=lib, with_closures_ms=withc, pr14_ms=pr14,
+                span=ops.group_step_span(L, vals.shape[-1], G), **ph)
         del src, idx, acc
+    del group_inputs["Q15"], vals, w, gids, cs, cq, cm
 
     # K2 on the whole shard
     N = valsK2.numel()
@@ -4992,33 +5074,53 @@ def run(work: Path) -> None:
                 plain_ms=f"{args[3]:.6f}", bound_ms=f"{b:.6f}", bound_by=by,
                 library_ms=args[6], bytes=args[4], flops=args[5], **args[7])
 
+    def bundle_cost(margs):
+        """A K1 bundle's bytes and operations (the sum of its members'), its
+        library yardstick (a sum or an ``index_add_`` per member, summed),
+        and its group step's tiles and grid split."""
+        nbytes = flops = 0
+        lib_ms = 0.0
+        for m in margs:
+            N, A = m[1].numel(), m[0].shape[-1]
+            carries = m[3:] if m[2] is not None else m[3:4]
+            nbytes += 4 * (m[0].numel() + N * (1 if m[2] is None else 2)
+                           + 2 * sum(c.numel() for c in carries))
+            flops += (4 * A + 1 + (m[2] is None)) * N
+            if m[2] is None:
+                x = stacked_rows_last(m[0], m[1])
+                lib_ms += median_ms(lambda: torch.sum(x, dim=-1), 10)
+            else:
+                lib_ms += median_ms(index_add_call(m[0], m[1], m[2], m[5].shape[-1]), 5)
+            x = None
+        nt = tiles(margs[0][1].shape[1],
+                   [(m[0].shape[-1], m[5].shape[-1]) for m in margs if m[2] is not None])
+        split = {**group_split(nt), "scalar_partials_ms": ("bundle_partials", 1),
+                 "scalar_fold_ms": ("bundle_fold", 1)}
+        return nbytes, flops, lib_ms, {"members": len(margs), "tiles": nt,
+                                       **phases(lambda: FK.bundle_round_step(margs), split)}
+
     # K1 bundle on one round-slice: [Q6, Q1-small, Q1-large, supplier ⋈ nation]
-    nbytes = flops = 0
-    lib_ms = 0.0
-    for m in bundle_args:
-        N, A = m[1].numel(), m[0].shape[-1]
-        carries = m[3:] if m[2] is not None else m[3:4]
-        nbytes += 4 * (m[0].numel() + N * (1 if m[2] is None else 2)
-                       + 2 * sum(c.numel() for c in carries))
-        flops += (4 * A + 1 + (m[2] is None)) * N
-        if m[2] is None:
-            x = stacked_rows_last(m[0], m[1])
-            lib_ms += median_ms(lambda: torch.sum(x, dim=-1), 10)
-        else:
-            lib_ms += median_ms(index_add_call(m[0], m[1], m[2], m[5].shape[-1]), 5)
-        x = None
+    nbytes, flops, lib_ms, ph = bundle_cost(bundle_args)
     stb = scan.stack_init(bf, (P,), dev)
-    nt = tiles(per, [(m[0].shape[-1], m[5].shape[-1]) for m in bundle_args if m[2] is not None])
     record("fused_round_step/bundle", K1,
            median_ms(lambda: FK.bundle_round_step(bundle_args), 10),
            median_ms(lambda: ref.bundle_round_step(bundle_args), 2),
            nbytes, flops, lib_ms,
-           {"members": len(bundle_args), "pr14_ms": PR14_MS["fused_round_step/bundle"],
-            "pr16_ms": PR16_MS["fused_round_step/bundle"], "tiles": nt,
-            **phases(lambda: FK.bundle_round_step(bundle_args),
-                     {**group_split(nt), "scalar_partials_ms": ("bundle_partials", 1),
-                      "scalar_fold_ms": ("bundle_fold", 1)}),
+           {**ph, "pr14_ms": PR14_MS["fused_round_step/bundle"],
+            "pr16_ms": PR16_MS["fused_round_step/bundle"],
             "with_closures_ms": f"{median_ms(lambda: FK.fused_round_step(bf, stb, sl), 5):.6f}"})
+    # olabench's report bundle [Q6, Q1, Q15] at both cells' round-slices, the
+    # operands of the check above made again from the same seed
+    for label, (chunks, suppliers) in REPORT_SLICES.items():
+        margs = report_bundle(dev, chunks, suppliers, SEED + 15)
+        nbytes, flops, lib_ms, ph = bundle_cost(margs)
+        b, by = bound(nbytes, flops)
+        say("time", kernel=f"fused_round_step/bundle[report-{label}]",
+            ms=f"{median_ms(lambda: FK.bundle_round_step(margs), 10):.6f}",
+            plain_ms=f"{median_ms(lambda: ref.bundle_round_step(margs), 2):.6f}",
+            bound_ms=f"{b:.6f}", bound_by=by, library_ms=lib_ms, bytes=nbytes,
+            flops=flops, groups=[4, suppliers], **ph)
+        del margs
 
     # K1's decode stage on one encoded round-slice (all five encoded columns,
     # one launch); the library yardstick is one indexing or shift-and-mask

@@ -54,23 +54,53 @@
 //
 // Each chunk writes a compacted table to the scratch: its runs' ids in
 // ascending order, (S[A] | Q[A] | M) per run, and the offsets off[w] =
-// number of runs with id < 32*w for the W + 1 windows of 32 ids.  A table
-// holds at most E = min(L, G) entries.
+// number of runs with id < 32*s*w for the W + 1 windows of 32*s ids.  A
+// table holds at most E = min(L, G) entries.
 //
-// Phase 2, the ordered fold (group_fold_kernel): one warp per (member,
-// partition, window of 32 ids, group of columns of the 2A+1); lane j owns
-// carry elements (p, 32*w + j, k) of its columns in registers and walks
-// the tile's chunks in order, taking chunk c's entries of its window
-// (off[w] to off[w+1], at most 32 distinct ids) with one coalesced load
-// per column and a shuffle that hands each lane its id's value.  One
-// writer per element, the chunks added in chunk order; an id absent from
-// a chunk is skipped.  A warp loads the entries of U chunks at once, and
-// the offsets of the next U while it adds them.  The shape follows the
-// input: with many (partition, window, column) triples (2^13 buckets) a
-// warp takes 9 columns and U = 8, so that the ids and offsets are read
-// once for all of them and every warp stays resident; with few (a handful
-// of groups) a warp takes 1 column and U = 32, so that the few warps keep
-// more loads in flight.  Neither changes the order of any sum.
+// The window's width follows the member's shape alone (step_span): s is
+// the largest power of two <= G / 4L (1 where G < 8L), so that a window of
+// 32*s ids takes at most 8 of a chunk's L rows on average, capped so that
+// the window's carry, 32*s ids of 2A+1 floats, fits kFoldSpanFloats (12 KB:
+// two blocks of 8 warps fit an SM's shared memory).  A chunk then writes
+// W + 1 = ceil(G / 32s) + 1 offsets, not G / 32 + 1, and phase 2 visits
+// (partition, window, chunk) triples in proportion to the entries, not to
+// G: Q15's 1,000,000 suppliers (A = 1, L = 2048) take s = 32, 977 windows
+// of 1,024 ids (the cap binds: about 2 entries a window and chunk); its
+// 100,000 at SF 10 s = 8, 391 windows of 256 ids.  Shapes whose 32-id
+// windows already hold several of a chunk's entries keep s = 1: Q1's 4
+// groups, K3's stacks, and 2^13 buckets (about 7 a window), where wider
+// windows measured slower (PERF.md, PR 33).
+//
+// Phase 2, the ordered fold (group_fold_kernel), one warp per window,
+// partition and group of columns, walking the tile's chunks in order.  An
+// id absent from a chunk is skipped; one writer per element; no atomics.
+//
+//   s = 1 (group_fold): lane j owns carry elements (p, 32*w + j, k) of its
+//   columns in registers and takes chunk c's entries of its window (off[w]
+//   to off[w+1], at most 32 distinct ids) with one coalesced load per
+//   column and a shuffle that hands each lane its id's value.  A warp loads
+//   the entries of U chunks at once, and the offsets of the next U while it
+//   adds them.  With many (partition, window, column) triples a warp takes
+//   9 columns and U = 8, so that the ids and offsets are read once for all
+//   of them and every warp stays resident; with few (a handful of groups) a
+//   warp takes 1 column and U = 32, so that the few warps keep more loads
+//   in flight.
+//
+//   s > 1 (group_fold_span): a warp holds its window's 32*s carry elements
+//   of kSpanCols columns in shared memory, read from in_* (or zero) at the
+//   start and written to out_* at the end.  Lane j reads the offsets of
+//   chunk c0 + j, 32 chunks at once (the next 32 a batch ahead), and a warp
+//   scan lays the 32 chunks' entries end to end in chunk order; the lanes
+//   take 32 consecutive entries a round, and each adds its entry to its own
+//   element with __fadd_rn.  A chunk's ids are distinct, so lanes that share
+//   an id hold entries of different chunks, in lane order: they add one
+//   after another (__match_any_sync ranks them), with a __syncwarp between
+//   steps and between rounds.
+//
+// Members of one launch with different s share the fold grid, each taking
+// its own path (blockIdx.y is the member).  Neither path changes the order
+// of any sum: each carry element is the carry plus its chunk totals in
+// chunk order, so the outputs are the same bits at every s, U and tile.
 //
 // Scratch and tiles: the wrapper allocates the scratch with torch.empty
 // (a table of `words` floats per chunk and member, words passed with the
@@ -88,11 +118,15 @@
 // the same positions and a chunk of another member holds none of its ids,
 // so each member also equals its solo launch.
 //
-// What bounds it on an H100: bytes.  Per row it reads 4(A+2) bytes and
-// does about 5A+1 float operations; the scratch adds a write and a read
-// of at most the input's size (168 bytes per chunk of 2048 rows for 4
-// groups and 4 aggregates, 82,948 for 2^13 buckets, against 49,152 bytes
-// of input: those take two tiles).
+// What bounds it on an H100: bytes.  Per row phase 1 reads 4(A+2) bytes
+// and does about 5A+1 float operations, and writes a table of at most the
+// input's size (168 bytes per chunk of 2048 rows for 4 groups and 4
+// aggregates, 82,948 for 2^13 buckets against 49,152 bytes of input: those
+// take two tiles; 36,680 for Q15 against 24,576, beside Q1's 49,152 in the
+// report bundle: one tile).  The fold reads the entries' bytes (the ids
+// once a group of columns), two offsets a chunk and window, and the carry
+// once and writes it once a tile: at s > 1 its work follows a chunk's
+// entries, not G / 32.
 //
 // Choices made for simplicity, each measured in PERF.md: one block per
 // chunk rather than a persistent grid that prefetches its next chunk with
@@ -100,7 +134,8 @@
 // work instead); one compacted table layout for every G, also where G <= L
 // would allow a dense one (absent ids are skipped, not added as zeros);
 // the window offsets that phase 1 writes take the place of a binary
-// search in phase 2.
+// search in phase 2; the width rule reads only L, A and G, not the
+// partitions or the card, so a member's fold is the same at every P.
 //
 // Tensor cores are not used: the TPU's one-hot matrix-unit variant
 // (use_mxu) is called only statistically interchangeable by the
@@ -114,7 +149,6 @@
 namespace pfola {
 
 constexpr int kScalarThreads = 256;
-constexpr int kFoldThreads = 128;
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -147,6 +181,9 @@ constexpr int kFoldWarps = 8;       // phase 2 block: 8 warps
 constexpr int kFoldWide = 4096;     // (p, window, column) triples past which
                                     // one phase 2 warp takes 9 columns
 constexpr int kMaxMembers = 16;     // group members in one launch
+constexpr int kFoldSpanFloats = 3072;  // carry floats of a phase 2 warp at
+                                       // s > 1: 12 KB, two 8-warp blocks an SM
+constexpr int kSpanCols = 3;        // s > 1: columns of the 2A+1 a warp takes
 
 // One member of a group-step launch.  The carries in_* may be null (zero).
 struct GroupMember {
@@ -173,15 +210,26 @@ struct GroupSet {
 __host__ __device__ __forceinline__ int step_entries(int L, int G) {
   return L < G ? L : G;
 }
-__host__ __device__ __forceinline__ int step_windows(int G) {
-  return (G + 31) / 32;
+// Ids a lane of phase 2 owns (s in the header): the largest power of two
+// <= G / 4L (1 where G < 8L), so that a window of 32*s ids takes at most 8
+// of a chunk's L rows on average, whose window of 2A+1 floats an id fits
+// kFoldSpanFloats.
+__host__ __device__ __forceinline__ int step_span(int L, int A, int G) {
+  int s = 1;
+  while (8LL * s * L <= G && 64LL * s * (2 * A + 1) <= kFoldSpanFloats) s *= 2;
+  return s;
+}
+// Windows of 32*s ids a chunk table has offsets for (and one more).
+__host__ __device__ __forceinline__ int step_windows(int L, int A, int G) {
+  const int S = 32 * step_span(L, A, G);
+  return (G + S - 1) / S;
 }
 // Scratch words of one chunk's table: W + 1 offsets, E ids, E * (2A+1) sums
 // (the least GroupMember::words run_group_step accepts).
 __host__ __device__ __forceinline__ long long group_step_words(int L, int A,
                                                                int G) {
   const long long E = step_entries(L, G);
-  return step_windows(G) + 1 + E * (2LL * A + 2);
+  return step_windows(L, A, G) + 1 + E * (2LL * A + 2);
 }
 // Value columns staged in shared memory at once.
 __host__ __device__ __forceinline__ int step_val_cols(int L, int A) {
@@ -300,7 +348,8 @@ template <int KI>
 __device__ void group_partials(const GroupMember& m, long long row0,
                                long long slot, int L, char* smem) {
   const int A = m.A, G = m.G;
-  const int E = step_entries(L, G), W = step_windows(G);
+  const int E = step_entries(L, G), W = step_windows(L, A, G);
+  const int wsh = 4 + __ffs(step_span(L, A, G));  // id >> wsh: its window
   const int AT = step_val_cols(L, A);
   float* sf = reinterpret_cast<float*>(smem);      // 32 * kSegSums floats
   unsigned long long* s64 = reinterpret_cast<unsigned long long*>(smem);
@@ -405,15 +454,15 @@ __device__ void group_partials(const GroupMember& m, long long row0,
       ++e;
       ids[e] = k_[i];
       // the windows whose first id lies in (previous id, this id]
-      const int wlo = e == 0 ? 0 : (key[pa[base + i - 1]] >> 5) + 1;
-      for (int w = wlo; w <= (k_[i] >> 5); ++w) off[w] = e;
+      const int wlo = e == 0 ? 0 : (key[pa[base + i - 1]] >> wsh) + 1;
+      for (int w = wlo; w <= (k_[i] >> wsh); ++w) off[w] = e;
     }
     rank[i] = e;
     if (k_[i] < G && ((end >> i) & 1) && e == runs - 1) *last = k_[i];
   }
   __syncthreads();
   {  // the windows past the last run
-    const int wlo = runs == 0 ? 0 : (*last >> 5) + 1;
+    const int wlo = runs == 0 ? 0 : (*last >> wsh) + 1;
     for (int w = wlo + threadIdx.x; w <= W; w += blockDim.x) off[w] = runs;
   }
 
@@ -506,8 +555,8 @@ __device__ __forceinline__ void carry_at(const GroupMember& m, int p, int g,
   if (!first) *in = *out;
 }
 
-// Phase 2 for one warp: carry elements (p, 32*w + lane, k) for the KG
-// columns k of group kg, over the tile's ct chunk tables in chunk order.
+// Phase 2 at s = 1, one warp: carry elements (p, 32*w + lane, k) for the
+// KG columns k of group kg, over the tile's ct chunk tables in chunk order.
 // `first` reads the carry from in_* (zero when null), later tiles from
 // out_*.  The warp loads the entries of U chunks at once, and the offsets
 // of the next U chunks while it adds them.
@@ -515,7 +564,7 @@ template <int U, int KG>
 __device__ void group_fold(const GroupMember& m, long long warp_id, int P,
                            int ct, int L, bool first) {
   const int A = m.A, G = m.G, K = 2 * A + 1, NKG = (K + KG - 1) / KG;
-  const int E = step_entries(L, G), W = step_windows(G);
+  const int E = step_entries(L, G), W = step_windows(L, A, G);
   if (warp_id >= (long long)P * W * NKG) return;
   const int kg = (int)(warp_id % NKG);
   const int w = (int)((warp_id / NKG) % W);
@@ -596,14 +645,149 @@ __device__ void group_fold(const GroupMember& m, long long warp_id, int P,
   }
 }
 
-// Phase 2 grid: blockIdx.x * kFoldWarps + warp, blockIdx.y = member.
+// Shared floats of one span warp: its window's carry of up to kSpanCols
+// columns (at most the 32*s*(2A+1) floats step_span caps), then 32 ints of
+// entry offsets.
+__host__ __device__ __forceinline__ int span_floats(int s, int A) {
+  return 32 * s * (2 * A + 1 < kSpanCols ? 2 * A + 1 : kSpanCols) + 32;
+}
+
+// Phase 2 at s > 1, one warp: the carry elements of window w (ids
+// [32*s*w, 32*s*w + 32*s)) of partition p, for the KS columns of group kg,
+// in `acc` (shared, span_floats(s, A): column c of id j at c*32*s + j), over
+// the tile's ct chunk tables in chunk order.  `first` reads the carry from
+// in_* (zero when null), later tiles from out_*.
+//
+// The chunks go by in batches of 32: lane j holds the offsets of chunk
+// c0 + j (the next batch's are loaded a batch ahead), and a warp scan lays
+// the batch's entries end to end in chunk order, `pos` (the last 32 ints
+// of the warp's table) holding the scan.  Each round the lanes take 32
+// consecutive entries, chunk u's entry i - pos[u-1] + off[w] at flat
+// position i.
+template <int KS>
+__device__ void group_fold_span(const GroupMember& m, long long warp_id,
+                                int s, int P, int ct, int L, bool first,
+                                float* acc) {
+  const int A = m.A, G = m.G, K = 2 * A + 1, NKS = (K + KS - 1) / KS;
+  const int S = 32 * s, E = step_entries(L, G), W = (G + S - 1) / S;
+  if (warp_id >= (long long)P * W * NKS) return;
+  const int k0 = (int)(warp_id % NKS) * KS;
+  const int w = (int)((warp_id / NKS) % W);
+  const int p = (int)(warp_id / ((long long)NKS * W));
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1;
+  const int g0 = S * w, n = G - g0 < S ? G - g0 : S;
+  int* pos = reinterpret_cast<int*>(acc + span_floats(s, A) - 32);
+  for (int c = 0; c < KS && k0 + c < K; ++c) {
+    for (int j = lane; j < n; j += 32) {
+      const float* in;
+      float* out;
+      long long idx;
+      carry_at(m, p, g0 + j, k0 + c, first, &in, &out, &idx);
+      acc[c * S + j] = in ? in[idx] : 0.f;
+    }
+  }
+
+  const long long words = m.words;
+  const float* tabs = m.scratch + (long long)p * ct * words + W + 1;  // ids
+  const int* offs = reinterpret_cast<const int*>(tabs - W - 1) + w;  // off[w]
+  int o0 = 0, o1 = 0;
+  if (lane < ct) {
+    o0 = offs[lane * words];
+    o1 = offs[lane * words + 1];
+  }
+  for (int c0 = 0; c0 < ct; c0 += 32) {
+    int n0 = 0, n1 = 0;  // the next 32 chunks' offsets
+    if (c0 + 32 + lane < ct) {
+      n0 = offs[(c0 + 32 + lane) * words];
+      n1 = offs[(c0 + 32 + lane) * words + 1];
+    }
+    const int cnt = o1 - o0;
+    int incl = cnt;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += y;
+    }
+    const int total = __shfl_sync(kFull, incl, 31);
+    const int delta = o0 - (incl - cnt);  // entry index less flat position
+    __syncwarp();  // the previous 32 chunks' readers are done with pos
+    pos[lane] = incl;
+    __syncwarp();
+    for (int r0 = 0; r0 < total; r0 += 32) {
+      const int i = r0 + lane;  // this lane's entry: its id in the window
+      int u = 0;                // the chunk of flat position i: #{j : pos[j] <= i}
+      if (i < total) {
+#pragma unroll
+        for (int b = 16; b > 0; b >>= 1)
+          if (pos[u + b - 1] <= i) u += b;
+      }
+      const int e = i + __shfl_sync(kFull, delta, u);
+      int id = -1;
+      float v[KS];
+#pragma unroll
+      for (int c = 0; c < KS; ++c) v[c] = 0.f;
+      if (i < total) {
+        const float* at = tabs + (c0 + u) * words + e;
+        id = reinterpret_cast<const int*>(at)[0] - g0;
+#pragma unroll
+        for (int c = 0; c < KS; ++c)
+          if (k0 + c < K) v[c] = at[E + (long long)(k0 + c) * E];
+      }
+      // lanes with one id hold it from different chunks, in lane order: a
+      // step a rank among them
+      const unsigned same = __match_any_sync(kFull, id >= 0 ? id : -1 - lane);
+      const int rank = __popc(same & below);
+      const int top = (int)__reduce_max_sync(kFull, (unsigned)rank);
+      for (int q = 0; q <= top; ++q) {
+        if (id >= 0 && rank == q) {
+          float x[KS];  // the columns' elements differ: read all, then write
+#pragma unroll
+          for (int c = 0; c < KS; ++c)
+            if (k0 + c < K) x[c] = acc[c * S + id];
+#pragma unroll
+          for (int c = 0; c < KS; ++c)
+            if (k0 + c < K) acc[c * S + id] = __fadd_rn(x[c], v[c]);
+        }
+        __syncwarp();
+      }
+    }
+    o0 = n0;
+    o1 = n1;
+  }
+  __syncwarp();
+  for (int c = 0; c < KS && k0 + c < K; ++c) {
+    for (int j = lane; j < n; j += 32) {
+      const float* in;
+      float* out;
+      long long idx;
+      carry_at(m, p, g0 + j, k0 + c, first, &in, &out, &idx);
+      out[idx] = acc[c * S + j];
+    }
+  }
+}
+
+// Phase 2 grid: blockIdx.x * kFoldWarps + warp, blockIdx.y = member.  A
+// member at s > 1 takes group_fold_span in its warp's share of the dynamic
+// shared memory (none is asked for when no member has s > 1), one at s = 1
+// group_fold.  Two blocks an SM: at most 128 registers a thread, and 12 KB
+// of shared carry a warp.
 template <int U, int KG>
-__global__ void __launch_bounds__(kFoldWarps * 32)
+__global__ void __launch_bounds__(kFoldWarps * 32, 2)
 group_fold_kernel(const __grid_constant__ GroupSet set, int P, int ct, int L,
                   int first) {
+  extern __shared__ __align__(16) char step_smem[];
+  const GroupMember& m = set.m[blockIdx.y];
   const long long warp_id =
       (long long)blockIdx.x * kFoldWarps + (threadIdx.x >> 5);
-  group_fold<U, KG>(set.m[blockIdx.y], warp_id, P, ct, L, first != 0);
+  const int s = step_span(L, m.A, m.G);
+  if (s > 1)
+    group_fold_span<kSpanCols>(
+        m, warp_id, s, P, ct, L, first != 0,
+        reinterpret_cast<float*>(step_smem) +
+            (threadIdx.x >> 5) * span_floats(s, m.A));
+  else
+    group_fold<U, KG>(m, warp_id, P, ct, L, first != 0);
 }
 
 // Phase 1's shared memory: scan buffers, key and w [L], the value columns
@@ -639,13 +823,23 @@ inline int run_group_step(const GroupSet& set, int P, int C, int L, int Ct,
       Ct < 1 || P < 1 || C < 0)
     return (int)cudaErrorInvalidValue;
   int A_max = 0;
-  long long cols = 0, wide_warps = 0;  // phase 2 warps at 1 and 9 columns
+  long long cols = 0, wide_warps = 0;  // s = 1: warps at 1 and 9 columns
+  long long span_warps = 0;            // s > 1: at kSpanCols columns
+  int span_smem = 0;                   // s > 1: shared bytes of a fold block
   for (int i = 0; i < set.n; ++i) {
     const GroupMember& m = set.m[i];
     if (m.A < 1 || m.G < 1 || m.words < group_step_words(L, m.A, m.G))
       return (int)cudaErrorInvalidValue;
     A_max = m.A > A_max ? m.A : A_max;
-    const long long n = (long long)P * step_windows(m.G);
+    const long long n = (long long)P * step_windows(L, m.A, m.G);
+    const int sp = step_span(L, m.A, m.G);
+    if (sp > 1) {
+      const long long nw = n * ((2 * m.A + kSpanCols) / kSpanCols);
+      span_warps = nw > span_warps ? nw : span_warps;
+      const int b = kFoldWarps * 4 * span_floats(sp, m.A);
+      span_smem = b > span_smem ? b : span_smem;
+      continue;
+    }
     cols = n * (2 * m.A + 1) > cols ? n * (2 * m.A + 1) : cols;
     wide_warps = n * ((2 * m.A + 9) / 9) > wide_warps ? n * ((2 * m.A + 9) / 9)
                                                       : wide_warps;
@@ -653,10 +847,17 @@ inline int run_group_step(const GroupSet& set, int P, int C, int L, int Ct,
   // many (p, window, column) triples: a warp takes 9 columns and overlaps
   // the loads of 8 chunks; few: a warp takes 1 column and 32 chunks
   const bool wide = cols >= kFoldWide;
-  const long long warps = wide ? wide_warps : cols;
+  long long warps = wide ? wide_warps : cols;
+  warps = span_warps > warps ? span_warps : warps;
   const size_t smem = step_smem_bytes(L, A_max);
   const int ki = (L + kStepThreads - 1) / kStepThreads;
   const dim3 fold_grid((unsigned)((warps + kFoldWarps - 1) / kFoldWarps), set.n);
+  if (span_smem > 0) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        wide ? group_fold_kernel<8, 9> : group_fold_kernel<32, 1>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, span_smem);
+    if (e != cudaSuccess) return (int)e;
+  }
   int c0 = 0;
   do {
     const int ct = C - c0 < Ct ? C - c0 : Ct;
@@ -667,12 +868,12 @@ inline int run_group_step(const GroupSet& set, int P, int C, int L, int Ct,
                               : launch_partials<8>(set, P, C, c0, ct, L, smem, s);
       if (e != 0) return e;
     }
+    const dim3 b(kFoldWarps * 32);
+    const int f = c0 == 0;
     if (wide)
-      group_fold_kernel<8, 9><<<fold_grid, kFoldWarps * 32, 0, s>>>(
-          set, P, ct, L, c0 == 0);
+      group_fold_kernel<8, 9><<<fold_grid, b, span_smem, s>>>(set, P, ct, L, f);
     else
-      group_fold_kernel<32, 1><<<fold_grid, kFoldWarps * 32, 0, s>>>(
-          set, P, ct, L, c0 == 0);
+      group_fold_kernel<32, 1><<<fold_grid, b, span_smem, s>>>(set, P, ct, L, f);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     c0 += ct;

@@ -75,10 +75,10 @@
 // one block sorts the rows by id once (a stable radix sort in shared
 // memory) and reduces every run of equal ids with the whole block in a
 // fixed shuffle order; a second grid then adds the chunks' compacted tables
-// onto the carry in chunk order, one warp per 32 ids and column, one writer
-// per element.  Within one run of one chunk the rows are summed in that
-// fixed tree order; the chunk totals reach the carry once each, in chunk
-// order.
+// onto the carry in chunk order, one warp per window of ids (32, or 32*s
+// where G >= 8L: agg_common.cuh), one writer per element.  Within one run
+// of one chunk the rows are summed in that fixed tree order; the chunk
+// totals reach the carry once each, in chunk order.
 //
 // Determinism: no atomics (agg_common.cuh).  A bundle member runs its solo
 // kernel's bodies with the solo block size and the solo (partition, chunk)

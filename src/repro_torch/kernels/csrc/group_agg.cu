@@ -17,7 +17,8 @@
 // within-run order is stated in agg_common.cuh; a one-group table, such as
 // a scalar member of a bundle stack, is one run per block and takes the
 // same path).  Phase 2 adds the blocks' compacted tables to the totals in
-// block order, one warp per 32 ids and column, one writer per element.
+// block order, one warp per window of ids (32, or 32*s where G >= 8L), one
+// writer per element.
 // No atomics: repeat runs are bitwise-equal, and a bundle member's rows
 // (whole blocks of their own, ids offset) sort and sum exactly as in its
 // own launch, while the other members' blocks hold none of its ids, so

@@ -157,6 +157,7 @@ def group_round_step(vals, w, gids, carry_s, carry_q, carry_m):
               _ptr(out_m), _ptr(scratch), P, C, L, A, G, tile,
               ops.group_step_words(L, A, G), device=dev,
               count="fused_round_step/group")
+    ops.count_wide_folds([(A, G)], L)
     return out_s, out_q, out_m
 
 
@@ -199,8 +200,8 @@ def _bundle_launch(members, P, C, L, dev):
     table = torch.zeros((len(members), _TABLE_COLS), dtype=torch.int64)
     outs = []
     keep = []  # the scratch: the table holds only its address
-    tile = ops.group_step_tile(C, L, [(m[0].shape[3], m[5].shape[-1])
-                                      for m in members if m[2] is not None])
+    groups = [(m[0].shape[3], m[5].shape[-1]) for m in members if m[2] is not None]
+    tile = ops.group_step_tile(C, L, groups)
     for i, m in enumerate(members):
         A = m[0].shape[3]
         if m[2] is None:  # kind 0: carry in, out and [P, C, 2A+1] partials
@@ -224,6 +225,7 @@ def _bundle_launch(members, P, C, L, dev):
     RT.launch(lib, lib.pf_bundle, ctypes.c_void_p(table.data_ptr()),
               len(members), P, C, L, tile, device=dev,
               count="fused_round_step/bundle")
+    ops.count_wide_folds(groups, L)
     return outs
 
 

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import _runtime as RT
 
@@ -43,13 +44,33 @@ def _group_lib():
     return RT.bind(_build.load("group_agg"), pf_group_agg=(7, 7))
 
 
+#: the most carry floats of one window of the group step's fold (32·s ids,
+#: 2A+1 columns) where a lane owns more than one id (``csrc/agg_common.cuh``
+#: ``kFoldSpanFloats``): 12 KB, so that two blocks of 8 warps, each holding
+#: a window's columns in shared memory, fit an SM
+FOLD_SPAN_FLOATS = 3072
+
+
+def group_step_span(L: int, A: int, G: int) -> int:
+    """Ids a lane of the group step's fold owns, so that a window spans
+    ``32·s`` ids (``csrc/agg_common.cuh`` ``step_span``): the largest power
+    of two ``<= G / 4L`` (1 where ``G < 8L``), so that a window takes at
+    most 8 of a chunk's ``L`` rows on average, whose window of ``2A+1``
+    floats an id fits :data:`FOLD_SPAN_FLOATS`."""
+    s = 1
+    while 8 * s * L <= G and 64 * s * (2 * A + 1) <= FOLD_SPAN_FLOATS:
+        s *= 2
+    return s
+
+
 def group_step_words(L: int, A: int, G: int) -> int:
     """Scratch floats of one chunk's table in the group step: an offset per
-    window of 32 ids and one more, then ``min(L, G)`` ids and
-    ``(2A+1)·min(L, G)`` sums.  The wrappers pass it to the kernel as the
-    tables' stride, and the kernel refuses one below its own layout's size
-    (``csrc/agg_common.cuh`` ``group_step_words``) before either phase."""
-    return -(-G // 32) + 1 + min(L, G) * (2 * A + 2)
+    window of ``32·s`` ids (:func:`group_step_span`) and one more, then
+    ``min(L, G)`` ids and ``(2A+1)·min(L, G)`` sums.  The wrappers pass it
+    to the kernel as the tables' stride, and the kernel refuses one below
+    its own layout's size (``csrc/agg_common.cuh`` ``group_step_words``)
+    before either phase."""
+    return -(-G // (32 * group_step_span(L, A, G))) + 1 + min(L, G) * (2 * A + 2)
 
 
 def group_step_tile(C: int, L: int, members) -> int:
@@ -118,7 +139,17 @@ def group_agg(vals: torch.Tensor, weight: torch.Tensor, gids: torch.Tensor, *,
               N, block_rows, A, num_groups, tile,
               group_step_words(block_rows, A, num_groups), device=dev,
               count="group_agg")
+    count_wide_folds([(A, num_groups)], block_rows)
     return sums, sumsqs, matched
+
+
+def count_wide_folds(members, L: int) -> None:
+    """Add the group members ((A, G) each) of a launch over chunks of ``L``
+    rows whose fold takes more than one id a lane to the ``pfola.fold.wide``
+    counter (recorded only while ``obs`` records)."""
+    n = sum(group_step_span(L, A, G) > 1 for A, G in members)
+    if n:
+        obs.count("pfola.fold.wide", n)
 
 
 def shard_chunk_partials(vals: torch.Tensor, weight: torch.Tensor,

@@ -262,6 +262,77 @@ def test_group_step_scratch_stays_within_the_input_bytes(P, C, L, members):
         assert (tile, C % tile) == (13, 10)
 
 
+@pytest.mark.parametrize("L, A, G, span, words", [
+    (2048, 1, 1_000_000, 32, 977 + 1 + 2048 * 4),  # Q15 at SF 100: windows of 1,024 ids
+    (2048, 1, 100_000, 8, 391 + 1 + 2048 * 4),  # Q15 at SF 10: windows of 256 ids
+    (2048, 4, 4, 1, 1 + 1 + 4 * 10),  # Q1's returnflag x linestatus
+    (2048, 4, 8192, 1, 256 + 1 + 2048 * 10),  # 2^13 buckets: 7 a window already
+    (2048, 4, 10, 1, 1 + 1 + 10 * 10),  # the [Q6, Q1-small, Q3] K3 stack
+    (2048, 1, 5, 1, 1 + 1 + 5 * 4),  # Q3 by segment (K3)
+    (2048, 4, 16384, 2, 256 + 1 + 2048 * 10),  # G = 8L: the first shape past 1
+    (2048, 8, 1_000_000, 4, 7813 + 1 + 2048 * 18),  # 17 columns: the cap binds
+    (2048, 48, 1_000_000, 1, 31250 + 1 + 2048 * 98),  # 97 columns: one id a lane
+    (1000, 2, 50_000, 8, 196 + 1 + 1000 * 6),  # L not a power of two
+], ids=["q15-sf100", "q15-sf10", "q1-small", "q1-large", "k3-stack", "k3-q3",
+        "g-8l", "capped", "too-wide", "odd-rows"])
+def test_group_step_span_follows_the_members_shape(L, A, G, span, words):
+    """The fold's ids a lane (``group_step_span``) read from L, A and G
+    alone, and the chunk table's size that follows from it."""
+    assert ops.group_step_span(L, A, G) == span
+    assert ops.group_step_words(L, A, G) == words
+    assert 32 * span * (2 * A + 1) <= ops.FOLD_SPAN_FLOATS or span == 1
+
+
+def test_group_step_span_is_the_largest_power_of_two_that_fits():
+    """s is a power of two, 1 while G < 8L; doubling it would pass G / 4L
+    or the shared-memory budget of a warp's carry."""
+    rng = np.random.default_rng(5)
+    for _ in range(2000):
+        L = int(rng.integers(1, 4097))
+        A = int(rng.integers(1, 64))
+        G = int(rng.integers(1, 3_000_000))
+        s = ops.group_step_span(L, A, G)
+        assert s >= 1 and s & (s - 1) == 0
+        if G < 8 * L:
+            assert s == 1
+        if s > 1:
+            assert 4 * s * L <= G and 32 * s * (2 * A + 1) <= ops.FOLD_SPAN_FLOATS
+        assert 8 * s * L > G or 64 * s * (2 * A + 1) > ops.FOLD_SPAN_FLOATS
+
+
+@pytest.mark.parametrize("C, members, tile", [
+    (2289, [(4, 4), (1, 1_000_000)], 2289),  # the report bundle at SF 100
+    (228, [(4, 4), (1, 100_000)], 228),  # and at SF 10
+    (2289, [(1, 1_000_000)], 1533),  # Q15 alone: 36,680 B a table, 24,576 of input
+    (896, [(4, 8192)], 530),  # 2^13 buckets: two tiles, as before
+], ids=["report-sf100", "report-sf10", "q15-solo", "q1-large"])
+def test_group_step_tile_at_the_cells_shapes(C, members, tile):
+    """At both report cells' shapes a round-slice's group step takes one
+    tile (Q1's input bytes beside Q15's hold both members' tables); alone,
+    Q15's and the bucket table's tables pass their input bytes."""
+    assert ops.group_step_tile(C, 2048, members) == tile
+
+
+def test_plain_route_counts_no_wide_fold():
+    """``pfola.fold.wide`` counts members launched on the card: the plain
+    route of a member with s > 1 launches none and counts nothing."""
+    from repro_torch import obs
+
+    Pn, Cn, Ln, G = 2, 2, 64, 1000
+    g = torch.Generator().manual_seed(3)
+    vals = torch.rand((Pn, Cn, Ln, 1), generator=g)
+    w = torch.ones((Pn, Cn, Ln))
+    gids = torch.randint(0, G, (Pn, Cn, Ln), generator=g, dtype=torch.int32)
+    carry = (torch.zeros((Pn, G, 1)), torch.zeros((Pn, G, 1)), torch.zeros((Pn, G)))
+    assert ops.group_step_span(Ln, 1, G) > 1
+    before = obs.summary()["counters"].get("pfola.fold.wide", 0)
+    with obs.recording():
+        FK.group_round_step(vals, w, gids, *carry)
+        ops.group_agg(vals.reshape(Pn, -1, 1), w.reshape(Pn, -1), gids.reshape(Pn, -1),
+                      num_groups=G, block_rows=Ln)
+    assert obs.summary()["counters"].get("pfola.fold.wide", 0) == before
+
+
 def test_shard_chunk_partials_matches_reference_interpret(shards):
     """K4 on the Q6 projection of every partition (weight = the bare
     predicate, the mask separate) against the reference's Pallas kernel."""

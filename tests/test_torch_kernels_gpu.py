@@ -111,13 +111,18 @@ def test_group_kernel_adds_each_chunk_total_to_the_carry():
 
 
 def _edge_inputs(case, dev):
-    """Inputs for the cases the chunk-parallel group step makes risky."""
+    """Inputs for the cases the chunk-parallel group step makes risky; the
+    ``span-*`` cases take windows of 32·s ids (G > L, s > 1)."""
     shape = {"one-group": dict(A=2, G=1, C=6, L=2048),
              "distinct-ids": dict(A=2, G=5000, C=4, L=1000),
              "out-of-range": dict(A=3, G=37, C=5, L=512),
              "rows-1000": dict(A=4, G=4, C=7, L=1000),
              "rows-max": dict(A=4, G=8192, C=3, L=4096),
-             "tiled": dict(A=4, G=8192, C=23, L=2048)}[case]
+             "tiled": dict(A=4, G=8192, C=23, L=2048),
+             "span-ragged": dict(A=1, G=100_003, C=7, L=2048),
+             "span-out-of-range": dict(A=2, G=50_000, C=5, L=2048),
+             "span-clustered": dict(A=1, G=1_000_000, C=5, L=2048),
+             "span-repeats": dict(A=1, G=1_000_000, C=9, L=2048)}[case]
     vals, w, gids, _, cs, cq, cm = _random_inputs(30, dev, P=3, **shape)
     P, C, L, A = vals.shape
     G = shape["G"]
@@ -127,14 +132,26 @@ def _edge_inputs(case, dev):
     elif case == "distinct-ids":  # every id of a chunk distinct, G > L
         gids = torch.stack([torch.randperm(G, generator=g)[:L] for _ in range(P * C)])
         gids = gids.reshape(P, C, L).to(torch.int32).to(dev)
-    elif case == "out-of-range":  # a third of the ids below 0 or at/above G
+    elif case in ("out-of-range", "span-out-of-range"):  # a third below 0 or >= G
         gids = torch.randint(-G, 2 * G, (P, C, L), generator=g, dtype=torch.int32).to(dev)
+    elif case == "span-ragged":  # G not a multiple of 32·s: the last window short
+        gids = torch.randint(0, G, (P, C, L), generator=g, dtype=torch.int32).to(dev)
+    elif case == "span-clustered":  # a chunk's ids within 4,096: hundreds a window
+        base = torch.randint(0, G - 4096, (P, C, 1), generator=g)
+        gids = (base + torch.randint(0, 4096, (P, C, L), generator=g)).to(torch.int32).to(dev)
+    elif case == "span-repeats":  # ids 0-47 in every chunk, beside uniform ones
+        few = torch.randint(0, 48, (P, C, L), generator=g)
+        gids = torch.where(torch.rand((P, C, L), generator=g) < 0.5, few,
+                           torch.randint(0, G, (P, C, L), generator=g))
+        gids = gids.to(torch.int32).to(dev)
     return vals, w, gids, cs, cq, cm
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", ["one-group", "distinct-ids", "out-of-range",
-                                  "rows-1000", "rows-max", "tiled"])
+                                  "rows-1000", "rows-max", "tiled", "span-ragged",
+                                  "span-out-of-range", "span-clustered",
+                                  "span-repeats"])
 def test_group_step_edge_cases_match_plain_versions(case):
     """K1 group and K3 against their plain versions (counters exact, sums
     within RTOL), repeats bitwise-equal, one launch per call."""
@@ -142,7 +159,8 @@ def test_group_step_edge_cases_match_plain_versions(case):
     vals, w, gids, cs, cq, cm = _edge_inputs(case, dev)
     P, C, L, A = vals.shape
     G = cm.shape[-1]
-    if case == "tiled":  # the scratch takes tiles, the last one ragged
+    assert (ops.group_step_span(L, A, G) > 1) == case.startswith("span")
+    if case in ("tiled", "span-ragged"):  # the scratch takes tiles, the last one ragged
         tile = ops.group_step_tile(C, L, [(A, G)])
         assert tile < C and C % tile
     before = FK.launch_counts()
@@ -159,6 +177,200 @@ def test_group_step_edge_cases_match_plain_versions(case):
         _close(g_[0], r_[0])
         _close(g_[1], r_[1])
         assert torch.equal(g_[2], r_[2])
+
+
+def _q15_inputs(dev, G, P=2, C=12, L=2048, seed=60):
+    """A round-slice shaped as Q15's: one value, uniform supplier ids, w
+    zero on about 96% of the rows (outside the quarter), random carries."""
+    g = torch.Generator().manual_seed(seed)
+    vals = torch.rand((P, C, L, 1), generator=g) * 1e4
+    w = (torch.rand((P, C, L), generator=g) < 0.04).float()
+    gids = torch.randint(0, G, (P, C, L), generator=g, dtype=torch.int32)
+    cs = torch.rand((P, G, 1), generator=g) * 1e6
+    cq = torch.rand((P, G, 1), generator=g) * 1e9
+    cm = torch.randint(0, 500, (P, G), generator=g).float()
+    return [t.to(dev) for t in (vals, w, gids, cs, cq, cm)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G", [100_000, 1_000_000], ids=["sf10", "sf100"])
+def test_group_step_at_q15_shapes_matches_plain_versions(G):
+    """K1 group and K3 at Q15's widths (L = 2048, A = 1; s = 8 and 32)
+    against their plain versions: counters exact, sums within RTOL."""
+    dev = _cuda()
+    vals, w, gids, cs, cq, cm = _q15_inputs(dev, G)
+    P, C, L, A = vals.shape
+    assert ops.group_step_span(L, A, G) == {100_000: 8, 1_000_000: 32}[G]
+    got = FK.group_round_step(vals, w, gids, cs, cq, cm)
+    want = ref.group_round_step(vals, w, gids, cs, cq, cm)
+    flat = (vals.reshape(P, C * L, A), w.reshape(P, -1), gids.reshape(P, -1))
+    got3 = ops.group_agg(*flat, num_groups=G, block_rows=L)
+    want3 = ref.group_agg(*flat, G, L)
+    for g_, r_ in ((got, want), (got3, want3)):
+        _close(g_[0], r_[0])
+        _close(g_[1], r_[1])
+        assert torch.equal(g_[2], r_[2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["uniform", "span-repeats", "span-clustered"])
+def test_wide_fold_adds_chunk_totals_in_chunk_order(case):
+    """Integer values and 0/1 weights make every chunk total exact, so the
+    only rounding left is the carry's, chunk by chunk: the plain version,
+    which adds each chunk's totals onto the carry in chunk order, is then
+    the kernel's result bit for bit, sums included.  Carries near 2**25
+    round every odd total, so an add out of chunk order shows."""
+    dev = _cuda()
+    G, P, C, L = 1_000_000, 2, 11, 2048
+    g = torch.Generator().manual_seed(61)
+    vals = torch.randint(1, 8, (P, C, L, 1), generator=g).float()
+    w = (torch.rand((P, C, L), generator=g) < 0.5).float()
+    if case == "uniform":
+        gids = torch.randint(0, G, (P, C, L), generator=g)
+    elif case == "span-repeats":  # the same 40 ids in every chunk
+        gids = torch.where(torch.rand((P, C, L), generator=g) < 0.5,
+                           torch.randint(0, 40, (P, C, L), generator=g),
+                           torch.randint(0, G, (P, C, L), generator=g))
+    else:  # a chunk's ids within 3,000: hundreds of entries a window
+        gids = (torch.randint(0, G - 3000, (P, C, 1), generator=g)
+                + torch.randint(0, 3000, (P, C, L), generator=g))
+    big = float(2 ** 25)
+    cs = big + torch.randint(0, 64, (P, G, 1), generator=g).float() * 4
+    cq, cm = cs.clone(), cs[..., 0].clone()
+    args = [t.to(dev) for t in (vals, w, gids.to(torch.int32), cs, cq, cm)]
+    got = FK.group_round_step(*args)
+    want = ref.group_round_step(*args)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.mark.gpu
+def test_wide_fold_bundle_member_and_tiles_are_bitwise_solo(monkeypatch):
+    """At Q15's shape a bundle member equals its solo launch bit for bit,
+    beside a scalar and a 4-group member, and so does a step taken in
+    several tiles (the last one ragged) against one tile."""
+    dev = _cuda()
+    G = 1_000_000
+    vals, w, gids, cs, cq, cm = _q15_inputs(dev, G, C=13, seed=62)
+    q1 = _random_inputs(63, dev, P=2, A=4, G=4, C=13, L=2048)
+    members = [(q1[0], q1[1], None, q1[3]), (q1[0], q1[1], q1[2], *q1[4:]),
+               (vals, w, gids, cs, cq, cm)]
+    P, C, L, _ = vals.shape
+    assert ops.group_step_tile(C, L, [(4, 4), (1, G)]) == C
+    bundle = FK.bundle_round_step(members)
+    solo = FK.group_round_step(vals, w, gids, cs, cq, cm)
+    assert all(torch.equal(x, y) for x, y in zip(bundle[2], solo))
+    monkeypatch.setattr(ops, "group_step_tile", lambda C_, L_, m_: 5)
+    tiled = FK.group_round_step(vals, w, gids, cs, cq, cm)
+    tiled_bundle = FK.bundle_round_step(members)
+    flat = (vals.reshape(P, C * L, 1), w.reshape(P, -1), gids.reshape(P, -1))
+    tiled3 = ops.group_agg(*flat, num_groups=G, block_rows=L)
+    monkeypatch.undo()
+    one3 = ops.group_agg(*flat, num_groups=G, block_rows=L)
+    assert all(torch.equal(x, y) for x, y in zip(tiled, solo))
+    assert all(torch.equal(x, y) for x, y in zip(tiled3, one3))
+    assert torch.equal(tiled_bundle[0], bundle[0])
+    for a, b in zip(tiled_bundle[1:], bundle[1:]):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _golden_inputs():
+    """Fixed inputs of Q15's shape at G = 1,000,000 (P = 2, C = 40, L =
+    2048, A = 1; w zero on about 96% of the rows), made with numpy so that
+    they are the same bytes on every machine, and a 4-group, 4-sum member
+    for the bundle."""
+    rng = np.random.default_rng(20261018)
+    P, C, L, G = 2, 40, 2048, 1_000_000
+    vals = (rng.random((P, C, L, 1)) * 1e4).astype(np.float32)
+    w = (rng.random((P, C, L)) < 0.04).astype(np.float32)
+    gids = rng.integers(0, G, (P, C, L)).astype(np.int32)
+    cs = (rng.random((P, G, 1)) * 1e6).astype(np.float32)
+    cq = (rng.random((P, G, 1)) * 1e9).astype(np.float32)
+    cm = rng.integers(0, 500, (P, G)).astype(np.float32)
+    v4 = (rng.random((P, C, L, 4)) * 1e3).astype(np.float32)
+    g4 = rng.integers(0, 4, (P, C, L)).astype(np.int32)
+    c4 = [(rng.random(s) * 1e6).astype(np.float32) for s in ((P, 4, 4), (P, 4, 4), (P, 4))]
+    carry = (rng.random((P, 3)) * 1e6).astype(np.float32)
+    return vals, w, gids, cs, cq, cm, v4, g4, c4, carry
+
+
+def _golden_digests(dev) -> dict:
+    """sha256 of the group step's outputs on :func:`_golden_inputs`: K1
+    group, K3 from zero, and the bundle [scalar, 4 groups, Q15]."""
+    import hashlib
+
+    vals, w, gids, cs, cq, cm, v4, g4, c4, carry = (
+        [torch.from_numpy(a).to(dev) for a in x] if isinstance(x, list)
+        else torch.from_numpy(x).to(dev) for x in _golden_inputs())
+    P, C, L, _ = vals.shape
+    G = cm.shape[-1]
+
+    def sha(ts):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.detach().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    flat = (vals.reshape(P, C * L, 1), w.reshape(P, -1), gids.reshape(P, -1))
+    bundle = FK.bundle_round_step([(vals, w, None, carry), (v4, w, g4, *c4),
+                                   (vals, w, gids, cs, cq, cm)])
+    return {"group": sha(FK.group_round_step(vals, w, gids, cs, cq, cm)),
+            "group_agg": sha(ops.group_agg(*flat, num_groups=G, block_rows=L)),
+            "bundle": sha([bundle[0], *bundle[1], *bundle[2]])}
+
+
+#: :func:`_golden_digests` as the parent commit of the wide fold
+#: (baea946981c07745c3dcf9a0f871a920526b62a8, a window of 32 ids, seven tiles
+#: of chunks) gave them on an NVIDIA H100 80GB HBM3
+GOLDEN = {"group": "d90280c9d4ceabe7094be95612c5b7a02881298e43c29fa259e23d95a4e0a3ce",
+          "group_agg": "dce6b4e9ac5f903a8644faf0c7644a7937803adde45f1ffe8f6d1b5caf2b859c",
+          "bundle": "f2c762d5b59b60ae406ef26bc3777517e977b0336549e309b41021e7adc05274"}
+
+
+@pytest.mark.gpu
+def test_group_step_at_g_one_million_is_bitwise_the_golden_outputs():
+    """The group step's outputs at Q15's shape are the bits that the
+    32-id window gave on the same inputs: K1 group, K3 and the bundle.
+    The digests were recorded from commit
+    baea946981c07745c3dcf9a0f871a920526b62a8 on an H100, where the step
+    took seven tiles of 32-id windows; here it takes one tile of
+    1,024-id windows."""
+    dev = _cuda()
+    assert _golden_digests(dev) == GOLDEN
+
+
+@pytest.mark.gpu
+def test_wide_fold_counter_counts_members_with_wide_windows():
+    """``pfola.fold.wide`` counts 1 a round-slice for a report-like bundle
+    (Q6, Q1 by returnflag x linestatus, revenue by supplier over 1,000,000
+    suppliers) and 0 for a Q1-only group launch."""
+    from repro_torch import obs
+
+    dev = _cuda()
+    P, C, L, rounds = 2, 16, 2048, 4
+    cols = tpch.generate_lineitem(P * C * L, num_suppliers=5000, seed=5, device="cpu")
+    g = torch.Generator().manual_seed(2)
+    cols["supp"] = torch.randint(0, 1_000_000, (P * C * L,), generator=g,
+                                 dtype=torch.int32)
+    shards = {k: v.to(dev) for k, v in randomize.pack_partitions(
+        randomize.randomize_global(cols, torch.Generator().manual_seed(1), P),
+        chunk_len=L).items()}
+    d = float(P * C * L)
+    q6 = T.make_sum_gla(tpch.q6_func, tpch.q6_cond((0, 1500)), d_total=d)
+    q1 = T.make_groupby_gla(tpch.q1_func, tpch.q1_cond, tpch.q1_group_small,
+                            num_groups=4, d_total=d, num_aggs=4)
+    q15 = T.make_groupby_gla(tpch.q6_func, tpch.q6_cond((0, 1500)),
+                             lambda c: c["supp"], num_groups=1_000_000, d_total=d)
+
+    def wide(glas):
+        before = obs.summary()["counters"].get("pfola.fold.wide", 0)
+        with obs.recording():
+            T.run_queries(T.QuerySpec(glas, rounds=rounds, emit="kernel"), shards,
+                          device=dev)
+            torch.cuda.synchronize()
+        return obs.summary()["counters"].get("pfola.fold.wide", 0) - before
+
+    assert wide([q6, q1, q15]) == rounds
+    assert wide([q1]) == 0
 
 
 @pytest.mark.gpu
