@@ -4,8 +4,12 @@ A cell names a configuration and a traffic mix; each is a file of its own
 (``configs/<config>.json``, ``traffic/<traffic>.json``), and so is each
 cell's correctness limits (``limits/<cell>.json``) and each per-layer
 metric's reader (``metrics/<metric>.py``; a ``_host`` twin may share its
-quantity's).  A later change adds a cell, a
-mix or a metric by adding files and entries, never by editing these.
+quantity's).  A configuration may name the module that makes its tables
+(``tables.py``), a traffic mix the modules of its query kinds
+(``queries.load``), and a traffic kind is its driver's module
+(``run.driver_module``).  A later change adds a cell, a mix, a metric, a
+table, a query kind or a driver by adding files and entries, never by
+editing these.
 """
 from __future__ import annotations
 

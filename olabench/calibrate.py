@@ -33,20 +33,23 @@ def eps_readings(cell, seed: int, n: int, device) -> dict:
     import numpy as np
     import torch
 
-    from olabench import data, queries as Q, reference as REF
+    from olabench import data, queries as Q, reference as REF, tables
 
     a = cell.config["assumed"]
     rows = int(cell.config["rows"])
-    cols = data.generate(cell.config, seed, device, orderkey=False)
+    tm = tables.module(cell.config)
+    cols = tm.check_columns(cell.config, seed, device)
+    dims = tm.dimensions(cell.config, seed, device)
+    Q.load(cell.traffic.get("query_modules", ()))
     layout = data.Layout(rows, seed, int(a["partitions"]), int(a["chunk_len"]),
                          int(a["rounds"]), device)
     rng = np.random.default_rng([seed, 3])
     kinds = cell.traffic["queries"]
-    qs = [Q.draw(rng, kinds[i % len(kinds)], int(cell.config["suppliers"])) for i in range(n)]
+    qs = [Q.draw(rng, kinds[i % len(kinds)], cell.config) for i in range(n)]
     _, rc = next(data.gather_rounds(cols, layout, [0]))
     rel = {}
     for q in qs:
-        e = REF.estimate(REF.sums(rc, q), rows, float(a["confidence"]))
+        e = REF.estimate(REF.sums(rc, q, dims=dims), rows, float(a["confidence"]))
         half = (e.upper - e.lower) / 2
         r = torch.where(half == 0, torch.zeros_like(half), half / e.estimate.abs())
         rel.setdefault(q.kind, []).append(float(r.max()))

@@ -21,6 +21,10 @@ Encodings (36 B a row with the mask the port adds):
   (returnflag, linestatus) in :data:`RFLS`; suppkey int32 L_SUPPKEY - 1;
   orderkey int32.
 
+As a table module (``tables.py``) it is the default: it gives
+:data:`COLUMNS`, :func:`generate`, :func:`check_columns`,
+:func:`dimensions` (none) and :func:`tiny_cut`.
+
 The layout (``layout``) is the one the port's loading path gives the rows:
 one global permutation drawn by ``torch.randperm`` from ``perm_seed``, split
 into P contiguous runs at ``linspace(0, n, P + 1)``, each run laid out in
@@ -120,10 +124,26 @@ def generate(config: dict, seed: int, device, *, orderkey: bool = True
     return cols
 
 
-def fingerprint(cols: Dict[str, torch.Tensor]) -> Dict[str, int]:
-    """An exact checksum a column: the sum of its 32-bit words."""
+def check_columns(config: dict, seed: int, device) -> Dict[str, torch.Tensor]:
+    """The :data:`COLUMNS` again, for the reference: the table without the
+    orderkey, which no query reads."""
+    return generate(config, seed, device, orderkey=False)
+
+
+def dimensions(config: dict, seed: int, device) -> Dict[str, torch.Tensor]:
+    """No dimension tables: every query here reads lineitem alone."""
+    return {}
+
+
+def tiny_cut(config: dict) -> dict:
+    """The configuration's own sizes cut to a CPU test's table."""
+    return dict(config, suppliers=1000, parts=20000)
+
+
+def fingerprint(cols: Dict[str, torch.Tensor], columns=COLUMNS) -> Dict[str, int]:
+    """An exact checksum a column of ``columns``: the sum of its 32-bit words."""
     return {k: int(v.view(torch.int32).sum(dtype=torch.int64)) for k, v in cols.items()
-            if k in COLUMNS}
+            if k in columns}
 
 
 class Layout:
@@ -162,7 +182,8 @@ class Layout:
 
 def gather_rounds(cols: Dict[str, torch.Tensor], layout: Layout, rounds
                   ) -> Iterator[Tuple[int, Dict[str, torch.Tensor]]]:
-    """(r, the columns of round r's rows) for each r of ``rounds``."""
+    """(r, the columns of round r's rows) for each r of ``rounds``: every
+    column of ``cols``, the columns the reference reads."""
     for r in rounds:
         ids = layout.round_rows(r)
-        yield r, {k: cols[k][ids] for k in COLUMNS}
+        yield r, {k: v[ids] for k, v in cols.items()}

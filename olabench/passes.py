@@ -23,14 +23,14 @@ EARLY = 20  # the checked passes are drawn among the window's first EARLY
 
 
 class Driver:
-    def __init__(self, cell, seed: int, device, shards):
+    def __init__(self, cell, seed: int, device, shards, dims=None):
         if cell.traffic.get("callers", 1) != 1:
             raise ValueError("the passes driver runs one caller")
         self.cfg, self.mix = cell.config, cell.traffic
         self.device, self.shards = device, shards
+        self.dims = {} if dims is None else dims
         self.rng = np.random.default_rng([int(seed), 1])
         self.rows = int(self.cfg["rows"])
-        self.suppliers = int(self.cfg["suppliers"])
         self.rounds = int(self.cfg["assumed"]["rounds"])
         self.P = int(self.cfg["assumed"]["partitions"])
         # the passes the reference checks: n - 1 drawn from the seed among the
@@ -42,12 +42,12 @@ class Driver:
         self.done: Dict[int, tuple] = {}  # pass index -> (queries, results)
 
     def draw(self):
-        return [Q.draw(self.rng, m["query"], self.suppliers) for m in self.mix["bundle"]]
+        return [Q.draw(self.rng, m["query"], self.cfg) for m in self.mix["bundle"]]
 
     def one_pass(self, qs):
         import repro_torch as T
 
-        glas = [Q.port_gla(q, float(self.rows)) for q in qs]
+        glas = [Q.kind(q.kind).port_gla(q, float(self.rows), self.dims) for q in qs]
         spec = T.QuerySpec(glas, rounds=self.rounds, emit="kernel",
                            confidence=float(self.cfg["assumed"]["confidence"]))
         res = T.run_queries(spec, self.shards, device=self.device)
@@ -90,7 +90,8 @@ class Driver:
             tracer.stop()  # the window closed inside the profiled stretch
             launches = sum(RT.DISPATCHES.values()) - launches
         window_s = time.perf_counter() - t0
-        per_pass = roofline.pass_bytes(self.done[passes - 1][0], self.rows, self.P, self.rounds)
+        per_pass = roofline.pass_bytes(self.done[passes - 1][0], self.rows, self.P, self.rounds,
+                                       self.dims)
         ctx = {"kind": "passes", "window_s": window_s, "passes": passes,
                "rows": self.rows, "rounds": self.rounds,
                "needed_bytes": per_pass * passes}
@@ -128,21 +129,22 @@ class Driver:
 
     def release(self) -> None:
         self.done.clear()
-        self.shards = None
+        self.shards = self.dims = None
 
 
-def reference_answers(picks, cols, layout: data.Layout, precision: str = "float64"
-                      ) -> list:
+def reference_answers(picks, cols, layout: data.Layout, precision: str = "float64",
+                      dims=None) -> list:
     """The reference's (or, in "bfloat16", the control's) answers to the
-    picked passes' queries: a pass each, a member each, a round each,
-    the cumulative :class:`reference.Sums` over rounds 0..r."""
+    picked passes' queries over ``cols`` and the dimension tables ``dims``:
+    a pass each, a member each, a round each, the cumulative
+    :class:`reference.Sums` over rounds 0..r."""
     dev = layout.device
     acc = [[REF.zero(q, dev) for q in qs] for qs in picks]
     out = [[[] for _ in qs] for qs in picks]
     for _, rc in data.gather_rounds(cols, layout, range(layout.R)):
         for i, qs in enumerate(picks):
             for j, q in enumerate(qs):
-                acc[i][j] = acc[i][j] + REF.sums(rc, q, precision)
+                acc[i][j] = acc[i][j] + REF.sums(rc, q, precision, dims)
                 out[i][j].append(acc[i][j])
     return out
 

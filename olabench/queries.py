@@ -13,11 +13,17 @@ A :class:`Query` is plain data.  The program gets it as the port's own
 query objects (:func:`port_gla` for ``engine.run_queries``,
 :func:`port_slots` for ``service.OLAService``); the reference evaluates the
 same predicate on integer days and cents (``reference.py``).
+
+Every query kind a traffic mix names is looked up in :data:`KINDS`, where
+Q1, Q6 and Q15 register below; a traffic file's ``query_modules`` names
+further modules under ``olabench``, each registering its kinds when
+imported (:func:`load`), so a later cell brings a kind as a new file.
 """
 from __future__ import annotations
 
+import importlib
 from datetime import date
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -33,7 +39,6 @@ Q15_MONTHS = tuple((y, m) for y in range(1993, 1998) for m in range(1, 13)
 #: Q1's four sums, in the order ``q1`` members stack them
 Q1_SUMS = ("sum_qty", "sum_base_price", "sum_disc_price", "sum_charge")
 EXPRS = ("revenue",) + Q1_SUMS
-KINDS = ("q1", "q6", "q15")
 
 
 def day(y: int, m: int = 1, d: int = 1) -> int:
@@ -73,15 +78,59 @@ def q15(rng: np.random.Generator, suppliers: int) -> Query:
                  groups=int(suppliers))
 
 
-def draw(rng: np.random.Generator, kind: str, suppliers: int) -> Query:
-    """One query of ``kind`` with fresh substitution parameters."""
-    if kind == "q6":
-        return q6(rng)
-    if kind == "q1":
-        return q1(rng)
-    if kind == "q15":
-        return q15(rng, suppliers)
-    raise ValueError(f"unknown query {kind!r}")
+# --- the kinds ----------------------------------------------------------------
+
+class Kind(NamedTuple):
+    """What the harness needs of a query kind, five functions.
+
+    ``draw(rng, config)``: one query with fresh substitution parameters,
+    drawn by ``rng`` alone, sized by the configuration.  ``port_gla(query,
+    d_total, dims)``: the query as one of the port's GLAs, given the cell's
+    dimension tables (its table module's ``dimensions``, on the device).
+    ``sums(cols, query, precision, dims)``: the plain reference's
+    ``reference.Sums`` over the rows of ``cols``, in float64, or with
+    ``precision`` "bfloat16" the control's.  ``columns(query)``: the
+    scanned table's columns it reads, the mask among them.
+    ``probes(query, dims)``: ``{dimension column: bytes}`` it probes.  A
+    kind's query is a NamedTuple with at least ``kind`` (the name it is
+    registered under), ``exprs`` and ``groups``: its sums are
+    ``[groups, len(exprs)]``."""
+
+    draw: Callable
+    port_gla: Callable
+    sums: Callable
+    columns: Callable
+    probes: Callable
+
+
+#: the registered kinds by name
+KINDS: Dict[str, Kind] = {}
+
+
+def register(name: str, kind: Kind) -> None:
+    """Register ``kind`` under ``name``; a name is never given a second kind."""
+    if KINDS.setdefault(name, kind) is not kind:
+        raise ValueError(f"query kind {name!r} is registered already")
+
+
+def kind(name: str) -> Kind:
+    if name not in KINDS:
+        raise ValueError(f"unknown query {name!r}: {sorted(KINDS)}")
+    return KINDS[name]
+
+
+def load(modules) -> None:
+    """Import the modules of kinds a traffic file names (``query_modules``),
+    each a module under ``olabench`` that registers its kinds."""
+    for m in modules:
+        if not m.startswith("olabench."):
+            raise ValueError(f"query module {m!r} is not under olabench")
+        importlib.import_module(m)
+
+
+def draw(rng: np.random.Generator, name: str, config: dict):
+    """One query of kind ``name`` with fresh substitution parameters."""
+    return kind(name).draw(rng, config)
 
 
 # --- the program's side -----------------------------------------------------
@@ -112,8 +161,9 @@ def _ranges(q: Query) -> dict:
     return r
 
 
-def port_gla(q: Query, d_total: float):
-    """The query as one of the port's GLAs (``repro_torch.gla``)."""
+def port_gla(q: Query, d_total: float, dims=None):
+    """The query as one of the port's GLAs (``repro_torch.gla``); these
+    kinds probe no dimension table, so ``dims`` goes unused."""
     import torch
 
     import repro_torch as T
@@ -166,3 +216,45 @@ def port_slot(q: Query):
     if len(q.exprs) != 1:
         raise ValueError("a slot query sums one expression")
     return T.SlotQuery(q.exprs[0], _ranges(q), group=q.group)
+
+
+# --- Q1, Q6 and Q15 as kinds ----------------------------------------------------
+
+_EXPR_COLUMNS = {
+    "revenue": {"extendedprice", "discount"},
+    "sum_qty": {"quantity"},
+    "sum_base_price": {"extendedprice"},
+    "sum_disc_price": {"extendedprice", "discount"},
+    "sum_charge": {"extendedprice", "discount", "tax"},
+}
+_GROUP_COLUMNS = {None: set(), "rfls": {"rfls"}, "suppkey": {"suppkey"}}
+
+
+def table_columns(q: Query) -> set:
+    """The columns ``q`` reads, the mask among them."""
+    cols = {"_mask", "shipdate"} | _GROUP_COLUMNS[q.group]
+    for e in q.exprs:
+        cols |= _EXPR_COLUMNS[e]
+    if q.disc_cents is not None:
+        cols.add("discount")
+    if q.qty_below is not None:
+        cols.add("quantity")
+    return cols
+
+
+def _table_sums(cols, q: Query, precision: str, dims):
+    from olabench import reference  # which imports this module
+
+    return reference.table_sums(cols, q, precision)
+
+
+def _no_probes(q: Query, dims) -> dict:
+    return {}
+
+
+register("q6", Kind(lambda rng, config: q6(rng), port_gla, _table_sums, table_columns,
+                    _no_probes))
+register("q1", Kind(lambda rng, config: q1(rng), port_gla, _table_sums, table_columns,
+                    _no_probes))
+register("q15", Kind(lambda rng, config: q15(rng, int(config["suppliers"])), port_gla,
+                     _table_sums, table_columns, _no_probes))

@@ -11,6 +11,10 @@ variance, normal bounds at the configuration's confidence).
 ``precision`` is ``"float64"`` for the reference and ``"bfloat16"`` for the
 control: the same code with the float columns and each row's value in
 bfloat16 (the step below the configuration's float32), summed in float64.
+
+A query's sums are its kind's (``queries.Kind.sums``): :func:`table_sums`
+for Q1, Q6 and Q15; a kind that probes dimension tables gets them as well
+and may sum through :func:`accumulate`.
 """
 from __future__ import annotations
 
@@ -60,6 +64,10 @@ def _values(cols: Dict[str, torch.Tensor], exprs, dtype) -> torch.Tensor:
     return torch.stack(out, dim=-1)
 
 
+#: the reference's and the control's precision
+DTYPES = {"float64": _F64, "bfloat16": torch.bfloat16}
+
+
 def _keep(cols: Dict[str, torch.Tensor], q: Q.Query, dtype) -> torch.Tensor:
     sd = cols["shipdate"]
     keep = (sd >= q.ship[0]) & (sd < q.ship[1])
@@ -71,15 +79,27 @@ def _keep(cols: Dict[str, torch.Tensor], q: Q.Query, dtype) -> torch.Tensor:
     return keep
 
 
-def sums(cols: Dict[str, torch.Tensor], q: Q.Query, precision: str = "float64") -> Sums:
-    dtype = {"float64": _F64, "bfloat16": torch.bfloat16}[precision]
-    keep = _keep(cols, q, dtype)
-    vals = _values(cols, q.exprs, dtype) * keep[:, None]
+def sums(cols: Dict[str, torch.Tensor], q, precision: str = "float64", dims=None) -> Sums:
+    """``q``'s sums over the rows of ``cols``, by its kind; ``dims`` are the
+    cell's dimension tables (``tables.py``)."""
+    return Q.kind(q.kind).sums(cols, q, precision, {} if dims is None else dims)
+
+
+def table_sums(cols: Dict[str, torch.Tensor], q: Q.Query, precision: str = "float64") -> Sums:
+    """A Q1, Q6 or Q15 query's sums: its predicate and values on ``cols``."""
+    dtype = DTYPES[precision]
+    gid = None if q.group is None else cols[q.group].long()
+    return accumulate(_values(cols, q.exprs, dtype), _keep(cols, q, dtype), gid, q.groups)
+
+
+def accumulate(vals: torch.Tensor, keep: torch.Tensor, gid, groups: int) -> Sums:
+    """Sums of the float64 values ``vals`` [n, A] over the rows ``keep``
+    holds, by the group ids ``gid`` [n] (None: one group)."""
+    vals = vals * keep[:, None]
     n, A = vals.shape
     w = keep.to(_F64)
-    if q.group is None:
+    if gid is None:
         return Sums(vals.sum(0)[None], (vals * vals).sum(0)[None], w.sum()[None], n)
-    gid, groups = cols[q.group].long(), q.groups
     s = torch.zeros((groups, A), dtype=_F64, device=vals.device)
     sq = torch.zeros_like(s)
     m = torch.zeros((groups,), dtype=_F64, device=vals.device)

@@ -22,8 +22,10 @@ T_PROCESS = time.perf_counter()
 
 import argparse  # noqa: E402
 import gc  # noqa: E402
+import importlib  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
+import re  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
@@ -55,23 +57,35 @@ def say(*words) -> None:
     print(*words, file=sys.stderr, flush=True)
 
 
-def driver_module(kind: str):
-    from olabench import passes, service_loop
+#: the traffic kinds whose drivers predate :func:`driver_module`'s rule
+DRIVERS = {"passes": "olabench.passes", "service": "olabench.service_loop"}
+DRIVER_NAME = re.compile(r"^[a-z_][a-z0-9_]*$")
 
-    return {"passes": passes, "service": service_loop}[kind]
+
+def driver_module(kind: str):
+    """The driver of a traffic ``kind``: ``olabench/drivers/<kind>.py``, so
+    that a later cell brings a driver as a new file; ``passes`` and
+    ``service`` keep theirs (:data:`DRIVERS`)."""
+    name = DRIVERS.get(kind)
+    if name is None:
+        if not DRIVER_NAME.match(kind):
+            raise ValueError(f"traffic kind {kind!r} names no driver module")
+        name = f"olabench.drivers.{kind}"
+    return importlib.import_module(name)
 
 
 def load_table(config: dict, seed: int, device):
-    """The configuration's table from ``seed``, loaded as the port loads
-    it: (shards ``[P, C, L]`` on ``device``, the columns' fingerprint)."""
+    """The configuration's tables from ``seed``: (the scanned table loaded
+    as the port loads it, shards ``[P, C, L]`` on ``device``; the tables'
+    fingerprint; the dimension tables on ``device``)."""
     import torch
 
-    from olabench import data
+    from olabench import data, tables
     from repro_torch import randomize
 
-    a = config["assumed"]
-    cols = data.generate(config, seed, device)
-    fp = data.fingerprint(cols)
+    a, tm = config["assumed"], tables.module(config)
+    cols = tm.generate(config, seed, device)
+    fp = data.fingerprint(cols, tm.COLUMNS)
     g = torch.Generator(device=device)
     g.manual_seed(data.perm_seed(seed))
     parts = randomize.randomize_global(cols, g, int(a["partitions"]))
@@ -82,7 +96,9 @@ def load_table(config: dict, seed: int, device):
     if C % int(a["rounds"]):
         raise ValueError(f"the table packs into C={C} chunks, which {a['rounds']} "
                          "rounds do not divide: the scan would degrade its rounds")
-    return shards, fp
+    dims = tm.dimensions(config, seed, device)
+    fp.update(tables.dim_fingerprint(dims))
+    return shards, fp, dims
 
 
 def power_limit() -> str:
@@ -103,20 +119,21 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     fault in the loaded table (both for calibration, not part of a run)."""
     import torch
 
-    from olabench import bench, data
+    from olabench import bench, data, queries, tables
     from olabench.trace import Tracer
 
     cfg, a = cell.config, cell.config["assumed"]
+    queries.load(cell.traffic.get("query_modules", ()))
     mod = driver_module(cell.traffic["kind"])
     cuda = device.type == "cuda"
     if cuda:
         torch.cuda.set_device(device)
         torch.cuda.reset_peak_memory_stats(device)
-    shards, fp = load_table(cfg, seed, device)
+    shards, fp, dims = load_table(cfg, seed, device)
     if plant is not None:
         plant(shards)
-    drv = mod.Driver(cell, seed, device, shards)
-    del shards
+    drv = mod.Driver(cell, seed, device, shards, dims)
+    del shards, dims
     tracer = Tracer(device) if trace else None
     res = drv.run(seconds, tracer)
     setup_s = res["t_start"] - t_process
@@ -132,17 +149,18 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
         torch.cuda.empty_cache()
 
     rows, conf = int(cfg["rows"]), float(a["confidence"])
-    cols = data.generate(cfg, seed, device, orderkey=False)
-    same_data = data.fingerprint(cols) == {k: v for k, v in fp.items() if k in cols}
+    tm = tables.module(cfg)
+    cols, dims = tm.check_columns(cfg, seed, device), tm.dimensions(cfg, seed, device)
+    same_data = {**data.fingerprint(cols, tm.COLUMNS), **tables.dim_fingerprint(dims)} == fp
     layout = data.Layout(rows, seed, int(a["partitions"]), int(a["chunk_len"]),
                          int(a["rounds"]), device)
-    answers = mod.reference_answers(subjects, cols, layout)
+    answers = mod.reference_answers(subjects, cols, layout, dims=dims)
     numbers = mod.compare(outs, answers, rows, conf) if picks else {}
     ctl = None
     if control:
-        ctl_answers = mod.reference_answers(subjects, cols, layout, "bfloat16")
+        ctl_answers = mod.reference_answers(subjects, cols, layout, "bfloat16", dims=dims)
         ctl = mod.compare(mod.as_outputs(ctl_answers, rows, conf), answers, rows, conf)
-    del cols, layout, answers
+    del cols, dims, layout, answers
 
     checks = {k: {"value": v, "limit": cell.limits[k]} for k, v in numbers.items()}
     missing = sorted(set(cell.limits) - set(numbers))

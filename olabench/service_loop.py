@@ -52,8 +52,9 @@ def stream_count(traffic: dict, config: dict) -> int:
 
 
 class Driver:
-    def __init__(self, cell, seed: int, device, shards):
+    def __init__(self, cell, seed: int, device, shards, dims=None):
         self.cfg, self.mix = cell.config, cell.traffic
+        # ``dims`` goes unused: the slot family (``Q.port_family``) probes no dimension table
         self.device, self.shards = device, shards
         self.seed = int(seed)
         self.rows = int(self.cfg["rows"])
@@ -70,7 +71,7 @@ class Driver:
         order = [str(k) for k in rng.permutation(self.mix["queries"])]
         while True:
             for kind in order:
-                yield Q.draw(rng, kind, self.suppliers)
+                yield Q.draw(rng, kind, self.cfg)
 
     def run(self, seconds: float, tracer=None) -> dict:
         return asyncio.run(self._run(seconds, tracer))
@@ -154,7 +155,7 @@ class Driver:
         ok = [r for k in self.asks for r in k.slots if not isinstance(r.outcome, BaseException)]
         witnessed = sum(r.outcome.rounds_witnessed for r in ok)
         slice_rows = self.rows / self.rounds
-        kinds = [Q.draw(np.random.default_rng(0), k, self.suppliers) for k in self.mix["queries"]]
+        kinds = [Q.draw(np.random.default_rng(0), k, self.cfg) for k in self.mix["queries"]]
         step_bytes = roofline.row_bytes(kinds) * slice_rows
         state_per_step = sum(2 * roofline.state_bytes(r.query, self.P) * r.outcome.rounds_witnessed
                              for r in ok) / max(steps_total, 1)
@@ -218,7 +219,7 @@ class Driver:
 
 
 def reference_answers(picks: List[Record], cols, layout: data.Layout,
-                      precision: str = "float64") -> list:
+                      precision: str = "float64", dims=None) -> list:
     """The reference's (or the control's) sums over each picked query's
     witnessed rounds, the rounds taken from the chunk ranges the program
     reports (a ValueError when one is no round of the layout)."""
@@ -229,7 +230,7 @@ def reference_answers(picks: List[Record], cols, layout: data.Layout,
     for rr, rc in data.gather_rounds(cols, layout, need):
         for i, r in enumerate(picks):
             if rr in rounds[i]:  # a slot witnesses a round once at most
-                acc[i] = acc[i] + REF.sums(rc, r.query, precision)
+                acc[i] = acc[i] + REF.sums(rc, r.query, precision, dims)
     return [(s, len(rs)) for s, rs in zip(acc, rounds)]
 
 

@@ -1,6 +1,7 @@
 """The bytes a window needs, counted from the queries, and the metric
 readers that turn them into shares."""
 import pytest
+import torch
 
 from olabench import bench, queries as Q, roofline
 from olabench.roofline import HBM_BYTES_PER_S
@@ -27,6 +28,24 @@ def test_report_bundle_needs_32_bytes_a_row_and_its_states():
     assert [roofline.state_bytes(q, 8) for q in qs] == states
     rows = 600_037_902
     assert roofline.pass_bytes(qs, rows, 8, 16) == 32 * rows + 2 * 16 * sum(states)
+
+
+def test_a_probed_dimension_column_is_needed_once_a_pass(monkeypatch):
+    """A kind's probes count once a pass, once however many members probe
+    the same dimension column; the kinds that probe nothing add nothing."""
+    rng = __import__("numpy").random.default_rng(0)
+    q6 = Q.q6(rng)
+    probe = Q.Query("probe", ("sum_disc_price",), (0, 100), group="suppkey", groups=25)
+    monkeypatch.setitem(Q.KINDS, "probe", Q.KINDS["q15"]._replace(
+        probes=lambda q, dims: {"s_nationkey": 4 * dims["s_nationkey"].numel()}))
+    dims = {"s_nationkey": torch.zeros(1000, dtype=torch.int32)}
+    rows, P, R = 1_000_000, 8, 16
+    assert roofline.probes([q6], dims) == {}
+    states = 2 * R * (roofline.state_bytes(q6, P) + roofline.state_bytes(probe, P))
+    assert roofline.row_bytes([q6, probe]) == 24  # the mask and 5 columns
+    assert roofline.pass_bytes([q6, probe], rows, P, R, dims) == 24 * rows + 4000 + states
+    assert roofline.pass_bytes([q6, probe, probe], rows, P, R, dims) == (
+        24 * rows + 4000 + states + 2 * R * roofline.state_bytes(probe, P))
 
 
 def _read(name, ctx):

@@ -32,15 +32,14 @@ def _unchanged(real):
 
 
 def _altered(scale):
+    """Every member's answer scaled where the launch produces it: a bank of
+    the analysts' scan launches its slots as the members of one bundle, and
+    the check samples some of the window's slots, which need not hold the
+    first member of any launch."""
     def wrap(real):
         def step(members):
-            outs = real(members)
-            first = outs[0]
-            if isinstance(first, torch.Tensor):
-                outs[0] = first * scale
-            else:
-                outs[0] = (first[0] * scale, *first[1:])
-            return outs
+            return [o * scale if isinstance(o, torch.Tensor) else (o[0] * scale, *o[1:])
+                    for o in real(members)]
         return step
     return wrap
 

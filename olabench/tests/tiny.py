@@ -12,15 +12,17 @@ for _p in (str(ROOT / "src"), str(ROOT)):
     if _p not in sys.path:
         sys.path.insert(0, _p)
 
-from olabench import bench, run  # noqa: E402
+from olabench import bench, run, tables  # noqa: E402
 
 SEED = 2**31 + 4321
 CPU = torch.device("cpu")
 
 
 def tiny(cell):
-    cfg = dict(cell.config, rows=8 * 64 * 8, suppliers=1000, parts=20000,
-               assumed=dict(cell.config["assumed"], chunk_len=64, rounds=4, certify_eps=0.2))
+    """The cell at the tiny size: the rows and layout here, the table
+    module's own sizes by its ``tiny_cut`` (``tables.py``)."""
+    cfg = tables.tiny_cut(dict(cell.config, rows=8 * 64 * 8, assumed=dict(
+        cell.config["assumed"], chunk_len=64, rounds=4, certify_eps=0.2)))
     tr = dict(cell.traffic)
     if tr["kind"] == "service":
         tr.update(warmup_cycles=1, check_samples=6)
