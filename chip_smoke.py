@@ -143,6 +143,12 @@ Q15_CHUNKS, Q15_SUPPLIERS = 2289, 1_000_000
 #: partition, suppliers): tpch-sf100 as above, tpch-sf10 228 chunks of 2,048
 #: rows and 100,000 suppliers
 REPORT_SLICES = {"sf100": (Q15_CHUNKS, Q15_SUPPLIERS), "sf10": (228, 100_000)}
+#: the K3 bundle of olabench's sf100-report-join round-slice (Q15_CHUNKS
+#: chunks a partition), (A, G, share of rows with w = 1) a member: Q6, Q1 by
+#: returnflag x linestatus, Q15 by 1,000,000 suppliers, Q10 by 15,000,000
+#: customers, Q14 by promotion or not
+JOIN_MEMBERS = ((1, 1, 0.02), (4, 4, 0.98), (1, Q15_SUPPLIERS, 0.04),
+                (1, 15_000_000, 0.01), (1, 2, 0.013))
 #: the [fault] and [fault-stream] phases lose partition 2 at round 5
 FAIL_P, FAIL_R = 2, 5
 #: the [straggler] phase's relative partition speeds: the last one at 1/4
@@ -391,6 +397,29 @@ def report_bundle(dev, chunks: int, suppliers: int, seed: int) -> list:
         A = v.shape[-1]
         members.append((v, w_, ids(G), rand(P, G, A, scale=1e6),
                         rand(P, G, A, scale=1e9), counts(G)))
+    return members
+
+
+def join_bundle(dev, chunks: int, seed: int) -> list:
+    """K3 bundle operands ``(vals [P, N, A], w [P, N], gids [P, N], G)`` of
+    one sf100-report-join round-slice (N = ``chunks`` · L), as
+    ``scan.bundle_round_deltas`` launches it: a member a row of
+    :data:`JOIN_MEMBERS`, w 0 or 1, ids uniform over its groups (Q14's
+    promotion flag 1 in 6).  The same tensors from the same seed."""
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    N = chunks * L
+    members = []
+    for A, G, share in JOIN_MEMBERS:
+        vals = torch.rand((P, N, A), generator=g, device=dev) * 1e4
+        w = (torch.rand((P, N), generator=g, device=dev) < share).float()
+        if G == 2:
+            gids = (torch.randint(0, 6, (P, N), generator=g, device=dev) == 0).int()
+        else:
+            gids = torch.randint(0, G, (P, N), generator=g, device=dev, dtype=torch.int32)
+        members.append((vals, w, gids, G))
     return members
 
 
@@ -3450,40 +3479,54 @@ def run(work: Path) -> None:
         max_abs_err=checks["shard_chunk_partials"], repeat="bitwise-equal")
     del want, got
 
-    # K3 on one round-slice: Q3 alone (A=1, G=5) and the [Q6, Q1-small, Q3]
-    # stack of the legacy bundle path (A=4, G=10); each group member of the
-    # stack bitwise-equal to its own launch
+    # K3 on one round-slice: Q3 alone (A=1, G=5), and the [Q6, Q1-small, Q3]
+    # bundle of the legacy path in one pf_group_agg_bundle launch, each
+    # member at its own shape and bitwise-equal to its own launch
     b3 = T.GLABundle([q6, q1s, q3])
+    k3_inputs = {"Q3": scan.kernel_operands(q3, sl),
+                 "stack": [scan.kernel_operands(m, sl) for m in b3.members]}
+    v, w, gi, G = k3_inputs["Q3"]
+    got = twice(lambda: ops.group_agg(v, w, gi, num_groups=G, block_rows=L))
+    want = ref.group_agg(v, w, gi, G, L)
+    checks["group_agg"] = compare("K3 Q3", got, want, {2})
+    say("check", kernel="group_agg[Q3]", shape=tuple(v.shape), groups=G,
+        max_abs_err=checks["group_agg"], repeat="bitwise-equal")
+    del want, got
 
-    def k3_solo(gla):
-        """K3's operands for one GLA's own round-slice launch."""
-        v, w, gi = gla.kernel_cols(sl)
-        A = v.shape[-1] if v.ndim == 4 else 1
-        return (v.reshape(P, -1, A).contiguous(),
-                (w * sl["_mask"]).reshape(P, -1).contiguous(),
-                gi.reshape(P, -1).to(torch.int32).contiguous(), gla.kernel_num_groups)
+    def check_k3_bundle(name, members):
+        """A K3 bundle against its plain version: repeats bitwise-equal,
+        every member bitwise-equal to its own launch; the largest error."""
+        got = ops.group_agg_bundle(members, block_rows=L)
+        again = ops.group_agg_bundle(members, block_rows=L)
+        torch.cuda.synchronize()
+        err = 0.0
+        for i, ((v, w, gi, G), a, b) in enumerate(zip(members, got, again)):
+            check(all(torch.equal(x, y) for x, y in zip(a, b)),
+                  f"{name}: member {i}'s repeat run is not bitwise-equal")
+            solo = ops.group_agg(v, w, gi, num_groups=G, block_rows=L)
+            check(all(torch.equal(x, y) for x, y in zip(a, solo)),
+                  f"{name}: member {i} differs from its own launch")
+            err = max(err, compare(f"{name} member {i}", a, ref.group_agg(v, w, gi, G, L),
+                                   {2}))
+        return err
 
-    vs, ws, gs, Gs, offs, aggs = scan.bundle_operands(b3, sl)
-    k3_inputs = {"Q3": k3_solo(q3), "stack": (vs, ws, gs, Gs)}
-    k3_out = {}
-    for label, (v, w, gi, G) in k3_inputs.items():
-        got = twice(lambda: ops.group_agg(v, w, gi, num_groups=G, block_rows=L))
-        want = ref.group_agg(v, w, gi, G, L)
-        err = compare(f"K3 {label}", got, want, {2})
-        checks["group_agg"] = max(checks.get("group_agg", 0.0), err)
-        k3_out[label] = got
-        say("check", kernel=f"group_agg[{label}]", shape=tuple(v.shape), groups=G,
-            max_abs_err=err, repeat="bitwise-equal")
-    for i, gla in ((1, q1s), (2, q3)):  # the stack's group members
-        o, A = offs[i], aggs[i]
-        solo = ops.group_agg(*k3_solo(gla)[:3], num_groups=gla.kernel_num_groups,
-                             block_rows=L)
-        part = [x[:, o:o + gla.kernel_num_groups] for x in k3_out["stack"]]
-        part[:2] = [x[..., :A] for x in part[:2]]
-        check(all(torch.equal(x, y) for x, y in zip(part, solo)),
-              f"K3: member {i} of the stack differs from its own launch")
-    say("check", kernel="group_agg[stack]", members_vs_solo="bitwise-equal")
-    del want, got, k3_out, solo, part
+    stack = k3_inputs["stack"]
+    err = check_k3_bundle("K3 bundle", stack)
+    checks["group_agg"] = max(checks["group_agg"], err)
+    say("check", kernel="group_agg[stack]", members=[tuple(m[0].shape) for m in stack],
+        groups=[m[3] for m in stack], max_abs_err=err,
+        members_vs_solo="bitwise-equal", repeat="bitwise-equal")
+    # olabench's sf100-report-join bundle [Q6, Q1, Q15, Q10, Q14] at its
+    # round-slice: five members at their own (A, G) in one launch, Q15's
+    # and Q10's folds in windows of 32*s ids, s > 1
+    jb = join_bundle(dev, Q15_CHUNKS, SEED + 35)
+    err = check_k3_bundle("K3 report-join bundle", jb)
+    checks["group_agg"] = max(checks["group_agg"], err)
+    say("check", kernel="group_agg_bundle[report-join-sf100]", shape=tuple(jb[1][0].shape),
+        groups=[m[3] for m in jb], span=[ops.group_step_span(L, m[0].shape[-1], m[3])
+                                         for m in jb],
+        max_abs_err=err, members_vs_solo="bitwise-equal", repeat="bitwise-equal")
+    del jb
 
     # K1 bundle on one round-slice: [Q6, Q1-small, Q1-large, supplier ⋈
     # nation], every member bitwise-equal to its solo K1 launch
@@ -5047,25 +5090,28 @@ def run(work: Path) -> None:
         acc = torch.zeros((P * G, src.shape[1]), device=dev)
         return lambda: acc.index_add_(0, idx, src)
 
-    # K3 on one round-slice: Q3 alone (the JSON row) and the bundle stack
+    # K3 on one round-slice: Q3 alone (the JSON row) and the [Q6, Q1-small,
+    # Q3] bundle in one pf_group_agg_bundle launch
     for label, gla, reps in (("Q3", q3, 5), ("stack", b3, 3)):
-        v, w, gi, G = k3_inputs[label]
-        N, A = w.numel(), v.shape[-1]
-        lib = index_add_call(v, w, gi, G)
-        nt = tiles(w.shape[1] // L, [(A, G)])
+        members = k3_inputs[label] if gla.members else [k3_inputs[label]]
+        N = members[0][1].numel()
+        shapes = [(m[0].shape[-1], m[3]) for m in members]
+        libs = [index_add_call(*m) for m in members]
+        nt = tiles(N // P // L, shapes)
+        run = (lambda: ops.group_agg_bundle(members, block_rows=L)) if gla.members else (
+            lambda: ops.group_agg(*members[0][:3], num_groups=members[0][3], block_rows=L))
         withc = (lambda: scan.bundle_round_deltas(gla, sl)) if gla.members else (
             lambda: scan.kernel_round_delta(gla, sl))
-        args = (label, K3, median_ms(lambda: ops.group_agg(v, w, gi, num_groups=G,
-                                                            block_rows=L), reps),
-                median_ms(lambda: ref.group_agg(v, w, gi, G, L), 2),
-                4 * (v.numel() + 2 * N + P * G * (2 * A + 1)), (4 * A + 1) * N,
-                median_ms(lib, 5), {"with_closures_ms": f"{median_ms(withc, 2):.6f}",
-                                    "groups": G, "pr14_ms": PR14_MS[f"group_agg[{label}]"],
-                                    "tiles": nt,
-                                    **phases(lambda: ops.group_agg(v, w, gi, num_groups=G,
-                                                                   block_rows=L),
-                                             group_split(nt))})
-        del lib
+        args = (label, K3, median_ms(run, reps),
+                median_ms(lambda: [ref.group_agg(*m, L) for m in members], 2),
+                sum(4 * (m[0].numel() + 2 * N + P * G * (2 * A + 1))
+                    for m, (A, G) in zip(members, shapes)),
+                sum((4 * A + 1) * N for A, _ in shapes),
+                median_ms(lambda: [f() for f in libs], 5),
+                {"with_closures_ms": f"{median_ms(withc, 2):.6f}",
+                 "groups": [G for _, G in shapes], "pr14_ms": PR14_MS[f"group_agg[{label}]"],
+                 "tiles": nt, **phases(run, group_split(nt))})
+        del libs
         if label == "Q3":
             record("group_agg", *args[1:])
         else:
@@ -5073,6 +5119,27 @@ def run(work: Path) -> None:
             say("time", kernel="group_agg[stack]", ms=f"{args[2]:.6f}",
                 plain_ms=f"{args[3]:.6f}", bound_ms=f"{b:.6f}", bound_by=by,
                 library_ms=args[6], bytes=args[4], flops=args[5], **args[7])
+
+    # olabench's sf100-report-join bundle at its round-slice, the operands of
+    # the check above made again from the same seed; the library yardstick is
+    # one index_add_ a member, each timed alone, summed
+    jb = join_bundle(dev, Q15_CHUNKS, SEED + 35)
+    N = jb[0][1].numel()
+    shapes = [(m[0].shape[-1], m[3]) for m in jb]
+    nbytes = sum(4 * (m[0].numel() + 2 * N + P * G * (2 * A + 1))
+                 for m, (A, G) in zip(jb, shapes))
+    flops = sum((4 * A + 1) * N for A, _ in shapes)
+    lib_ms = sum(median_ms(index_add_call(*m), 5) for m in jb)
+    nt = tiles(N // P // L, shapes)
+    b, by = bound(nbytes, flops)
+    say("time", kernel="group_agg_bundle[report-join-sf100]",
+        ms=f"{median_ms(lambda: ops.group_agg_bundle(jb, block_rows=L), 5):.6f}",
+        plain_ms=f"{median_ms(lambda: [ref.group_agg(*m, L) for m in jb], 2):.6f}",
+        bound_ms=f"{b:.6f}", bound_by=by, library_ms=lib_ms, bytes=nbytes, flops=flops,
+        groups=[G for _, G in shapes], tiles=nt,
+        fold_visits=ops.group_step_visits(P, N // P // L, L, shapes),
+        **phases(lambda: ops.group_agg_bundle(jb, block_rows=L), group_split(nt)))
+    del jb
 
     def bundle_cost(margs):
         """A K1 bundle's bytes and operations (the sum of its members'), its

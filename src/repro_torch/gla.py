@@ -29,7 +29,8 @@ the reference): it runs on ``emit="chunk"`` and ``"round"``.
 """
 from __future__ import annotations
 
-from functools import lru_cache, partial
+import weakref
+from functools import partial
 from typing import Callable, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -68,7 +69,9 @@ def GLABundle(glas: Sequence[GLA], *, name: Optional[str] = None) -> GLA:
     members in one K1 launch per round-slice when every member has a
     usable fused contract, else one K3 launch per round-slice over every
     member's ``kernel_cols`` projection.  Bundling the same members again
-    returns the same bundle object.  Use
+    returns the same bundle object while that object is alive: the memo
+    holds no bundle, so that the members of a dropped bundle, and the
+    dimension tables their closures hold, are freed with it.  Use
     :func:`repro_torch.engine.run_queries` to run one.
     """
     members = tuple(glas)
@@ -76,12 +79,15 @@ def GLABundle(glas: Sequence[GLA], *, name: Optional[str] = None) -> GLA:
         raise ValueError("GLABundle needs at least one member GLA")
     if any(m.members for m in members):
         raise ValueError("GLABundle members must not themselves be bundles")
-    return _bundle_cached(members, name)
+    key = (members, name)
+    bundle = _BUNDLES.get(key)
+    if bundle is None:
+        bundle = _BUNDLES[key] = _combine_members(members, name)
+    return bundle
 
 
-@lru_cache(maxsize=256)
-def _bundle_cached(members: tuple, name: Optional[str]) -> GLA:
-    return _combine_members(members, name)
+#: live bundles by (members, name): an entry goes with its bundle
+_BUNDLES: "weakref.WeakValueDictionary" = weakref.WeakValueDictionary()
 
 
 def _combine_members(members: tuple, name: Optional[str]) -> GLA:

@@ -12,9 +12,10 @@
 // and bundle modes; src/repro/kernels/fused_agg.py, pallas_call at l.363)
 // and K3 (group_agg_kernel, src/repro/kernels/group_agg.py:61, pallas_call
 // at l.76).  Launched by pf_group and pf_bundle (fused_agg.cu) and by
-// pf_group_agg (group_agg.cu), all through run_group_step below.  For one
-// partition p of vals [P, C, L, A], w and gids [P, C, L] and the carries
-// [P, G, A], [P, G, A], [P, G] (zero where in_* is null):
+// pf_group_agg_bundle (group_agg.cu), all through
+// run_group_step below.  For one partition p of vals [P, C, L, A], w and
+// gids [P, C, L] and the carries [P, G, A], [P, G, A], [P, G] (zero where
+// in_* is null):
 //
 //   per chunk c and group g in [0, G): S = sum v*w, Q = sum v*(v*w),
 //   M = sum w over the chunk's rows whose id is g, each from zero; ids
@@ -68,8 +69,9 @@
 // of 1,024 ids (the cap binds: about 2 entries a window and chunk); its
 // 100,000 at SF 10 s = 8, 391 windows of 256 ids.  Shapes whose 32-id
 // windows already hold several of a chunk's entries keep s = 1: Q1's 4
-// groups, K3's stacks, and 2^13 buckets (about 7 a window), where wider
-// windows measured slower (PERF.md, PR 33).
+// groups, one-group members, and 2^13 buckets (about 7 a window), where
+// wider windows measured slower (PERF.md §6).  Q10's 15,000,000
+// customers take s = 32 (the cap binds), 14,649 windows of 1,024 ids.
 //
 // Phase 2, the ordered fold (group_fold_kernel), one warp per window,
 // partition and group of columns, walking the tile's chunks in order.  An
@@ -110,13 +112,11 @@
 // tile of Ct chunks, each tile's fold starting from the previous tile's
 // output.  Tiling changes no arithmetic.
 //
-// Bundles and stacks: a bundle's group members are the grid's y index of
-// both phases (the member table is a __grid_constant__ parameter), and a
-// member's arithmetic depends only on its own rows, A, G and L, so it
-// equals its solo launch bit for bit.  In a K3 stack each member's rows
-// are whole chunks of their own with offset ids: the same rows sort into
-// the same positions and a chunk of another member holds none of its ids,
-// so each member also equals its solo launch.
+// Bundles: the group members of a K1 bundle (pf_bundle) or of a K3 bundle
+// (pf_group_agg_bundle) are the grid's y index of both phases (the member
+// table is a __grid_constant__ parameter), each with its own rows, A, G,
+// window width and scratch.  A member's arithmetic depends only on its own
+// rows, A, G and L, so it equals its solo launch bit for bit.
 //
 // What bounds it on an H100: bytes.  Per row phase 1 reads 4(A+2) bytes
 // and does about 5A+1 float operations, and writes a table of at most the

@@ -60,7 +60,7 @@ from repro_torch.kernels._runtime import (  # noqa: F401 — re-exported
     reset_launch_counts,
 )
 
-MAX_BUNDLE_MEMBERS = 16  # members in one pf_bundle launch (csrc kMaxMembers)
+MAX_BUNDLE_MEMBERS = ops.MAX_BUNDLE_MEMBERS  # members in one pf_bundle launch
 _TABLE_COLS = 14  # int64 slots per member row of pf_bundle's table (csrc kTableCols)
 
 #: The reference's routing rule (``repro/kernels/fused_agg.py:63``,
@@ -143,10 +143,11 @@ def group_round_step(vals, w, gids, carry_s, carry_q, carry_m):
     _check_group(vals, w, gids, carry_s, carry_q, carry_m)
     P, C, L, A = vals.shape
     dev = vals.device
+    G = carry_m.shape[-1]
+    ops.count_fold_visits(P, C, L, [(A, G)])
     if _route(dev) == "plain":
         RT.plain("fused_round_step/group")
         return ref.group_round_step(vals, w, gids, carry_s, carry_q, carry_m)
-    G = carry_m.shape[-1]
     out_s, out_q = torch.empty_like(carry_s), torch.empty_like(carry_q)
     out_m = torch.empty_like(carry_m)
     tile = ops.group_step_tile(C, L, [(A, G)])
@@ -186,6 +187,8 @@ def bundle_round_step(members):
             _check_group(*m)
         if m[0].shape[:3] != (P, C, L):
             raise ValueError("bundle members need the same P, C, L")
+    ops.count_fold_visits(P, C, L, [(m[0].shape[3], m[5].shape[-1])
+                                    for m in members if m[2] is not None])
     if _route(dev) == "plain":
         RT.plain("fused_round_step/bundle", -(-len(members) // MAX_BUNDLE_MEMBERS))
         return ref.bundle_round_step(members)

@@ -1,11 +1,15 @@
 """The ``kernel_cols`` and chunk-aggregate kernels on Hopper — port of
 ``repro/kernels/ops.py:46-149``.
 
-  K3 :func:`group_agg`             per-group sums of a round-slice's rows
-                                   (``csrc/group_agg.cu``, ``pf_group_agg``).
-                                   Serves ``scan.kernel_round_delta`` and
-                                   ``scan.bundle_round_deltas``: group-by
-                                   GLAs and bundles whose fused contract
+  K3 :func:`group_agg_bundle`      per-group sums of a round-slice's rows
+                                   for every member of a bundle in one
+                                   launch, each at its own shape
+                                   (``csrc/group_agg.cu``,
+                                   ``pf_group_agg_bundle``).  Serves
+                                   ``scan.bundle_round_deltas``.
+     :func:`group_agg`             the same launch with one member.
+                                   Serves ``scan.kernel_round_delta``:
+                                   group-by GLAs whose fused contract
                                    cannot be used (a join over the probe
                                    budget, ``fused=None``).
   K4 :func:`shard_chunk_partials`  per-chunk (Σv·wm, Σv²·wm, Σm, Σwm) of a
@@ -41,7 +45,13 @@ from repro_torch.kernels import _runtime as RT
 
 
 def _group_lib():
-    return RT.bind(_build.load("group_agg"), pf_group_agg=(7, 7))
+    return RT.bind(_build.load("group_agg"), pf_group_agg_bundle=(1, 5))
+
+
+#: members in one ``pf_group_agg_bundle`` launch (``csrc/agg_common.cuh``
+#: ``kMaxMembers``)
+MAX_BUNDLE_MEMBERS = 16
+_BUNDLE_COLS = 10  # int64 slots of a member's row (``csrc/group_agg.cu``)
 
 
 #: the most carry floats of one window of the group step's fold (32·s ids,
@@ -73,6 +83,14 @@ def group_step_words(L: int, A: int, G: int) -> int:
     return -(-G // (32 * group_step_span(L, A, G))) + 1 + min(L, G) * (2 * A + 2)
 
 
+def group_step_visits(P: int, C: int, L: int, members) -> int:
+    """The (partition, window, chunk) triples the fold of a launch over
+    ``P`` partitions of ``C`` chunks of ``L`` rows visits, summed over the
+    group ``members`` ((A, G) each): ``P · ceil(G / 32s) · C`` a member
+    (:func:`group_step_span`), however the chunks fall into tiles."""
+    return sum(P * -(-G // (32 * group_step_span(L, A, G))) * C for A, G in members)
+
+
 def group_step_tile(C: int, L: int, members) -> int:
     """Chunks per tile of the group step over ``C`` chunks of ``L`` rows for
     ``members`` ((A, G) each): as many as keep the scratch
@@ -100,6 +118,31 @@ def _chunk_lib():
 _FLAT_BLOCKS = 1024
 
 
+def _check_group_agg(vals, weight, gids, num_groups, block_rows, what):
+    """K3's input checks; returns ``vals`` as ``[P, N, A]``."""
+    if isinstance(vals, torch.Tensor) and vals.ndim == 2:
+        vals = vals.unsqueeze(-1)
+    if not isinstance(vals, torch.Tensor) or vals.ndim != 3:
+        raise ValueError(f"{what}: vals must be a [P, N] or [P, N, A] tensor")
+    P, N, A = vals.shape
+    dev = vals.device
+    RT.check("vals", vals, RT.F32, (P, N, A), dev)
+    RT.check("weight", weight, RT.F32, (P, N), dev)
+    RT.check("gids", gids, RT.I32, (P, N), dev)
+    if min(P, A, num_groups, block_rows) < 1 or N % block_rows:
+        raise ValueError(f"{what} needs P, A, G, block_rows >= 1 and N % "
+                         f"block_rows == 0, got N={N}, block_rows={block_rows}")
+    if RT.route(dev) == "cuda" and block_rows > RT.MAX_GROUP_ROWS:
+        raise ValueError(f"{what} sorts a block in shared memory: "
+                         f"block_rows={block_rows} exceeds {RT.MAX_GROUP_ROWS}")
+    return vals
+
+
+def _outputs(P: int, G: int, A: int, dev):
+    sums = torch.empty((P, G, A), dtype=RT.F32, device=dev)
+    return sums, torch.empty_like(sums), torch.empty((P, G), dtype=RT.F32, device=dev)
+
+
 def group_agg(vals: torch.Tensor, weight: torch.Tensor, gids: torch.Tensor, *,
               num_groups: int, block_rows: int):
     """K3: ``vals [P, N]`` or ``[P, N, A]`` f32, ``weight [P, N]`` f32
@@ -109,47 +152,93 @@ def group_agg(vals: torch.Tensor, weight: torch.Tensor, gids: torch.Tensor, *,
     summed per group from zero and added to the totals in block order, so
     with ``block_rows`` = the chunk length the totals keep the chunk-by-chunk
     association of the scan."""
-    if isinstance(vals, torch.Tensor) and vals.ndim == 2:
-        vals = vals.unsqueeze(-1)
-    if not isinstance(vals, torch.Tensor) or vals.ndim != 3:
-        raise ValueError("vals must be a [P, N] or [P, N, A] tensor")
+    vals = _check_group_agg(vals, weight, gids, num_groups, block_rows, "group_agg")
     P, N, A = vals.shape
     dev = vals.device
-    RT.check("vals", vals, RT.F32, (P, N, A), dev)
-    RT.check("weight", weight, RT.F32, (P, N), dev)
-    RT.check("gids", gids, RT.I32, (P, N), dev)
-    if min(P, A, num_groups, block_rows) < 1 or N % block_rows:
-        raise ValueError(f"group_agg needs P, A, G, block_rows >= 1 and N % "
-                         f"block_rows == 0, got N={N}, block_rows={block_rows}")
+    C = N // block_rows
+    count_fold_visits(P, C, block_rows, [(A, num_groups)])
     if RT.route(dev) == "plain":
         RT.plain("group_agg")
         return ref.group_agg(vals, weight, gids, num_groups, block_rows)
-    if block_rows > RT.MAX_GROUP_ROWS:
-        raise ValueError(f"group_agg sorts a block in shared memory: "
-                         f"block_rows={block_rows} exceeds {RT.MAX_GROUP_ROWS}")
-    sums = torch.empty((P, num_groups, A), dtype=RT.F32, device=dev)
-    sumsqs = torch.empty_like(sums)
-    matched = torch.empty((P, num_groups), dtype=RT.F32, device=dev)
+    return _group_bundle_launch([vals], [(vals, weight, gids, num_groups)],
+                                [(A, num_groups)], P, N, block_rows, dev)[0]
+
+
+def group_agg_bundle(members, *, block_rows: int):
+    """K3 for every member of a bundle over the same rows: ``members`` holds
+    ``(vals, weight, gids, num_groups)`` a member, each as :func:`group_agg`
+    takes it, all with the same ``[P, N]``.  ONE launch
+    (``pf_group_agg_bundle``) of up to :data:`MAX_BUNDLE_MEMBERS` members (a
+    larger bundle takes one launch per that many), each member at its own
+    (A, G): its own fold windows and scratch, no padding to the widest
+    member and no offset ids.  A member's arithmetic is that of its solo
+    launch, so each member's result is bitwise its :func:`group_agg`.
+    Returns ``(sums, sumsqs, matched)`` a member, in order."""
+    if not members:
+        raise ValueError("a group_agg bundle needs one or more members, got none")
+    vals = [_check_group_agg(v, w, g, G, block_rows, "group_agg_bundle")
+            for v, w, g, G in members]
+    P, N, _ = vals[0].shape
+    dev = vals[0].device
+    for v in vals:
+        if v.shape[:2] != (P, N) or v.device != dev:
+            raise ValueError("group_agg_bundle members need the same [P, N] rows "
+                             "on one device")
+    shapes = [(v.shape[2], m[3]) for v, m in zip(vals, members)]
     C = N // block_rows
-    tile = group_step_tile(C, block_rows, [(A, num_groups)])
-    scratch = group_step_scratch(P, C, block_rows, A, num_groups, tile, dev)
+    count_fold_visits(P, C, block_rows, shapes)
+    launches = -(-len(members) // MAX_BUNDLE_MEMBERS)
+    if RT.route(dev) == "plain":
+        RT.plain("group_agg", launches)
+        return [ref.group_agg(v, m[1], m[2], m[3], block_rows)
+                for v, m in zip(vals, members)]
+    outs = []
+    for i in range(0, len(members), MAX_BUNDLE_MEMBERS):
+        part = slice(i, i + MAX_BUNDLE_MEMBERS)
+        outs += _group_bundle_launch(vals[part], members[part], shapes[part], P, N,
+                                     block_rows, dev)
+    return outs
+
+
+def _group_bundle_launch(vals, members, shapes, P: int, N: int, L: int, dev):
+    """One ``pf_group_agg_bundle`` launch over at most MAX_BUNDLE_MEMBERS
+    members."""
+    C = N // L
+    tile = group_step_tile(C, L, shapes)
+    table = torch.zeros((len(members), _BUNDLE_COLS), dtype=torch.int64)
+    outs, keep = [], []  # keep: the scratch, whose address alone the table holds
+    for i, (v, (_, w, g, _), (A, G)) in enumerate(zip(vals, members, shapes)):
+        out = _outputs(P, G, A, dev)
+        scratch = group_step_scratch(P, C, L, A, G, tile, dev)
+        table[i] = torch.tensor([A, G] + [t.data_ptr() for t in (v, w, g, *out, scratch)]
+                                + [group_step_words(L, A, G)])
+        outs.append(out)
+        keep.append(scratch)
     lib = _group_lib()
-    RT.launch(lib, lib.pf_group_agg, RT.ptr(vals), RT.ptr(weight), RT.ptr(gids),
-              RT.ptr(sums), RT.ptr(sumsqs), RT.ptr(matched), RT.ptr(scratch), P,
-              N, block_rows, A, num_groups, tile,
-              group_step_words(block_rows, A, num_groups), device=dev,
-              count="group_agg")
-    count_wide_folds([(A, num_groups)], block_rows)
-    return sums, sumsqs, matched
+    RT.launch(lib, lib.pf_group_agg_bundle, RT.ptr(table), len(members), P, N, L,
+              tile, device=dev, count="group_agg")
+    count_wide_folds(shapes, L)
+    return outs
 
 
 def count_wide_folds(members, L: int) -> None:
     """Add the group members ((A, G) each) of a launch over chunks of ``L``
     rows whose fold takes more than one id a lane to the ``pfola.fold.wide``
     counter (recorded only while ``obs`` records)."""
+    if not obs.on():
+        return
     n = sum(group_step_span(L, A, G) > 1 for A, G in members)
     if n:
         obs.count("pfola.fold.wide", n)
+
+
+def count_fold_visits(P: int, C: int, L: int, members) -> None:
+    """Add the (partition, window, chunk) triples a launch's fold visits
+    (:func:`group_step_visits` of its group ``members``, from the shapes
+    alone: no sync) to the ``pfola.fold.visits`` counter, on either route
+    (recorded only while ``obs`` records)."""
+    if members and obs.on():
+        obs.count("pfola.fold.visits", group_step_visits(P, C, L, members))
 
 
 def shard_chunk_partials(vals: torch.Tensor, weight: torch.Tensor,

@@ -248,6 +248,12 @@ class Query:
         self.t0 = time.perf_counter_ns()
 
 
+def on() -> bool:
+    """Whether spans and counters record now: a caller whose counter costs
+    host work to compute tests this first."""
+    return bool(_REC.forced or _prof._is_profiler_enabled)
+
+
 def span(name: str, **attrs):
     """A span of the current pass or query; :data:`OFF` when not recording."""
     if not (_REC.forced or _prof._is_profiler_enabled):

@@ -25,7 +25,10 @@ over the reference's probe budget), the legacy ``kernel_cols`` paths:
   ``kernel_prefix_states``        one K4 launch for the whole data; scalar.
   ``kernel_rounds_states``        one K3 launch per round-slice; group-by.
   ``bundle_kernel_rounds_states`` one K3 launch per round-slice for every
-                                  member of a bundle.
+                                  member of a bundle, each at its own shape.
+
+Both fold each round-slice's deltas into the running states as the slice
+returns, so that no more than one slice's deltas are alive.
 
 The reference launches its kernels once per partition; here the partition
 axis stays a batch axis and one launch covers all P partitions.
@@ -310,26 +313,52 @@ def kernel_scalar_round_delta(gla: GLA, slice_cols: dict):
                       matched=tot[:, 3])
 
 
-def _fold_running_sum(deltas):
-    """Fold per-round additive deltas into round-boundary states.
+def _fold_rounds(delta_fn, gla: GLA, cols: dict, rounds: int, what: str):
+    """One round-slice at a time (each under a ``pfola.round`` span):
+    ``delta_fn(gla, slice)``'s additive delta (a state, or a tuple of member
+    states), folded into the running state as soon as it returns, and the
+    running state copied into its round's row of the views.  Only the
+    running state, the views and one slice's deltas are alive at a time.
 
     Sequential adds on purpose: the whole-scan loop and the session's
     round-by-round steps fold the same deltas in the same order, so their
-    states are bitwise-equal.  Returns (final, views stacked [P, R, ...]).
-    """
-    acc, views = deltas[0], [deltas[0]]
-    for d in deltas[1:]:
-        acc = tree_map(torch.add, acc, d)
-        views.append(acc)
-    return acc, tree_stack(views, dim=1)
+    states are bitwise-equal.  Returns (final, views stacked [P, R, ...]);
+    requires C % rounds == 0."""
+    acc = views = None
+    for r, sl in enumerate(_round_slices(cols, rounds, what)):
+        with obs.span("pfola.round", r=r):
+            delta = delta_fn(gla, sl)
+            acc = delta if acc is None else tree_map(torch.add, acc, delta)
+            del delta
+            if views is None:
+                views = tree_map(lambda x: x.new_empty((x.shape[0], rounds, *x.shape[1:])),
+                                 acc)
+            tree_map(lambda v, x, r=r: v[:, r].copy_(x), views, acc)
+    return acc, views
 
 
-def _group_agg(vals, w, gids, num_groups: int, L: int):
-    """K3 over flat per-partition rows: vals [P, N, A], w/gids [P, N]."""
-    return ops.group_agg(vals.to(torch.float32).contiguous(),
-                         w.to(torch.float32).contiguous(),
-                         gids.to(torch.int32).contiguous(),
-                         num_groups=num_groups, block_rows=L)
+def kernel_operands(gla: GLA, sl: dict):
+    """A GLA's K3 operands for one round-slice, flat per partition and
+    contiguous: (vals [P, N, A] f32, w = weight · ``_mask`` [P, N] f32,
+    gids [P, N] i32, G).  A scalar contract becomes a one-group table
+    (every row in group 0), so that K3 serves scalar and group-by members
+    of a bundle alike."""
+    assert gla.kernel_cols is not None, (
+        f"GLA {gla.name!r} does not publish kernel_cols")
+    mask = sl["_mask"]
+    P, per, L = mask.shape
+    if gla.kernel_num_groups is None:
+        vals, weight = gla.kernel_cols(sl)
+        gids, G = torch.zeros(mask.shape, dtype=torch.int32, device=mask.device), 1
+    else:
+        vals, weight, gids = gla.kernel_cols(sl)
+        G = gla.kernel_num_groups
+    if vals.ndim == mask.ndim:
+        vals = vals.unsqueeze(-1)
+    N = per * L
+    return (vals.to(torch.float32).reshape(P, N, vals.shape[-1]).contiguous(),
+            (weight * mask).to(torch.float32).reshape(P, N).contiguous(),
+            gids.to(torch.int32).reshape(P, N).contiguous(), G)
 
 
 def kernel_round_delta(gla: GLA, slice_cols: dict):
@@ -337,18 +366,14 @@ def kernel_round_delta(gla: GLA, slice_cols: dict):
     ``block_rows`` = L, so the kernel keeps the chunk-by-chunk association.
     The primitive of both :func:`kernel_rounds_states` and the session's
     ``kernel_group`` steps."""
-    assert gla.kernel_cols is not None, "GLA does not publish kernel_cols"
     assert gla.kernel_num_groups is not None, (
         "GLA publishes the scalar kernel contract, not the group-by one")
     mask = slice_cols["_mask"]
-    P, per, L = mask.shape
-    vals, weight, gids = gla.kernel_cols(slice_cols)
-    if vals.ndim == mask.ndim:
-        vals = vals.unsqueeze(-1)
-    sums, sumsqs, matched = _group_agg(
-        vals.reshape(P, per * L, vals.shape[-1]),
-        (weight * mask).reshape(P, per * L), gids.reshape(P, per * L),
-        gla.kernel_num_groups, L)
+    with obs.span("pfola.project", member=0):
+        vals, w, gids, G = kernel_operands(gla, slice_cols)
+    with obs.span("pfola.kernel", kernel="group_agg"):
+        sums, sumsqs, matched = ops.group_agg(vals, w, gids, num_groups=G,
+                                              block_rows=mask.shape[2])
     return E.SumState(sum=sums, sumsq=sumsqs, scanned=_live(mask),
                       matched=matched)
 
@@ -358,95 +383,47 @@ def kernel_rounds_states(gla: GLA, cols: dict, rounds: int):
 
     The dense [G, A] state makes per-chunk prefixes infeasible, so this
     path emits at round boundaries: the round states are the running sum of
-    the per-round deltas (:func:`_fold_running_sum`).  Returns
-    ``(final [P, ...], views [P, R, ...])``; requires C % rounds == 0."""
-    return _fold_running_sum([
-        kernel_round_delta(gla, sl)
-        for sl in _round_slices(cols, rounds, "the group-by kernel path")])
-
-
-def _bundle_member_projection(member: GLA, sl: dict):
-    """A member's kernel projection as (vals [P, C, L, A], w, gids, G).
-
-    A scalar member becomes a one-group table (every row in group 0), so
-    one K3 launch serves scalar and group-by members alike."""
-    assert member.kernel_cols is not None, (
-        f"bundle member {member.name!r} does not publish kernel_cols")
-    mask = sl["_mask"]
-    if member.kernel_num_groups is None:
-        vals, weight = member.kernel_cols(sl)
-        gids, G = torch.zeros(mask.shape, dtype=torch.int32,
-                              device=mask.device), 1
-    else:
-        vals, weight, gids = member.kernel_cols(sl)
-        G = member.kernel_num_groups
-    if vals.ndim == mask.ndim:
-        vals = vals.unsqueeze(-1)
-    return vals, weight * mask, gids.to(torch.int32), G
-
-
-def bundle_operands(gla: GLA, slice_cols: dict):
-    """K3's operands for ONE round-slice of a bundle: every member's
-    projection stacked row-wise per partition (vals [P, M·N, A_max] zero-
-    padded to the widest member, w and gids [P, M·N], member m's ids
-    offset by ``offsets[m]`` into one table of ``num_groups`` rows), plus
-    each member's aggregate count.  Returns ``(vals, w, gids, num_groups,
-    offsets, aggs)``."""
-    members = gla.members
-    assert members, "bundle kernel path needs a GLABundle"
-    P, per, L = slice_cols["_mask"].shape
-    N = per * L
-    projs = [_bundle_member_projection(m, slice_cols) for m in members]
-    A_max = max(v.shape[-1] for v, _, _, _ in projs)
-    vals_cat, w_cat, gids_cat, offs = [], [], [], []
-    off = 0
-    for vals, w, gids, G in projs:
-        offs.append(off)
-        pad = A_max - vals.shape[-1]
-        vals = vals.to(torch.float32)
-        if pad:
-            vals = torch.cat([vals, vals.new_zeros((*vals.shape[:-1], pad))], -1)
-        vals_cat.append(vals.reshape(P, N, A_max))
-        w_cat.append(w.reshape(P, N))
-        gids_cat.append((gids + off).reshape(P, N))
-        off += G
-    return (torch.cat(vals_cat, 1), torch.cat(w_cat, 1), torch.cat(gids_cat, 1),
-            off, offs, [v.shape[-1] for v, _, _, _ in projs])
+    the per-round deltas, folded as each returns (:func:`_fold_rounds`).
+    Returns ``(final [P, ...], views [P, R, ...])``; requires
+    C % rounds == 0."""
+    return _fold_rounds(kernel_round_delta, gla, cols, rounds, "the group-by kernel path")
 
 
 def bundle_round_deltas(gla: GLA, slice_cols: dict):
     """Per-member SumState deltas of ONE round-slice of a bundle, in ONE K3
-    launch over :func:`bundle_operands`.  Each member's rows are whole
-    chunks of L rows, so a member's table rows take adds from its own rows
-    only: group-by members are bitwise-equal to their solo K3 launch;
-    scalar members, one-group tables here, are interchangeable with their
-    solo K4 path.  Returns one delta per member."""
+    launch (``ops.group_agg_bundle``) over every member's ``kernel_cols``
+    projection as it is (:func:`kernel_operands`): each member at its own
+    (A, G), with its own fold windows, no padding to the widest member and
+    no ids offset into a shared table.  Each member's delta is bitwise its
+    solo K3 launch; a scalar member, a one-group table here, is
+    interchangeable with its solo K4 path.  Returns one delta per member."""
+    members = gla.members
+    assert members, "bundle kernel path needs a GLABundle"
     mask = slice_cols["_mask"]
-    vals, w, gids, num_groups, offs, aggs = bundle_operands(gla, slice_cols)
-    sums, sumsqs, matched = _group_agg(vals, w, gids, num_groups, mask.shape[2])
+    operands = []
+    for i, m in enumerate(members):
+        with obs.span("pfola.project", member=i):
+            operands.append(kernel_operands(m, slice_cols))
+    with obs.span("pfola.kernel", kernel="group_agg"):
+        outs = ops.group_agg_bundle(operands, block_rows=mask.shape[2])
+    del operands
     scanned = _live(mask)
     deltas = []
-    for m, o, A in zip(gla.members, offs, aggs):
-        G = m.kernel_num_groups
-        if G is None:
-            deltas.append(E.SumState(sum=sums[:, o, :1], sumsq=sumsqs[:, o, :1],
-                                     scanned=scanned, matched=matched[:, o]))
-        else:
-            deltas.append(E.SumState(
-                sum=sums[:, o:o + G, :A], sumsq=sumsqs[:, o:o + G, :A],
-                scanned=scanned, matched=matched[:, o:o + G]))
+    for m, (sums, sumsqs, matched) in zip(members, outs):
+        if m.kernel_num_groups is None:  # the one group's row
+            sums, sumsqs, matched = sums[:, 0], sumsqs[:, 0], matched[:, 0]
+        deltas.append(E.SumState(sum=sums, sumsq=sumsqs, scanned=scanned,
+                                 matched=matched))
     return tuple(deltas)
 
 
 def bundle_kernel_rounds_states(gla: GLA, cols: dict, rounds: int):
     """ONE K3 launch per round-slice for a whole bundle
     (:func:`bundle_round_deltas`), each member's deltas folded into its
-    round states.  Returns ``(tuple of member finals, tuple of member
-    views [P, R, ...])``; requires C % rounds == 0."""
-    per_round = [bundle_round_deltas(gla, sl)
-                 for sl in _round_slices(cols, rounds, "the bundle kernel path")]
-    folded = [_fold_running_sum(list(ds)) for ds in zip(*per_round)]
-    return tuple(f for f, _ in folded), tuple(v for _, v in folded)
+    round states as the slice returns (:func:`_fold_rounds`).  Returns
+    ``(tuple of member finals, tuple of member views [P, R, ...])``;
+    requires C % rounds == 0."""
+    return _fold_rounds(bundle_round_deltas, gla, cols, rounds, "the bundle kernel path")
 
 
 #: The session's path name -> per-round-slice delta primitive.  Delta-style:
@@ -465,7 +442,7 @@ def round_step(gla: GLA, states: Pytree, slice_cols: dict, *, path: str,
     ``"scan"`` (:func:`scan_round_step`), the carry-style ``"kernel_fused"``
     (one K1 launch for every partition) or a delta-style legacy path of
     :data:`ROUND_DELTA_FNS`, where ``first`` starts the running sum from
-    the first delta (not zero + delta), as :func:`_fold_running_sum` does.
+    the first delta (not zero + delta), as :func:`_fold_rounds` does.
     ``encodings`` is the source's (name, Encoding) tuple: the fused step
     decodes its physical columns, every other path decodes the slice
     first (one decode launch either way).  Returns (new states, round

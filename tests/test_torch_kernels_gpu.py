@@ -374,7 +374,7 @@ def test_wide_fold_counter_counts_members_with_wide_windows():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("entry", ["pf_group", "pf_group_agg", "pf_bundle"])
+@pytest.mark.parametrize("entry", ["pf_group", "pf_group_agg_bundle", "pf_bundle"])
 def test_group_step_refuses_a_scratch_table_below_its_layout(entry, monkeypatch):
     """A wrapper whose chunk-table stride is one float short of the kernel's
     layout gets an error before either phase of the group step launches,
@@ -388,10 +388,10 @@ def test_group_step_refuses_a_scratch_table_below_its_layout(entry, monkeypatch)
     with pytest.raises(RuntimeError, match="invalid argument"):
         if entry == "pf_group":
             FK.group_round_step(vals, w, gids, cs, cq, cm)
-        elif entry == "pf_group_agg":
+        elif entry == "pf_group_agg_bundle":
             P, C, L, A = vals.shape
-            ops.group_agg(vals.reshape(P, C * L, A), w.reshape(P, -1),
-                          gids.reshape(P, -1), num_groups=40, block_rows=L)
+            m = (vals.reshape(P, C * L, A), w.reshape(P, -1), gids.reshape(P, -1), 40)
+            ops.group_agg_bundle([m, m], block_rows=L)
         else:
             FK.bundle_round_step([(vals, w, None, carry),
                                   (vals, w, gids, cs, cq, cm)])
@@ -1279,3 +1279,121 @@ def test_lm_smoke_model_on_the_card_matches_the_cpu_port(arch):
         assert torch.equal(g_card.cpu(), g_cpu)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def _k3_member(seed, dev, P, C, L, A, G):
+    g = torch.Generator().manual_seed(seed)
+    vals = torch.rand((P, C * L, A), generator=g) * 100
+    w = (torch.rand((P, C * L), generator=g) < 0.4).float()
+    gids = torch.randint(0, G, (P, C * L), generator=g, dtype=torch.int32)
+    return vals.to(dev), w.to(dev), gids.to(dev), G
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shapes", [
+    [(1, 1), (4, 4), (1, 1_000_000)],  # the report bundle: Q6, Q1, Q15
+    [(4, 4), (1, 15_000_000)],  # Q1 beside Q10's customers
+], ids=["report", "q10"])
+def test_group_agg_bundle_members_equal_solo_and_one_table_launches(shapes):
+    """``pf_group_agg_bundle``: each member at its own shape, bitwise its
+    solo K3 launch and its rows of the one table that stacked every member's
+    groups (values padded to the widest member, ids offset); repeats
+    bitwise; against the plain version within RTOL, counters exact."""
+    dev = _cuda()
+    P, C, L = 4, 6, 2048
+    members = [_k3_member(i, dev, P, C, L, A, G) for i, (A, G) in enumerate(shapes)]
+    before = FK.launch_counts()
+    got = ops.group_agg_bundle(members, block_rows=L)
+    again = ops.group_agg_bundle(members, block_rows=L)
+    torch.cuda.synchronize()
+    assert _delta(before) == {"group_agg": 2}
+    A_max = max(A for A, _ in shapes)
+    off, offs = 0, []
+    for _, G in shapes:
+        offs.append(off)
+        off += G
+    table = ops.group_agg(
+        torch.cat([torch.nn.functional.pad(m[0], (0, A_max - m[0].shape[-1])) for m in members],
+                  1).contiguous(),
+        torch.cat([m[1] for m in members], 1).contiguous(),
+        torch.cat([m[2] + o for m, o in zip(members, offs)], 1).contiguous(),
+        num_groups=off, block_rows=L)
+    for m, o, a, b in zip(members, offs, got, again):
+        (vals, w, gids, G), A = m, m[0].shape[-1]
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+        solo = ops.group_agg(vals, w, gids, num_groups=G, block_rows=L)
+        assert all(torch.equal(x, y) for x, y in zip(a, solo))
+        rows = (table[0][:, o:o + G, :A], table[1][:, o:o + G, :A], table[2][:, o:o + G])
+        assert all(torch.equal(x, y) for x, y in zip(a, rows))
+        want = ref.group_agg(vals, w, gids, G, L)
+        _close(a[0], want[0])
+        _close(a[1], want[1])
+        assert torch.equal(a[2], want[2])
+
+
+@pytest.mark.gpu
+def test_join_bundle_takes_one_k3_launch_a_round_slice():
+    """[Q6, Q1, revenue by 1,000,000 suppliers, a Q10-like join by
+    15,000,000 customers through an orders table, a Q14-like join by a
+    part's promotion flag]: the probe tables pass the reference's budget, so
+    ``run_queries(emit="kernel")`` takes one K3 launch a round-slice; each
+    member's delta of a round-slice is bitwise its solo K3 launch, the group
+    members' whole runs bitwise their solo K3 runs; the fold counters count
+    every member at its own shape."""
+    from repro_torch import obs
+
+    dev = _cuda()
+    P, C, L, R = 4, 16, 2048, 4
+    rows, n_orders, n_parts, customers = P * C * L, 1 << 20, 1 << 20, 15_000_000
+    cols = tpch.generate_lineitem(rows, num_suppliers=5000, seed=9, device="cpu")
+    g = torch.Generator().manual_seed(4)
+    for k, n in (("orderkey", n_orders), ("partkey", n_parts), ("supp", 1_000_000)):
+        cols[k] = torch.randint(0, n, (rows,), generator=g, dtype=torch.int32)
+    shards = {k: v.to(dev) for k, v in randomize.pack_partitions(
+        randomize.randomize_global(cols, torch.Generator().manual_seed(1), P),
+        chunk_len=L).items()}
+    cust = torch.randint(0, customers, (n_orders,), generator=g, dtype=torch.int32).to(dev)
+    recent = (torch.rand(n_orders, generator=g) < 0.05).to(dev)
+    promo = (torch.randint(0, 6, (n_parts,), generator=g) == 5).to(torch.int32).to(dev)
+    d = float(rows)
+    cond = tpch.q6_cond((0, 1500))
+    glas = [
+        T.make_sum_gla(tpch.q6_func, cond, d_total=d),
+        T.make_groupby_gla(tpch.q1_func, tpch.q1_cond, tpch.q1_group_small, num_groups=4,
+                           d_total=d, num_aggs=4),
+        T.make_groupby_gla(tpch.q6_func, cond, lambda c: c["supp"], num_groups=1_000_000,
+                           d_total=d),
+        T.make_join_groupby_gla(tpch.q6_func, lambda c: (c["rfls"] == 3).float(),
+                                lambda c: c["orderkey"], cust, recent, num_groups=customers,
+                                d_total=d, device=dev),
+        T.make_join_groupby_gla(tpch.q6_func, cond, lambda c: c["partkey"], promo,
+                                torch.ones(n_parts, dtype=torch.bool, device=dev),
+                                num_groups=2, d_total=d, device=dev)]
+    bundle = T.GLABundle(glas)
+    assert not scan.fused_available(bundle)
+    before = FK.launch_counts()
+    obs.reset()  # the totals of earlier tests' recordings
+    with obs.recording():
+        res = T.run_queries(T.QuerySpec(glas, rounds=R, emit="kernel"), shards, device=dev)
+        torch.cuda.synchronize()
+    counters = obs.summary()["counters"]
+    obs.reset()
+    assert _delta(before) == {"group_agg": R}
+    shapes = [(1, 1), (4, 4), (1, 1_000_000), (1, customers), (1, 2)]
+    assert counters["pfola.fold.wide"] == 2 * R  # Q15's and Q10's windows
+    assert counters["pfola.fold.visits"] == R * ops.group_step_visits(P, C // R, L, shapes)
+
+    sl = {k: v[:, :C // R] for k, v in shards.items()}
+    for m, delta in zip(glas, scan.bundle_round_deltas(bundle, sl)):
+        v, w, gi, G = scan.kernel_operands(m, sl)
+        s, q, mt = ops.group_agg(v, w, gi, num_groups=G, block_rows=L)
+        if m.kernel_num_groups is None:
+            s, q, mt = s[:, 0], q[:, 0], mt[:, 0]
+        assert torch.equal(delta.sum, s) and torch.equal(delta.sumsq, q)
+        assert torch.equal(delta.matched, mt)
+    for i in (1, 3, 4):
+        solo = T.run_query(T.QuerySpec(glas[i].with_(fused=None), rounds=R, emit="kernel"),
+                           shards, device=dev)
+        assert torch.equal(res[i].final, solo.final)
+        for x, y in zip(res[i].snapshots, solo.snapshots):
+            assert torch.equal(x, y)
