@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port of PF-OLA (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --group-step   # the group step's kernel-table rows alone
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc (one
 nvcc per source, all started together), holds each against its plain
@@ -155,6 +156,9 @@ FAIL_P, FAIL_R = 2, 5
 SPEEDS = [1.0] * (P - 1) + [0.25]
 #: argument that runs the [pause] phase's resume in a fresh process
 RESUME_CHILD = "--resume-child"
+#: argument that runs the group step's rows of the kernel table alone
+#: (``group_step_rows``)
+GROUP_STEP = "--group-step"
 _STARTED: list = []  # background processes run() starts; main() stops any left
 #: the [dist] phases: W gloo ranks sharing the card, each over P/W partitions
 #: read from the npy copy; one NCCL rank over all of them
@@ -330,6 +334,9 @@ def main() -> None:
         return
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
+    if sys.argv[1:2] == [GROUP_STEP]:  # the group step's kernel-table rows alone
+        group_step_rows()
+        return
     if sys.argv[1:2] == [RESUME_CHILD]:  # the [pause] phase's fresh process
         resume_child(Path(sys.argv[2]))
         return
@@ -3261,6 +3268,240 @@ def dryrun_phase(ctx, proc, t_start: float, out: Path) -> None:
         seconds=f"{time.perf_counter() - t0:.3f}", card=ctx.smi)
 
 
+def median_ms(fn, reps):
+    """Median ms of ``reps`` calls of ``fn`` by CUDA events, after one
+    warm call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b))
+    return statistics.median(ts)
+
+
+def phases(fn, split, reps=3):
+    """Device ms per call of the grids named in ``split`` ({key: (a part of
+    the grid's kernel name, launches per call)}) and of the other kernels
+    the call launches (``other_ms``), from a torch.profiler trace of
+    ``reps`` calls.  A grid's time is the mean of its kernels in the trace
+    times its launches per call (the trace may miss a launch: ``captured``
+    counts, grid by grid, the kernels it holds of those launched); "not
+    measured" where it holds none.  The trace records host activity too, as
+    olabench's does: without it the kernels that ctypes launches are not
+    read; only device events are summed."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.cost import trace_summary
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    tot, n = dict.fromkeys(split, 0.0), dict.fromkeys(split, 0)
+    other = 0.0
+    for name, ms, count in trace_summary(prof, top=None)["top"]:   # device entries
+        key = next((k for k, (part, _) in split.items() if part in name), None)
+        if key is None:
+            other += ms
+            continue
+        tot[key] += ms
+        n[key] += count
+    out = {k: (f"{tot[k] / n[k] * per:.6f}" if n[k] else "not measured")
+           for k, (_, per) in split.items()}
+    out["other_ms"] = f"{other / reps:.6f}"
+    out["captured"] = ("+".join(str(n[k]) for k in split) + "/"
+                       + "+".join(str(per * reps) for _, per in split.values()))
+    return out
+
+
+def group_split(grids):
+    """The group step's two grids, each launched ``grids`` times per call
+    (once per tile of chunks): phase 1 ``group_partials_kernel``, phase 2
+    ``group_fold_kernel``."""
+    return {"phase1_ms": ("group_partials", grids), "phase2_ms": ("group_fold", grids)}
+
+
+def table_entries(fn) -> list:
+    """The mean entries of a chunk table, a group member each, in launch
+    order, as one more call of ``fn`` leaves them: the last offset of each
+    table of the last tile, read from the scratch the wrappers allocate
+    (``ops.group_step_scratch``, kept for the read)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    kept = []
+    real = ops.group_step_scratch
+
+    def keep(P_, C_, L_, A, G, tile, device):
+        t = real(P_, C_, L_, A, G, tile, device)
+        kept.append((t, P_, C_, L_, A, G, min(tile, C_)))
+        return t
+
+    ops.group_step_scratch = keep
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        ops.group_step_scratch = real
+    out = []
+    for t, P_, C_, L_, A, G, tile in kept:
+        ct = C_ - (-(-C_ // tile) - 1) * tile  # the last tile's chunks
+        words = ops.group_step_words(L_, A, G)
+        W = -(-G // (32 * ops.group_step_span(L_, A, G)))
+        last = t[:P_ * ct * words].view(P_ * ct, words)[:, W].contiguous()
+        out.append(round(last.view(torch.int32).double().mean().item(), 3))
+    return out
+
+
+def group_step_rows() -> None:
+    """``python3 chip_smoke.py --group-step``: the kernel table's group-step
+    rows alone, each first held against its plain version (counters exact,
+    sums within SUM_RTOL, repeats and every bundle member bitwise its solo
+    launch): K1 Q15 at SF 100, olabench's report bundle at SF 100 and SF
+    10, its sf100-report-join K3 bundle, and K1 Q1-small, the 2^13 buckets
+    and K3 Q3 on one round-slice of lineitem made on the card (P x C/ROUNDS
+    x L rows).  Each row gives the median ms of CUDA events, the two grids'
+    device ms (``phase1_ms``, ``phase2_ms``) and the mean entries of a
+    group member's chunk table (``entries``)."""
+    import torch
+
+    import repro_torch as T
+    from repro_torch import randomize, scan
+    from repro_torch.data import tpch
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import fused_agg as FK
+
+    dev = torch.device(DEVICE)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    say("device", name=torch.cuda.get_device_name(0), smi=repr(smi), root=ROOT.name)
+    t0 = time.perf_counter()
+    secs = _build.build_all(("fused_agg", "group_agg"))
+    say("build", seconds=f"{time.perf_counter() - t0:.3f}",
+        per_source={k: round(v, 3) for k, v in secs.items()})
+
+    per = C // ROUNDS
+    rows = P * per * L
+    cols = tpch.generate_lineitem(rows, num_suppliers=tpch.Q1_LARGE_SUPPLIERS,
+                                  seed=SEED, device=dev)
+    cols["orderkey"] = tpch.generate_orders_fk(rows, seed=SEED, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+    sl = randomize.pack_partitions(randomize.randomize_global(cols, gen, P), chunk_len=L)
+    del cols
+    d = float(rows)
+    q1s, q1l = q6_q1s(d)[1], q1_large(d)
+    orders = tpch.orders_table(rows // 4, seed=SEED + 7, device=dev)
+    q3 = T.make_join_groupby_gla(tpch.q6_func, tpch.q1_cond, tpch.orderkey, *orders,
+                                 num_groups=tpch.NUM_SEGMENTS, d_total=d, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 2)
+
+    def carries(G, A):
+        return (torch.rand((P, G, A), generator=g, device=dev) * 1e3,
+                torch.rand((P, G, A), generator=g, device=dev) * 1e6,
+                torch.randint(0, 1000, (P, G), generator=g, device=dev).float())
+
+    def compare(name, got, want):
+        """Each output a group triple (counters last) or a scalar member's
+        [P, 2A+1] state (the counter last): counters exact, sums within
+        SUM_RTOL of the plain version.  The largest error."""
+        err = 0.0
+        for i, (a, b) in enumerate(zip(got, want)):
+            if isinstance(a, torch.Tensor):
+                k = a.shape[-1] - 1
+                a, b = (a[..., :k], a[..., k]), (b[..., :k], b[..., k])
+            check(torch.equal(a[-1], b[-1]), f"{name}: output {i}'s counter differs")
+            for x, y in zip(a[:-1], b[:-1]):
+                check(torch.isfinite(x).all().item(), f"{name}: output {i} not finite")
+                tol = SUM_RTOL * y.abs().max().item()
+                check(torch.allclose(x, y, rtol=SUM_RTOL, atol=tol),
+                      f"{name}: output {i} off by {(x - y).abs().max().item():.3e}")
+                err = max(err, (x - y).abs().max().item())
+        return err
+
+    def same(a, b):
+        a, b = (a if isinstance(a, tuple) else (a,)), (b if isinstance(b, tuple) else (b,))
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    def k1_group(vals, w, gids, G):
+        A = vals.shape[-1]
+        args = (vals, w, gids, *carries(G, A))
+        return (lambda: [FK.group_round_step(*args)], lambda: [ref.group_round_step(*args)],
+                [lambda: FK.group_round_step(*args)], [(A, G)], vals.shape[1])
+
+    def k1_bundle(margs):
+        solo = [(lambda m=m: FK.scalar_round_step(m[0], m[1], m[3])) if m[2] is None
+                else (lambda m=m: FK.group_round_step(*m)) for m in margs]
+        return (lambda: FK.bundle_round_step(margs), lambda: ref.bundle_round_step(margs),
+                solo, [(m[0].shape[-1], m[5].shape[-1]) for m in margs if m[2] is not None],
+                margs[0][1].shape[1])
+
+    def k3(members):
+        solo = [lambda m=m: ops.group_agg(*m[:3], num_groups=m[3], block_rows=L)
+                for m in members]
+        run = ((lambda: [solo[0]()]) if len(members) == 1
+               else (lambda: ops.group_agg_bundle(members, block_rows=L)))
+        return (run, lambda: [ref.group_agg(*m, L) for m in members], solo,
+                [(m[0].shape[-1], m[3]) for m in members], members[0][1].shape[1] // L)
+
+    def q15(chunks):
+        G = Q15_SUPPLIERS
+        vals = torch.rand((P, chunks, L, 1), generator=g, device=dev) * 1e4
+        w = (torch.rand((P, chunks, L), generator=g, device=dev) < 0.04).float()
+        gids = torch.randint(0, G, (P, chunks, L), generator=g, device=dev,
+                             dtype=torch.int32)
+        return k1_group(vals, w, gids, G)
+
+    def projected(gla):
+        vals, w, gids = FK.project(gla.fused, sl)
+        return k1_group(vals, w, gids, gla.fused.num_groups)
+
+    cases = (("fused_round_step/group[Q15]", lambda: q15(Q15_CHUNKS)),
+             ("fused_round_step/bundle[report-sf100]",
+              lambda: k1_bundle(report_bundle(dev, *REPORT_SLICES["sf100"], SEED + 15))),
+             ("fused_round_step/bundle[report-sf10]",
+              lambda: k1_bundle(report_bundle(dev, *REPORT_SLICES["sf10"], SEED + 15))),
+             ("group_agg_bundle[report-join-sf100]",
+              lambda: k3(join_bundle(dev, Q15_CHUNKS, SEED + 35))),
+             ("fused_round_step/group[G=4]", lambda: projected(q1s)),
+             ("fused_round_step/group[G=8192]", lambda: projected(q1l)),
+             ("group_agg[Q3]", lambda: k3([scan.kernel_operands(q3, sl)])))
+    for name, make in cases:
+        run, plain, solo, members, chunks = make()
+        got, again = run(), run()
+        torch.cuda.synchronize()
+        check(all(same(a, b) for a, b in zip(got, again)), f"{name}: repeat not bitwise")
+        check(all(same(a, f()) for a, f in zip(got, solo)),
+              f"{name}: a member differs from its solo launch")
+        err = compare(name, got, plain())
+        del got, again
+        nt = -(-chunks // ops.group_step_tile(chunks, L, members))
+        split = group_split(nt)
+        if name.startswith("fused_round_step/bundle"):
+            split.update(scalar_partials_ms=("bundle_partials", 1),
+                         scalar_fold_ms=("bundle_fold", 1))
+        say("time", kernel=name, ms=f"{median_ms(run, 10):.6f}", max_abs_err=err,
+            members=members, spans=[ops.group_step_span(L, A, G) for A, G in members],
+            tiles=nt, entries=table_entries(run), **phases(run, split),
+            repeat="bitwise-equal", members_vs_solo="bitwise-equal")
+        torch.cuda.empty_cache()
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "group_step_rows": len(cases)}), flush=True)
+
+
 def run(work: Path) -> None:
     import torch
 
@@ -4914,62 +5155,9 @@ def run(work: Path) -> None:
             check(n > 0, f"kernel {k} was not launched on the main path")
 
     # -- 5. timing: kernel, plain version, library call, closures included --
-    def median_ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        ts = []
-        for _ in range(reps):
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            ts.append(a.elapsed_time(b))
-        return statistics.median(ts)
-
-    def phases(fn, split, reps=3):
-        """Device ms per call of the grids named in ``split`` ({key:
-        (a part of the grid's kernel name, launches per call)}) and of the
-        other kernels the call launches (``other_ms``), from a
-        torch.profiler trace of ``reps`` calls.  A grid's time is the mean
-        of its kernels in the trace times its launches per call (the trace
-        may miss a launch: ``captured`` counts, grid by grid, the kernels it
-        holds of those launched); "not measured" where it holds none."""
-        from torch.profiler import ProfilerActivity, profile
-
-        from repro_torch.cost import trace_summary
-
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:  # kernels only:
-            for _ in range(reps):  # a CPU op would count its kernels again
-                fn()
-            torch.cuda.synchronize()
-        tot, n = dict.fromkeys(split, 0.0), dict.fromkeys(split, 0)
-        other = 0.0
-        for name, ms, count in trace_summary(prof, top=None)["top"]:   # device entries
-            key = next((k for k, (part, _) in split.items() if part in name), None)
-            if key is None:
-                other += ms
-                continue
-            tot[key] += ms
-            n[key] += count
-        out = {k: (f"{tot[k] / n[k] * per:.6f}" if n[k] else "not measured")
-               for k, (_, per) in split.items()}
-        out["other_ms"] = f"{other / reps:.6f}"
-        out["captured"] = ("+".join(str(n[k]) for k in split) + "/"
-                           + "+".join(str(per * reps) for _, per in split.values()))
-        return out
-
     def device_ms(fn):
         """Device ms per call of every kernel ``fn`` launches (a trace)."""
         return phases(fn, {})["other_ms"]
-
-    def group_split(grids):
-        """The group step's two grids, each launched ``grids`` times per
-        call (once per tile of chunks): phase 1 ``group_partials_kernel``,
-        phase 2 ``group_fold_kernel``."""
-        return {"phase1_ms": ("group_partials", grids), "phase2_ms": ("group_fold", grids)}
 
     #: pf_scalar's two grids (K1 scalar, K2), once per call each
     scalar_split = {"partials_ms": ("scalar_partials", 1), "fold_ms": ("scalar_fold", 1)}

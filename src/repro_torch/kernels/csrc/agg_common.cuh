@@ -58,6 +58,28 @@
 // number of runs with id < 32*s*w for the W + 1 windows of 32*s ids.  A
 // table holds at most E = min(L, G) entries.
 //
+// Where the fold is wide (s > 1, below), phase 1 first drops every row that
+// cannot change a sum: weight 0 and all A values finite (0*inf and 0*NaN
+// are NaN, so such a row still reaches its sum), beside the ids outside
+// [0, G).  One block-wide scan of the kept counts writes the kept rows'
+// indices, in row order, to the front of the index buffer; the sort, the
+// runs, the staged values, the reductions and the table then cover those
+// n rows alone, and the sort stays stable, so runs keep their row order.
+// A sort of n <= kRankSortRows rows counts each row's place against the
+// other kept keys (key, then row order) in one step; a larger one takes
+// the radix passes over the n positions: the same order either way.  With
+// few runs, each window's offset is a binary search of the runs' ids, and
+// where every run is one row the segmented scan is skipped (each position
+// already holds its run's totals, as the scan would leave them).  At
+// s > 1 a window of 32*s ids takes at most 8 of a chunk's rows on average,
+// so runs are nearly all one or two rows, whose sums are the same bits
+// whatever zeros are dropped around them; Q15 keeps about 3.6% of a chunk,
+// Q10 about 1%, and their tables shrink with their rows.  At s = 1 a run
+// holds many rows, and dropping zeros would change their association:
+// there every row is sorted, as before.  The only sign this can change is
+// that of a -0.0 carry element whose id has only dropped rows in a chunk:
+// it stays -0.0 where adding the run's +0.0 made it +0.0.
+//
 // The window's width follows the member's shape alone (step_span): s is
 // the largest power of two <= G / 4L (1 where G < 8L), so that a window of
 // 32*s ids takes at most 8 of a chunk's L rows on average, capped so that
@@ -123,9 +145,10 @@
 // input's size (168 bytes per chunk of 2048 rows for 4 groups and 4
 // aggregates, 82,948 for 2^13 buckets against 49,152 bytes of input: those
 // take two tiles; 36,680 for Q15 against 24,576, beside Q1's 49,152 in the
-// report bundle: one tile).  The fold reads the entries' bytes (the ids
-// once a group of columns), two offsets a chunk and window, and the carry
-// once and writes it once a tile: at s > 1 its work follows a chunk's
+// report bundle: one tile; of Q15's table the kept rows fill about 5 KB,
+// 978 offsets and about 82 entries).  The fold reads the entries' bytes
+// (the ids once a group of columns), two offsets a chunk and window, and
+// the carry once and writes it once a tile: at s > 1 its work follows a chunk's
 // entries, not G / 32.
 //
 // Choices made for simplicity, each measured in PERF.md: one block per
@@ -184,6 +207,15 @@ constexpr int kMaxMembers = 16;     // group members in one launch
 constexpr int kFoldSpanFloats = 3072;  // carry floats of a phase 2 warp at
                                        // s > 1: 12 KB, two 8-warp blocks an SM
 constexpr int kSpanCols = 3;        // s > 1: columns of the 2A+1 a warp takes
+// s > 1: kept rows up to which a chunk sorts by counting each row's place
+// against the others, one row a thread, rather than by radix passes.
+// Measured on an H100 (PERF.md §6), a phase 1 grid over a tile of Q15's
+// round-slice at SF 100 with exactly n kept rows a chunk: the counted sort
+// takes 0.30-0.31 ms to n = 128, 0.41 at 256 and 0.56-0.59 at 384, the
+// radix passes 0.60-0.71 ms at every n (ten passes of barriers, whatever
+// n); at 448 the counted sort takes 0.71-0.72 against their 0.67-0.69.
+constexpr int kRankSortRows = 384;
+static_assert(kRankSortRows <= kStepThreads, "one kept row a thread");
 
 // One member of a group-step launch.  The carries in_* may be null (zero).
 struct GroupMember {
@@ -342,14 +374,155 @@ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+// inf or NaN: the exponent's bits all set
+__device__ __forceinline__ bool not_finite(float v) {
+  return (__float_as_uint(v) & 0x7f800000u) == 0x7f800000u;
+}
+
+// Phase 1's rows at s > 1: the rows that can change a sum, those with an id
+// in [0, G) and a weight other than 0 or a value that is not finite.
+// Thread t reads rows [t*KI, t*KI + KI), 16 bytes at a time where `vec`; a
+// block-wide scan of the kept counts writes the kept rows' indices to pa in
+// row order, their ids to kk by position, and their ids, weights and (where
+// `one`: A = 1, the values loaded beside the weights) values to key, ws and
+// vs by row.  Returns the number kept.
+template <int KI>
+__device__ __forceinline__ int keep_rows(const int* gid, const float* wr,
+                                         const float* vr, int A, int G, int L,
+                                         bool vec, bool one, int* key,
+                                         float* ws, float* vs,
+                                         unsigned short* pa, int* kk, int* sh) {
+  const int base = threadIdx.x * KI;
+  int g[KI];
+  float wv[KI], v1[KI];
+  if (vec) {
+#pragma unroll
+    for (int i = 0; i < KI; i += 4) {
+      int4 g4 = make_int4(-1, -1, -1, -1);
+      float4 w4 = make_float4(0.f, 0.f, 0.f, 0.f), v4 = w4;
+      if (base + i < L) {
+        g4 = *reinterpret_cast<const int4*>(gid + base + i);
+        w4 = *reinterpret_cast<const float4*>(wr + base + i);
+        if (one) v4 = *reinterpret_cast<const float4*>(vr + base + i);
+      }
+      g[i] = g4.x, g[i + 1] = g4.y, g[i + 2] = g4.z, g[i + 3] = g4.w;
+      wv[i] = w4.x, wv[i + 1] = w4.y, wv[i + 2] = w4.z, wv[i + 3] = w4.w;
+      v1[i] = v4.x, v1[i + 1] = v4.y, v1[i + 2] = v4.z, v1[i + 3] = v4.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < KI; ++i) {
+      g[i] = base + i < L ? gid[base + i] : -1;
+      wv[i] = base + i < L ? wr[base + i] : 0.f;
+      v1[i] = 0.f;
+    }
+  }
+  unsigned keep = 0;
+#pragma unroll
+  for (int i = 0; i < KI; ++i) {
+    if (g[i] < 0 || g[i] >= G) continue;
+    bool k = wv[i] != 0.f || (one && not_finite(v1[i]));
+    for (int a = 0; !one && a < A && !k; ++a)
+      k = not_finite(vr[(long long)(base + i) * A + a]);
+    keep |= (unsigned)k << i;
+  }
+  int n;
+  int o = block_scan_excl(__popc(keep), sh, &n);
+#pragma unroll
+  for (int i = 0; i < KI; ++i) {
+    if (!((keep >> i) & 1)) continue;
+    pa[o] = (unsigned short)(base + i);
+    kk[o++] = g[i];
+    key[base + i] = g[i];
+    ws[base + i] = wv[i];
+    if (one) vs[base + i] = v1[i];  // A = 1: a row stride of 1
+  }
+  return n;
+}
+
+// Stable LSD radix sort of the row indices pa[0, n) by key, two bits per
+// pass over the bit width of G: four counters per thread, packed 16 bits
+// each, scanned block-wide.  Returns the buffer (pa or pb) with the order.
+template <int KI>
+__device__ __forceinline__ unsigned short* radix_sort(
+    unsigned short* pa, unsigned short* pb, const int* key, int n, int G,
+    unsigned long long* s64) {
+  const int base = threadIdx.x * KI;
+  const int bits = 32 - __clz(G);
+  for (int b = 0; b < bits; b += 2) {
+    __syncthreads();  // the previous pass's (or the load's) writes are done
+    unsigned short r[KI];
+    unsigned dig = 0;
+    unsigned long long cnt = 0;
+#pragma unroll
+    for (int i = 0; i < KI; ++i) {
+      r[i] = 0;
+      if (base + i < n) {
+        r[i] = pa[base + i];
+        const unsigned d = (key[r[i]] >> b) & 3;
+        dig |= d << (2 * i);
+        cnt += 1ull << (16 * d);
+      }
+    }
+    unsigned long long tot;
+    unsigned long long ex = block_scan_excl(cnt, s64, &tot);
+    const int t0 = (int)(tot & 0xffff), t1 = (int)((tot >> 16) & 0xffff);
+    const int t2 = (int)((tot >> 32) & 0xffff);
+    const int start[4] = {0, t0, t0 + t1, t0 + t1 + t2};
+#pragma unroll
+    for (int i = 0; i < KI; ++i) {
+      if (base + i < n) {
+        const unsigned d = (dig >> (2 * i)) & 3;
+        pb[start[d] + (int)((ex >> (16 * d)) & 0xffff)] = r[i];
+        ex += 1ull << (16 * d);
+      }
+    }
+    unsigned short* t = pa;
+    pa = pb;
+    pb = t;
+  }
+  return pa;
+}
+
+// The same stable order for n <= kStepThreads rows in one step: row t's
+// place is the number of rows before it by (key, then t), kk holding the
+// keys of pa[0, n) in that order.  Returns pb, which holds the order.
+__device__ __forceinline__ unsigned short* rank_sort(const unsigned short* pa,
+                                                     unsigned short* pb,
+                                                     const int* kk, int n) {
+  __syncthreads();  // pa and kk are written
+  const int t = threadIdx.x;
+  if (t < n) {
+    const int k = kk[t];
+    int r = 0, j = 0;
+    if (aligned16(kk))  // four keys a load
+      for (; j + 4 <= n; j += 4) {
+        const int4 q = *reinterpret_cast<const int4*>(kk + j);
+        r += (q.x < k || (q.x == k && j < t)) +
+             (q.y < k || (q.y == k && j + 1 < t)) +
+             (q.z < k || (q.z == k && j + 2 < t)) +
+             (q.w < k || (q.w == k && j + 3 < t));
+      }
+    for (; j < n; ++j) {
+      const int kj = kk[j];
+      r += kj < k || (kj == k && j < t);
+    }
+    pb[r] = pa[t];
+  }
+  return pb;
+}
+
 // Phase 1 for one chunk: sort, reduce every run, write the chunk's table.
 // slot is the chunk's table index within the tile, row0 its first row.
-template <int KI>
+// DROP (the member's fold is wide, s > 1): the zero-weight rows leave
+// before the sort; without it the code is that of every row sorted.
+template <int KI, bool DROP>
 __device__ void group_partials(const GroupMember& m, long long row0,
                                long long slot, int L, char* smem) {
   const int A = m.A, G = m.G;
   const int E = step_entries(L, G), W = step_windows(L, A, G);
   const int wsh = 4 + __ffs(step_span(L, A, G));  // id >> wsh: its window
+  constexpr bool drop = DROP;
   const int AT = step_val_cols(L, A);
   float* sf = reinterpret_cast<float*>(smem);      // 32 * kSegSums floats
   unsigned long long* s64 = reinterpret_cast<unsigned long long*>(smem);
@@ -371,7 +544,17 @@ __device__ void group_partials(const GroupMember& m, long long row0,
   const int* gid = m.gids + row0;
   const float* wr = m.w + row0;
   const float* vr = m.vals + row0 * A;
-  if ((L & 3) == 0 && aligned16(gid) && aligned16(wr)) {
+  const int base = threadIdx.x * KI;
+  // drop: 16-byte loads of KI rows a thread, and where A = 1 the values
+  // staged with the ids and weights
+  const bool vec =
+      KI % 4 == 0 && (L & 3) == 0 && aligned16(gid) && aligned16(wr);
+  const bool one = drop && A == 1 && vec && aligned16(vr);
+  int n = L;  // the rows the sort and the runs cover: every row, or the kept
+  if (drop) {
+    n = keep_rows<KI>(gid, wr, vr, A, G, L, vec, one, key, ws, vs, pa,
+                      reinterpret_cast<int*>(stg), sh);
+  } else if ((L & 3) == 0 && aligned16(gid) && aligned16(wr)) {
     for (int i = threadIdx.x; i < L / 4; i += blockDim.x) {
       const int4 g = reinterpret_cast<const int4*>(gid)[i];
       reinterpret_cast<int4*>(key)[i] = make_int4(
@@ -386,44 +569,12 @@ __device__ void group_partials(const GroupMember& m, long long row0,
       ws[i] = wr[i];
     }
   }
-  for (int i = threadIdx.x; i < L; i += blockDim.x) pa[i] = (unsigned short)i;
+  if (!drop)
+    for (int i = threadIdx.x; i < L; i += blockDim.x) pa[i] = (unsigned short)i;
 
-  // stable LSD radix sort of the row indices by key, two bits per pass:
-  // four counters per thread, packed 16 bits each, scanned block-wide
-  const int base = threadIdx.x * KI;
-  const int bits = 32 - __clz(G);
-  for (int b = 0; b < bits; b += 2) {
-    __syncthreads();  // the previous pass's (or the load's) writes are done
-    unsigned short r[KI];
-    unsigned dig = 0;
-    unsigned long long cnt = 0;
-#pragma unroll
-    for (int i = 0; i < KI; ++i) {
-      r[i] = 0;
-      if (base + i < L) {
-        r[i] = pa[base + i];
-        const unsigned d = (key[r[i]] >> b) & 3;
-        dig |= d << (2 * i);
-        cnt += 1ull << (16 * d);
-      }
-    }
-    unsigned long long tot;
-    unsigned long long ex = block_scan_excl(cnt, s64, &tot);
-    const int t0 = (int)(tot & 0xffff), t1 = (int)((tot >> 16) & 0xffff);
-    const int t2 = (int)((tot >> 32) & 0xffff);
-    const int start[4] = {0, t0, t0 + t1, t0 + t1 + t2};
-#pragma unroll
-    for (int i = 0; i < KI; ++i) {
-      if (base + i < L) {
-        const unsigned d = (dig >> (2 * i)) & 3;
-        pb[start[d] + (int)((ex >> (16 * d)) & 0xffff)] = r[i];
-        ex += 1ull << (16 * d);
-      }
-    }
-    unsigned short* t = pa;
-    pa = pb;
-    pb = t;
-  }
+  pa = drop && n <= kRankSortRows
+           ? rank_sort(pa, pb, reinterpret_cast<const int*>(stg), n)
+           : radix_sort<KI>(pa, pb, key, n, G, s64);
   __syncthreads();
 
   // runs: heads, ends, the run index of every position
@@ -433,14 +584,14 @@ __device__ void group_partials(const GroupMember& m, long long row0,
 #pragma unroll
   for (int i = 0; i < KI; ++i) {
     const int j = base + i;
-    const int kj = j < L ? key[pa[j]] : G;
+    const int kj = j < n ? key[pa[j]] : G;
     k_[i] = kj;
     if (kj < G) {
       if (j == 0 || key[pa[j - 1]] != kj) {
         head |= 1u << i;
         ++heads;
       }
-      if (j + 1 == L || key[pa[j + 1]] != kj) end |= 1u << i;
+      if (j + 1 == n || key[pa[j + 1]] != kj) end |= 1u << i;
     } else {
       head |= 1u << i;  // past the valid rows: a segment of its own
     }
@@ -448,20 +599,36 @@ __device__ void group_partials(const GroupMember& m, long long row0,
   int runs;
   int e = block_scan_excl(heads, sh, &runs) - 1;
   int rank[KI];
+  int* rid = reinterpret_cast<int*>(stg);  // drop: the runs' ids, for off
 #pragma unroll
   for (int i = 0; i < KI; ++i) {
     if (k_[i] < G && ((head >> i) & 1)) {
       ++e;
       ids[e] = k_[i];
-      // the windows whose first id lies in (previous id, this id]
-      const int wlo = e == 0 ? 0 : (key[pa[base + i - 1]] >> wsh) + 1;
-      for (int w = wlo; w <= (k_[i] >> wsh); ++w) off[w] = e;
+      if (drop) {
+        rid[e] = k_[i];
+      } else {
+        // the windows whose first id lies in (previous id, this id]
+        const int wlo = e == 0 ? 0 : (key[pa[base + i - 1]] >> wsh) + 1;
+        for (int w = wlo; w <= (k_[i] >> wsh); ++w) off[w] = e;
+      }
     }
     rank[i] = e;
-    if (k_[i] < G && ((end >> i) & 1) && e == runs - 1) *last = k_[i];
+    if (!drop && k_[i] < G && ((end >> i) & 1) && e == runs - 1) *last = k_[i];
   }
   __syncthreads();
-  {  // the windows past the last run
+  if (drop) {  // few runs: each window's offset by a binary search of their ids
+    for (int w = threadIdx.x; w <= W; w += blockDim.x) {
+      const int first = w << wsh;
+      int lo = 0, hi = runs;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (rid[mid] < first) lo = mid + 1;
+        else hi = mid;
+      }
+      off[w] = lo;
+    }
+  } else {  // the windows past the last run
     const int wlo = runs == 0 ? 0 : (*last >> wsh) + 1;
     for (int w = wlo + threadIdx.x; w <= W; w += blockDim.x) off[w] = runs;
   }
@@ -471,7 +638,12 @@ __device__ void group_partials(const GroupMember& m, long long row0,
   for (int a0 = 0; a0 < A; a0 += AT) {
     const int at = A - a0 < AT ? A - a0 : AT;
     __syncthreads();  // the previous tile's readers are done with vs
-    if (at == A && ((L * A) & 3) == 0 && aligned16(vr)) {
+    if (drop) {  // the kept rows' values alone (`one`: staged with the ids)
+      for (int i = threadIdx.x; !one && i < n * at; i += blockDim.x) {
+        const int r = pa[i / at], a = i - (i / at) * at;
+        vs[r * VS + a] = vr[(long long)r * A + a0 + a];
+      }
+    } else if (at == A && ((L * A) & 3) == 0 && aligned16(vr)) {
       for (int i = threadIdx.x; i < L * A / 4; i += blockDim.x) {
         const float4 v = reinterpret_cast<const float4*>(vr)[i];
         const float c[4] = {v.x, v.y, v.z, v.w};
@@ -492,7 +664,7 @@ __device__ void group_partials(const GroupMember& m, long long row0,
       float x[KI][kSegSums];
 #pragma unroll
       for (int i = 0; i < KI; ++i) {
-        const int r = pa[base + i < L ? base + i : 0];
+        const int r = pa[base + i < n ? base + i : 0];
 #pragma unroll
         for (int u = 0; u < kSegSums; ++u) {
           const int q = q0 + u;
@@ -509,7 +681,12 @@ __device__ void group_partials(const GroupMember& m, long long row0,
           x[i][u] = c;
         }
       }
-      seg_scan<KI, kSegSums>(x, head, sf, sh);
+      // where every run is one row (drop: the usual chunk at s > 1) each
+      // position already holds its run's totals, as the scan would leave it
+      if (!drop || runs < n)
+        seg_scan<KI, kSegSums>(x, head, sf, sh);
+      else
+        __syncthreads();  // the previous pass's readers are done with stg
       // the run totals, staged by run index, then written out coalesced
 #pragma unroll
       for (int i = 0; i < KI; ++i) {
@@ -536,7 +713,11 @@ group_partials_kernel(const __grid_constant__ GroupSet set, int C, int c0,
   extern __shared__ __align__(16) char step_smem[];
   const GroupMember& m = set.m[blockIdx.y];
   const int p = blockIdx.x / ct, c = c0 + blockIdx.x % ct;
-  group_partials<KI>(m, ((long long)p * C + c) * L, blockIdx.x, L, step_smem);
+  const long long row0 = ((long long)p * C + c) * L;
+  if (step_span(L, m.A, m.G) > 1)
+    group_partials<KI, true>(m, row0, blockIdx.x, L, step_smem);
+  else
+    group_partials<KI, false>(m, row0, blockIdx.x, L, step_smem);
 }
 
 // Carry element (p, g, k) of a member: where the fold reads it (null: zero)

@@ -61,12 +61,21 @@ _BUNDLE_COLS = 10  # int64 slots of a member's row (``csrc/group_agg.cu``)
 FOLD_SPAN_FLOATS = 3072
 
 
+#: where phase 1 of the group step drops zero-weight rows (s > 1), the kept
+#: rows of a chunk up to which it sorts them by counting each row's place
+#: rather than by radix passes (``csrc/agg_common.cuh`` ``kRankSortRows``);
+#: both give the same order
+RANK_SORT_ROWS = 384
+
+
 def group_step_span(L: int, A: int, G: int) -> int:
     """Ids a lane of the group step's fold owns, so that a window spans
     ``32·s`` ids (``csrc/agg_common.cuh`` ``step_span``): the largest power
     of two ``<= G / 4L`` (1 where ``G < 8L``), so that a window takes at
     most 8 of a chunk's ``L`` rows on average, whose window of ``2A+1``
-    floats an id fits :data:`FOLD_SPAN_FLOATS`."""
+    floats an id fits :data:`FOLD_SPAN_FLOATS`.  The same rule picks the
+    members whose phase 1 drops, before its sort, the rows that cannot
+    change a sum (weight 0, every value finite): those with ``s > 1``."""
     s = 1
     while 8 * s * L <= G and 64 * s * (2 * A + 1) <= FOLD_SPAN_FLOATS:
         s *= 2
@@ -224,7 +233,9 @@ def _group_bundle_launch(vals, members, shapes, P: int, N: int, L: int, dev):
 def count_wide_folds(members, L: int) -> None:
     """Add the group members ((A, G) each) of a launch over chunks of ``L``
     rows whose fold takes more than one id a lane to the ``pfola.fold.wide``
-    counter (recorded only while ``obs`` records)."""
+    counter (recorded only while ``obs`` records).  They are also exactly
+    the members whose phase 1 drops the zero-weight rows before its sort
+    (:func:`group_step_span`)."""
     if not obs.on():
         return
     n = sum(group_step_span(L, A, G) > 1 for A, G in members)

@@ -313,6 +313,60 @@ def test_group_step_tile_at_the_cells_shapes(C, members, tile):
     assert ops.group_step_tile(C, 2048, members) == tile
 
 
+def _wide_folds(members, L=2048) -> int:
+    """``pfola.fold.wide`` as one launch of ``members`` ((A, G) each) adds it."""
+    from repro_torch import obs
+
+    before = obs.summary()["counters"].get("pfola.fold.wide", 0)
+    with obs.recording():
+        ops.count_wide_folds(members, L)
+    return obs.summary()["counters"].get("pfola.fold.wide", 0) - before
+
+
+@pytest.mark.parametrize("A, G, drops", [
+    (1, 1_000_000, True),  # Q15 by supplier at SF 100
+    (1, 100_000, True),  # Q15 at SF 10
+    (1, 15_000_000, True),  # Q10 by customer (sf100-report-join)
+    (4, 4, False),  # Q1 by returnflag x linestatus
+    (1, 1, False),  # Q6, a one-group member of a K3 bundle
+    (1, 2, False),  # Q14 by promotion or not
+    (1, 5, False),  # Q3 by segment (K3)
+    (4, 8192, False),  # Q1 in 2^13 buckets
+], ids=["q15-sf100", "q15-sf10", "q10", "q1", "q6", "q14", "q3", "buckets"])
+def test_phase_one_drops_zero_weight_rows_exactly_where_the_fold_is_wide(A, G, drops):
+    """Phase 1 drops the rows that cannot change a sum before its sort for
+    the members whose fold is wide (s > 1, ``group_step_span``), and only
+    for them: the cells' Q15 and Q10, not Q1, Q6, Q14, Q3 or the buckets,
+    whose runs hold many rows.  ``pfola.fold.wide`` counts those members."""
+    assert (ops.group_step_span(2048, A, G) > 1) == drops
+    assert _wide_folds([(A, G)]) == int(drops)
+
+
+@pytest.mark.parametrize("members, wide", [
+    ([(4, 4), (1, 1_000_000)], 1),
+    ([(4, 4), (1, 100_000)], 1),
+    ([(1, 1), (4, 4), (1, 1_000_000), (1, 15_000_000), (1, 2)], 2),
+], ids=["report-sf100", "report-sf10", "report-join"])
+def test_wide_fold_counter_counts_the_bundles_dropping_members(members, wide):
+    """A report bundle's group members (Q1, Q15) count 1 a launch at both
+    scales, the join cell's K3 bundle (Q6, Q1, Q15, Q10, Q14) 2: the
+    members whose phase 1 drops rows."""
+    assert _wide_folds(members) == wide
+
+
+def test_rank_sort_rows_mirrors_the_kernel_constant():
+    """``ops.RANK_SORT_ROWS`` is ``kRankSortRows`` of the kernel, at most one
+    kept row a thread of phase 1's block (``kStepThreads``)."""
+    import re
+    from pathlib import Path
+
+    src = (Path(ops.__file__).parent / "csrc" / "agg_common.cuh").read_text()
+    rows = re.search(r"constexpr int kRankSortRows = (\d+);", src)
+    threads = re.search(r"constexpr int kStepThreads = (\d+);", src)
+    assert int(rows.group(1)) == ops.RANK_SORT_ROWS
+    assert 0 < ops.RANK_SORT_ROWS <= int(threads.group(1))
+
+
 def test_plain_route_counts_no_wide_fold():
     """``pfola.fold.wide`` counts members launched on the card: the plain
     route of a member with s > 1 launches none and counts nothing."""

@@ -373,6 +373,158 @@ def test_wide_fold_counter_counts_members_with_wide_windows():
     assert wide([q1]) == 0
 
 
+def _sparse_inputs(dev, G, keep, A=1, P=2, C=12, L=2048, seed=70):
+    """A round-slice whose predicate keeps a share ``keep`` of the rows (w
+    zero on the others, their values finite), ids uniform over ``G``,
+    random carries: Q15's and Q10's shapes at s > 1."""
+    g = torch.Generator().manual_seed(seed)
+    vals = torch.rand((P, C, L, A), generator=g) * 1e4
+    w = (torch.rand((P, C, L), generator=g) < keep).float()
+    gids = torch.randint(0, G, (P, C, L), generator=g, dtype=torch.int32)
+    cs = torch.rand((P, G, A), generator=g) * 1e6
+    cq = torch.rand((P, G, A), generator=g) * 1e9
+    cm = torch.randint(0, 500, (P, G), generator=g).float()
+    return [t.to(dev) for t in (vals, w, gids, cs, cq, cm)]
+
+
+def _check_plain(got, want):
+    """Sums within RTOL of the plain version, counters bitwise."""
+    _close(got[0], want[0])
+    _close(got[1], want[1])
+    assert torch.equal(got[2], want[2])
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G, keep", [(1_000_000, 0.036), (15_000_000, 0.01)],
+                         ids=["q15", "q10"])
+def test_dropped_rows_group_step_matches_plain_versions(G, keep):
+    """At Q15's and Q10's shapes (L = 2048, A = 1, s = 32; w zero on 96% and
+    99% of the rows) phase 1 drops the zero-weight rows: K1 group, the K1
+    bundle (beside a scalar and a 4-group member) and K3 (alone and in a
+    bundle) against their plain versions, every bundle member bitwise its
+    solo launch."""
+    dev = _cuda()
+    vals, w, gids, cs, cq, cm = _sparse_inputs(dev, G, keep)
+    P, C, L, A = vals.shape
+    assert ops.group_step_span(L, A, G) == 32
+    q1 = _random_inputs(71, dev, P=P, A=4, G=4, C=C, L=L)
+    solo = FK.group_round_step(vals, w, gids, cs, cq, cm)
+    _check_plain(solo, ref.group_round_step(vals, w, gids, cs, cq, cm))
+    members = [(q1[0], q1[1], None, q1[3]), (q1[0], q1[1], q1[2], *q1[4:]),
+               (vals, w, gids, cs, cq, cm)]
+    bundle = FK.bundle_round_step(members)
+    assert all(torch.equal(x, y) for x, y in zip(bundle[2], solo))
+    assert all(torch.equal(x, y) for x, y in zip(bundle[1], FK.group_round_step(*members[1])))
+    flat = (vals.reshape(P, C * L, A), w.reshape(P, -1), gids.reshape(P, -1))
+    q1f = (q1[0].reshape(P, C * L, 4), q1[1].reshape(P, -1), q1[2].reshape(P, -1))
+    solo3 = ops.group_agg(*flat, num_groups=G, block_rows=L)
+    _check_plain(solo3, ref.group_agg(*flat, G, L))
+    both = ops.group_agg_bundle([(*q1f, 4), (*flat, G)], block_rows=L)
+    assert all(torch.equal(x, y) for x, y in zip(both[1], solo3))
+    assert all(torch.equal(x, y)
+               for x, y in zip(both[0], ops.group_agg(*q1f, num_groups=4, block_rows=L)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("A", [1, 2])
+def test_dropped_rows_keep_nan_and_inf_under_zero_weight(A):
+    """A value of NaN, inf or -inf under w = 0 makes its group's sums NaN
+    in the plain version (0·inf is NaN): phase 1 keeps such a row, so the
+    kernel's sums are NaN in the same places, and finite elsewhere within
+    RTOL; the counters stay bitwise."""
+    dev = _cuda()
+    G = 1_000_000
+    vals, w, gids, cs, cq, cm = _sparse_inputs(dev, G, 0.04, A=A, C=6, seed=72)
+    P, C, L, _ = vals.shape
+    assert ops.group_step_span(L, A, G) > 1
+    g = torch.Generator().manual_seed(73)
+    zero = (w == 0).nonzero()
+    pick = zero[torch.randperm(len(zero), generator=g)[:30]]
+    bad = torch.tensor([float("nan"), float("inf"), float("-inf")], device=dev)
+    for i, (p, c, r) in enumerate(pick.tolist()):
+        vals[p, c, r, i % A] = bad[i % 3]
+    args = (vals, w, gids, cs, cq, cm)
+    flat = (vals.reshape(P, C * L, A), w.reshape(P, -1), gids.reshape(P, -1))
+    for got, want in ((FK.group_round_step(*args), ref.group_round_step(*args)),
+                      (ops.group_agg(*flat, num_groups=G, block_rows=L),
+                       ref.group_agg(*flat, G, L))):
+        for x, y in zip(got[:2], want[:2]):
+            nan = torch.isnan(y)
+            assert nan.any() and torch.equal(torch.isnan(x), nan)
+            _close(x[~nan], y[~nan])
+        assert torch.equal(got[2], want[2])
+
+
+@pytest.mark.gpu
+def test_dropped_rows_chunks_with_every_row_and_with_none():
+    """A chunk whose rows are all kept and a chunk with none kept, beside
+    sparse ones, against the plain version; a partition with no kept row
+    writes no entry, so its carry passes through bitwise, a -0.0 included
+    (the one sign the drop keeps where adding +0.0 changed it), and K3's
+    sums there stay zero."""
+    dev = _cuda()
+    G = 1_000_000
+    vals, w, gids, cs, cq, cm = _sparse_inputs(dev, G, 0.03, C=5, seed=74)
+    P, C, L, A = vals.shape
+    w[1, 0] = 1.0  # every row kept
+    w[1, 3] = 0.0  # none kept
+    w[0] = 0.0  # no row kept in partition 0
+    cs[0, :1000] = -0.0
+    args = (vals, w, gids, cs, cq, cm)
+    got = FK.group_round_step(*args)
+    _check_plain(got, ref.group_round_step(*args))
+    for out, carry in zip(got, (cs, cq, cm)):
+        assert torch.equal(_bits(out[0]), _bits(carry[0]))
+    flat = (vals.reshape(P, C * L, A), w.reshape(P, -1), gids.reshape(P, -1))
+    got3 = ops.group_agg(*flat, num_groups=G, block_rows=L)
+    _check_plain(got3, ref.group_agg(*flat, G, L))
+    assert all(not x[0].any() for x in got3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["group", "group_agg"])
+def test_dropped_rows_sort_paths_give_the_same_bits(route):
+    """Chunks of partition 0 keep at most ``ops.RANK_SORT_ROWS`` rows (the
+    counted sort), those of partition 1 the same rows at the same places
+    plus more under larger ids (past it: the radix passes).  The added rows
+    sort after the others, so every shared id's run sits at the same
+    positions in both: its sums, runs of many rows among them, are the same
+    bits whichever sort ordered it."""
+    dev = _cuda()
+    T_ = ops.RANK_SORT_ROWS
+    G, X, P, C, L = 1_000_000, 40, 2, 5, 2048
+    g = torch.Generator().manual_seed(75)
+    vals = torch.rand((P, C, L, 1), generator=g) * 1e4
+    w = torch.zeros((P, C, L))
+    gids = torch.randint(X, G, (P, C, L), generator=g, dtype=torch.int32)
+    for c, (n0, n1) in enumerate(((T_ // 2, T_ + 1), (T_ - 1, T_ + 1), (T_, T_ + 1),
+                                  (T_, 2 * T_), (T_, L))):
+        rows = torch.randperm(L, generator=g)
+        shared, more = rows[:n0], rows[n0:n1]
+        ids = torch.randint(0, X, (n0,), generator=g, dtype=torch.int32)
+        for p in range(P):
+            gids[p, c, shared] = ids
+            w[p, c, shared] = 1.0
+            vals[p, c, :, 0] = vals[0, c, :, 0]
+        w[1, c, more] = 1.0
+    cs, cq = (torch.rand((1, G, 1), generator=g).expand(P, G, 1) for _ in range(2))
+    cm = torch.rand((1, G), generator=g).expand(P, G)
+    args = [t.contiguous().to(dev) for t in (vals, w, gids, cs, cq, cm)]
+    if route == "group":
+        got = FK.group_round_step(*args)
+        _check_plain(got, ref.group_round_step(*args))
+    else:
+        flat = (args[0].reshape(P, C * L, 1), args[1].reshape(P, -1), args[2].reshape(P, -1))
+        got = ops.group_agg(*flat, num_groups=G, block_rows=L)
+        _check_plain(got, ref.group_agg(*flat, G, L))
+    for t in got:
+        assert torch.equal(_bits(t[0, :X]), _bits(t[1, :X]))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("entry", ["pf_group", "pf_group_agg_bundle", "pf_bundle"])
 def test_group_step_refuses_a_scratch_table_below_its_layout(entry, monkeypatch):
@@ -1296,9 +1448,13 @@ def _k3_member(seed, dev, P, C, L, A, G):
 ], ids=["report", "q10"])
 def test_group_agg_bundle_members_equal_solo_and_one_table_launches(shapes):
     """``pf_group_agg_bundle``: each member at its own shape, bitwise its
-    solo K3 launch and its rows of the one table that stacked every member's
-    groups (values padded to the widest member, ids offset); repeats
-    bitwise; against the plain version within RTOL, counters exact."""
+    solo K3 launch; repeats bitwise; against the plain version within RTOL,
+    counters exact.  The one table that stacked every member's groups
+    (values padded to the widest member, ids offset) has a wide fold, so
+    its phase 1 drops every member's zero-weight rows: a member's rows of
+    it are bitwise that member alone at the table's shape, and its own
+    launch's bits where that launch drops them too (s > 1), else within
+    RTOL (runs of many rows, summed without the zeros), counters exact."""
     dev = _cuda()
     P, C, L = 4, 6, 2048
     members = [_k3_member(i, dev, P, C, L, A, G) for i, (A, G) in enumerate(shapes)]
@@ -1312,19 +1468,27 @@ def test_group_agg_bundle_members_equal_solo_and_one_table_launches(shapes):
     for _, G in shapes:
         offs.append(off)
         off += G
+    padded = [torch.nn.functional.pad(m[0], (0, A_max - m[0].shape[-1])).contiguous()
+              for m in members]
     table = ops.group_agg(
-        torch.cat([torch.nn.functional.pad(m[0], (0, A_max - m[0].shape[-1])) for m in members],
-                  1).contiguous(),
+        torch.cat(padded, 1).contiguous(),
         torch.cat([m[1] for m in members], 1).contiguous(),
         torch.cat([m[2] + o for m, o in zip(members, offs)], 1).contiguous(),
         num_groups=off, block_rows=L)
-    for m, o, a, b in zip(members, offs, got, again):
+    assert ops.group_step_span(L, A_max, off) > 1
+    for m, v, o, a, b in zip(members, padded, offs, got, again):
         (vals, w, gids, G), A = m, m[0].shape[-1]
         assert all(torch.equal(x, y) for x, y in zip(a, b))
         solo = ops.group_agg(vals, w, gids, num_groups=G, block_rows=L)
         assert all(torch.equal(x, y) for x, y in zip(a, solo))
         rows = (table[0][:, o:o + G, :A], table[1][:, o:o + G, :A], table[2][:, o:o + G])
-        assert all(torch.equal(x, y) for x, y in zip(a, rows))
+        alone = ops.group_agg(v, w, gids, num_groups=off, block_rows=L)
+        assert all(torch.equal(x, y) for x, y in zip(
+            rows, (alone[0][:, :G, :A], alone[1][:, :G, :A], alone[2][:, :G])))
+        if ops.group_step_span(L, A, G) > 1:
+            assert all(torch.equal(x, y) for x, y in zip(a, rows))
+        else:
+            _check_plain(a, rows)
         want = ref.group_agg(vals, w, gids, G, L)
         _close(a[0], want[0])
         _close(a[1], want[1])
